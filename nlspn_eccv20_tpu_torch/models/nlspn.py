@@ -1,0 +1,299 @@
+"""NLSPN model in PyTorch (NCHW), inference.
+
+Counterpart of ``nlspn_eccv20_tpu/models/nlspn.py``: a dual-branch encoder
+(RGB conv + S2D sparse-depth pyramid), ResNet-18/34 stages, a shared
+transposed-conv decoder with skip concats, the initial-depth / affinity /
+confidence heads, then ``prop_time`` steps of confidence-weighted spatial
+propagation with a ConvGRU affinity refresh.
+
+The loop runs three hand-written CUDA kernels on the card (``ops/kernels``):
+``prop_step`` 12 times and ``dep_encode_front`` and ``decode_aff_tail`` 11
+times per forward at the fork default. The model calls them through this
+module's names, with the JAX package's layouts at their boundary (planar
+planes and affinities, NHWC features). Everything else is stock PyTorch.
+
+Parameter names are the reference NLSPN ``state_dict`` names
+(``conv1_rgb.0.*``, ``S2D.pool_convs.0.0.*``, ``conv2..conv4``,
+``{id,off_aff,cf}_dec{1,0}.*``, ``encode_dep.{i}.0.*``, ``GRU.convz.*``,
+``aff_scale_const`` ...). Only the fixed-local propagation (``offset=False``)
+and eval-mode BatchNorm are ported so far.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nlspn_eccv20_tpu_torch.config import Config
+from nlspn_eccv20_tpu_torch.models.common import (
+    Conv,
+    ConvBNReLU,
+    ConvTBNReLU,
+    concat_trim,
+)
+from nlspn_eccv20_tpu_torch.models.resnet import make_encoder_stages
+from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity_planar
+from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import decode_aff_tail
+from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import dep_encode_front
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
+from nlspn_eccv20_tpu_torch.ops.planar import planar_channel_mlp
+
+
+def _mp3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 max pool, stride 1; its implicit -inf padding is max's identity."""
+    return F.max_pool2d(x, 3, 1, 1)
+
+
+class S2D(nn.Module):
+    """Sparse-to-dense depth encoder (reference nlspnmodel.py:406-462).
+
+    Min-pool pyramid (k = 3, 5, 7, 9; zeros flagged with a -999 sentinel so
+    they never win the min) and max-pool pyramid (k = 11, 13), both as
+    cascades of 3x3 pools (a k+2 pool is exactly a 3x3 pool of the k pool),
+    two 1x1 convs, concat with the raw depth, 3x3 conv to 32 channels. The
+    pooling stays f32 because of the sentinel.
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.pool_convs = nn.ModuleList([nn.Sequential(Conv(6, 8, 1)),
+                                         nn.Sequential(Conv(8, 16, 1))])
+        self.conv = ConvBNReLU(17, 32, 3, 1, bn=False)
+
+    def forward(self, dep: torch.Tensor) -> torch.Tensor:
+        d = dep.float()                              # (B, 1, H, W)
+        pools = []
+        m = torch.where(d == 0.0, -999.0, -d)
+        for _ in (3, 5, 7, 9):                       # min pyramid: max of -d
+            m = _mp3(m)
+            z = -m
+            pools.append(torch.where(z == 999.0, 0.0, z))
+        m = d
+        for s in range(3, 14, 2):                    # max pyramid: keep 11, 13
+            m = _mp3(m)
+            if s in (11, 13):
+                pools.append(m)
+        c0, c1 = self.pool_convs[0][0], self.pool_convs[1][0]
+        f16 = planar_channel_mlp(torch.cat(pools, dim=1),
+                                 c0.weight[:, :, 0, 0].t(), c0.bias,
+                                 c1.weight[:, :, 0, 0].t(), c1.bias)
+        return self.conv(torch.cat([f16, d], dim=1))
+
+
+class ConvGRU(nn.Module):
+    """3x3 conv GRU over the affinity hidden state (reference :386-403).
+
+    The z and r gates read the same concat(h, x); their convs run as one
+    conv over the concatenated weights (same math, one read of hx).
+    """
+
+    def __init__(self, hidden_dim: int, input_dim: int):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.convz = Conv(hidden_dim + input_dim, hidden_dim, 3)
+        self.convr = Conv(hidden_dim + input_dim, hidden_dim, 3)
+        self.convq = Conv(hidden_dim + input_dim, hidden_dim, 3)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        hd = self.hidden_dim
+        zr = F.conv2d(torch.cat([h, x], dim=1),
+                      torch.cat([self.convz.weight, self.convr.weight]),
+                      torch.cat([self.convz.bias, self.convr.bias]), padding=1)
+        z = torch.sigmoid(zr[:, :hd])
+        r = torch.sigmoid(zr[:, hd:])
+        q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
+        return (1.0 - z) * h + z * q
+
+
+class EncodeDep(nn.Sequential):
+    """Loop depth plane -> GRU input feature at 1/8 (reference :134-138).
+
+    conv0 (1->16) and conv1 (16->2c) run as the ``dep_encode_front`` kernel;
+    conv2 (2c->c) is a stock conv on its NHWC output.
+    """
+
+    def __init__(self, cfg: Config):
+        c = cfg.GRU_input_dim
+        super().__init__(ConvBNReLU(1, 16, 3, 2, bn=False),
+                         ConvBNReLU(16, 2 * c, 3, 2, bn=False),
+                         ConvBNReLU(2 * c, c, 3, 2, bn=False))
+
+    def forward(self, plane: torch.Tensor) -> torch.Tensor:
+        y = dep_encode_front(plane, self[0][0].weight, self[0][0].bias,
+                             self[1][0].weight, self[1][0].bias)
+        return self[2](y.permute(0, 3, 1, 2))
+
+
+class DecodeAff(nn.Sequential):
+    """GRU hidden state -> raw planar neighbor affinities (reference :140-144).
+
+    deconv0 is a stock transposed conv; deconv1 + ReLU + deconv2 run as the
+    ``decode_aff_tail`` kernel, whose output is planar (B, K2 - 1, H, W).
+    """
+
+    def __init__(self, cfg: Config):
+        c = cfg.GRU_hidden_dim
+        super().__init__(
+            ConvTBNReLU(c, 2 * c, bn=False),
+            ConvTBNReLU(2 * c, 16, bn=False),
+            ConvTBNReLU(16, cfg.num_neighbors, bn=False, relu=False,
+                        zero_init=cfg.zero_init_aff))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        x = self[0](h).permute(0, 2, 3, 1).contiguous()
+        return decode_aff_tail(x, self[1][0].weight, self[1][0].bias,
+                               self[2][0].weight, self[2][0].bias)
+
+
+class EncodeAff(nn.Sequential):
+    """Initial affinity -> GRU hidden state at 1/8, tanh (reference :127-132)."""
+
+    def __init__(self, cfg: Config):
+        c = cfg.GRU_hidden_dim
+        super().__init__(
+            ConvBNReLU(cfg.num_neighbors + 1, 16, 3, 2, bn=False),
+            ConvBNReLU(16, 2 * c, 3, 2, bn=False),
+            ConvBNReLU(2 * c, c, 3, 2, bn=False, relu=False))
+
+    def forward(self, aff: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(super().forward(aff))
+
+
+class NLSPNModel(nn.Module):
+    """Full NLSPN network. sample: {'rgb': (B, 3, H, W), 'dep': (B, 1, H, W)}."""
+
+    HEAD_WIDTH = 64  # per-head stage-1 channels (reference :67, 72, 78)
+
+    def __init__(self, cfg: Config):
+        super().__init__()
+        if cfg.offset:
+            raise NotImplementedError(
+                "offset=True (the deformable non-local gather) is ported in "
+                "the --offset slice, after training; this slice serves "
+                "offset=False")
+        if cfg.precision != "f32":
+            raise NotImplementedError("the port runs precision='f32' only so far")
+        self.cfg = cfg
+        nn_ = cfg.num_neighbors
+        width = self.HEAD_WIDTH
+
+        self.conv1_rgb = ConvBNReLU(3, 32, 3, 1, bn=False)
+        if cfg.use_S2D:
+            self.S2D = S2D()
+        else:
+            self.conv1_dep = ConvBNReLU(1, 32, 3, 1, bn=False)
+        self.conv2, self.conv3, self.conv4 = make_encoder_stages(cfg.network)
+        self.conv5 = ConvBNReLU(256, 256, 3, 2)
+        self.dec4 = ConvTBNReLU(256, 128)
+        self.dec3 = ConvTBNReLU(128 + 256, 64)
+        self.dec2 = ConvTBNReLU(64 + 128, 64)
+
+        # Heads: stage 1 on concat(fd2, fe2), stage 2 on concat(stage 1, fe1).
+        self.head_specs = [("id", 1), ("off_aff", nn_)]
+        if cfg.conf_prop:
+            self.head_specs.append(("cf", 1))
+        for name, n_out in self.head_specs:
+            self.add_module(f"{name}_dec1", ConvBNReLU(64 + 64, width, 3, 1))
+            self.add_module(f"{name}_dec0", ConvBNReLU(
+                width + 64, n_out, 3, 1, bn=False, relu=False,
+                zero_init=cfg.zero_init_aff and name == "off_aff"))
+
+        gamma_init = {"TC": float(nn_),
+                      "TGASS": cfg.affinity_gamma * nn_}.get(cfg.affinity, 1.0)
+        self.aff_scale_const = nn.Parameter(torch.full((1,), gamma_init))
+
+        if cfg.use_GRU:
+            self.encode_aff = EncodeAff(cfg)
+            self.encode_dep = EncodeDep(cfg)
+            self.decode_aff = DecodeAff(cfg)
+            self.GRU = ConvGRU(cfg.GRU_hidden_dim, cfg.GRU_input_dim)
+
+    def run_heads(self, fd2fe2: torch.Tensor, fe1: torch.Tensor):
+        """The JAX package's ``Heads``: planar (pred_init, raw aff, conf)."""
+        out = {name: getattr(self, f"{name}_dec0")(torch.cat(
+                   [getattr(self, f"{name}_dec1")(fd2fe2), fe1], dim=1))
+               for name, _ in self.head_specs}
+        pred_init = F.relu(out["id"][:, 0])
+        conf = torch.sigmoid(out["cf"][:, 0]) if "cf" in out else None
+        return pred_init, out["off_aff"], conf
+
+    def forward(self, sample: Dict[str, torch.Tensor],
+                need_inter: bool = True) -> Dict[str, object]:
+        if self.training:
+            raise NotImplementedError(
+                "training (BatchNorm batch statistics, backward kernels) "
+                "comes in a later slice; call .eval() first")
+        cfg = self.cfg
+        rgb, dep = sample["rgb"], sample["dep"].float()
+
+        # ---- Encoder (reference :276-288) ----
+        fe1_dep = self.S2D(dep) if cfg.use_S2D else self.conv1_dep(dep)
+        fe1 = torch.cat([self.conv1_rgb(rgb), fe1_dep], dim=1)    # 64 @ 1/1
+        fe2 = self.conv2(fe1)                                      # 64 @ 1/1
+        fe3 = self.conv3(fe2)                                      # 128 @ 1/2
+        fe4 = self.conv4(fe3)                                      # 256 @ 1/4
+        fe5 = self.conv5(fe4)                                      # 256 @ 1/8
+
+        # ---- Shared decoder (reference :291-293) ----
+        fd4 = self.dec4(fe5)
+        fd3 = self.dec3(concat_trim(fd4, fe4))
+        fd2 = self.dec2(concat_trim(fd3, fe3))
+        pred_init, aff_raw, conf = self.run_heads(concat_trim(fd2, fe2), fe1)
+
+        # ---- Affinity normalization (reference :179-201, 323-325) ----
+        gamma = self.aff_scale_const
+        aff = normalize_affinity_planar(aff_raw, gamma, cfg.affinity).contiguous()
+        dep_p = dep[:, 0].contiguous()
+        h, w = dep_p.shape[1:]
+
+        # ---- Input preservation and the k == 1 blend (reference :328-348) ----
+        pred = pred_init
+        if cfg.preserve_input:
+            mask_fix = (dep_p > 0.0).float()
+            if conf is not None:
+                conf = (1.0 - mask_fix) * conf + mask_fix
+            pred = (1.0 - mask_fix) * pred + mask_fix * dep_p
+        if cfg.always_clip:
+            pred = torch.clamp_min(pred, 0.0)
+        if conf is not None:
+            conf = conf.contiguous()
+        pred = pred.contiguous()
+
+        def step(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+            return prop_step(p, a, conf, dep_p if cfg.preserve_input else None,
+                             kernel=cfg.prop_kernel,
+                             preserve=cfg.preserve_input,
+                             clip=cfg.always_clip)
+
+        # ---- Propagation loop (reference :340-373) ----
+        inter = []
+        if cfg.use_GRU:
+            aff_feat = self.encode_aff(aff)
+        for _ in range(cfg.prop_time - 1):
+            pred = step(pred, aff)
+            if need_inter:
+                inter.append(pred)
+            if cfg.use_GRU:
+                dep_feat = self.encode_dep(pred / cfg.max_depth)
+                aff_feat = self.GRU(aff_feat, dep_feat)
+                raw = self.decode_aff(aff_feat)[:, :, :h, :w]
+                aff = normalize_affinity_planar(raw, gamma, cfg.affinity).contiguous()
+        # Final iteration: propagate only, no GRU refresh (reference k == K).
+        pred = step(pred, aff)
+        if need_inter:
+            inter.append(pred)
+        if not cfg.always_clip:
+            pred = F.relu(pred)
+
+        return {
+            "pred": pred[:, None],
+            "pred_init": pred_init[:, None],
+            "pred_inter": [p[:, None] for p in inter],
+            "offset": None,
+            "aff": aff,
+            "gamma": gamma.detach(),
+            "confidence": conf[:, None] if conf is not None else None,
+        }

@@ -1,0 +1,55 @@
+"""The PyTorch port stands alone: no JAX, Flax or JAX-package import, and no
+silent fall back to the CPU when there is no card."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "nlspn_eccv20_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nlspn_eccv20_tpu")
+
+
+def port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def imported_modules(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports(path):
+    for mod in imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_sources_found():
+    rel = {os.path.relpath(p, REPO) for p in port_sources()}
+    assert {"chip_smoke.py", "nlspn_eccv20_tpu_torch/serve.py",
+            "nlspn_eccv20_tpu_torch/models/nlspn.py"} <= rel
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.models import get_model
+    from nlspn_eccv20_tpu_torch.serve import Predictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(Config())
