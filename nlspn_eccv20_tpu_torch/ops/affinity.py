@@ -23,9 +23,9 @@ def insert_center_affinity_planar(aff: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_affinity_planar(aff: torch.Tensor, gamma: torch.Tensor,
-                              mode: str = "TGASS",
-                              insert_center: bool = True) -> torch.Tensor:
-    """Normalize raw (B, N, H, W) neighbor affinities; gamma has shape (1,)."""
+                              mode: str = "TGASS") -> torch.Tensor:
+    """Normalize raw (B, N, H, W) neighbor affinities and insert the center:
+    (B, N + 1, H, W). gamma has shape (1,)."""
     if mode not in VALID_AFFINITY_MODES:
         raise NotImplementedError(f"affinity mode {mode}")
 
@@ -40,6 +40,4 @@ def normalize_affinity_planar(aff: torch.Tensor, gamma: torch.Tensor,
     if mode in ("AS", "ASS", "TGASS"):
         aff = aff / aff_abs_sum
 
-    if insert_center:
-        aff = insert_center_affinity_planar(aff)
-    return aff
+    return insert_center_affinity_planar(aff)

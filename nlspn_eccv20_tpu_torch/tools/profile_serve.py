@@ -8,10 +8,11 @@ the device time by group (the port's three kernels, convolutions, the
 rest), and the top kernels by device time. TF32 stays off, as in
 ``chip_smoke.py``. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--cudnn-benchmark]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--cudnn-heuristics]
 
-``--cudnn-benchmark`` lets cuDNN time its algorithms for each shape first
-(``torch.backends.cudnn.benchmark``); without it cuDNN picks by heuristics.
+``Predictor`` lets cuDNN time its algorithms for each conv shape first
+(``torch.backends.cudnn.benchmark``); ``--cudnn-heuristics`` turns that off
+again, so that cuDNN picks by heuristics, to measure what it saves.
 """
 
 from __future__ import annotations
@@ -45,19 +46,19 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cudnn-benchmark", action="store_true")
+    ap.add_argument("--cudnn-heuristics", action="store_true")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.benchmark = args.cudnn_benchmark
     cfg = Config()
     predictor = Predictor(cfg)                  # the CUDA card or raise
+    torch.backends.cudnn.benchmark = not args.cudnn_heuristics
     randomize_(predictor.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(2)
-    tag = "cudnn-benchmark" if args.cudnn_benchmark else "cudnn-heuristics"
+    tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
     report = {"device": torch.cuda.get_device_name(0), "mode": tag}
 
     for b in (1, 4):
