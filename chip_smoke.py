@@ -20,7 +20,9 @@ Phases (any failure exits non-zero and prints no result):
      with the plain versions;
   5. the kernel line, then {"ok": true, "device": ...} as the last line.
 
-TF32 is off for cuDNN and for matmuls: every number here is float32.
+TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
+runs in benchmark mode (it times its algorithms per conv shape), as the
+serving path does.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
 prop_step <= 1e-5 (same operations in the same order: equal bits expected),
 decode_aff_tail and dep_encode_front <= 1e-4 (f32 sums of 2,304 products in
@@ -77,6 +79,9 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the cuDNN setting the serving path runs under (Predictor.predict_batch),
+    # so that plain and library times are held against the same cuDNN
+    torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -87,6 +92,7 @@ def main() -> int:
     log(f"[card] {card}")
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda}; "
         f"TF32 off (cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False); "
+        f"cudnn.benchmark=True; "
         f"peaks used for bounds: {peak}")
 
     # ---- 2. build ----

@@ -30,8 +30,22 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _cudnn_benchmark_mode():
+    """cuDNN times its algorithms once per conv shape, for the calls inside
+    this context only; every other cuDNN flag keeps its current value. Its
+    heuristics pick FFT convs at b=4 that double the forward's time
+    (PERF.md)."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=True,
+                   deterministic=b.deterministic, allow_tf32=b.allow_tf32)
+
+
 class Predictor:
-    """Shape-bucketed NLSPN inference on one device."""
+    """Shape-bucketed NLSPN inference on one device.
+
+    ``predict_batch`` runs the model in cuDNN's benchmark mode without
+    changing the process-wide ``torch.backends.cudnn.benchmark``; a caller
+    that runs ``self.model`` directly sets that flag itself."""
 
     def __init__(self, cfg: Config,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -40,11 +54,6 @@ class Predictor:
         self.bucket = bucket
         self.model = get_model(cfg, device)
         self.device = self.model.aff_scale_const.device
-        if self.device.type == "cuda":
-            # cuDNN then times its algorithms once per conv shape; its
-            # heuristics pick FFT convs at b=4 that double the forward's
-            # time (PERF.md). A process-wide setting, like a compile cache.
-            torch.backends.cudnn.benchmark = True
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
 
@@ -87,7 +96,7 @@ class Predictor:
 
     def predict_batch(self, rgbs, deps) -> list:
         sample, sizes = self.make_sample(rgbs, deps)
-        with torch.inference_mode():
+        with torch.inference_mode(), _cudnn_benchmark_mode():
             pred = self.model(sample, need_inter=False)["pred"][:, 0]
         pred = pred.cpu().numpy()
         return [pred[i, :h, :w] for i, (h, w) in enumerate(sizes)]

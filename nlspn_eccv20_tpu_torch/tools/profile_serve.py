@@ -10,9 +10,10 @@ rest), and the top kernels by device time. TF32 stays off, as in
 
     python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--cudnn-heuristics]
 
-``Predictor`` lets cuDNN time its algorithms for each conv shape first
-(``torch.backends.cudnn.benchmark``); ``--cudnn-heuristics`` turns that off
-again, so that cuDNN picks by heuristics, to measure what it saves.
+By default cuDNN times its algorithms for each conv shape first
+(``torch.backends.cudnn.benchmark``), as ``Predictor.predict_batch`` has it
+do; ``--cudnn-heuristics`` leaves cuDNN to pick by heuristics, to measure
+what benchmark mode saves.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from nlspn_eccv20_tpu_torch.serve import Predictor
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
 OUR_KERNELS = ("prop_step_kernel", "dec_aff_tail_kernel", "dep_encode_front_kernel")
+ITERS = 5          # forwards in the profiled window
 
 
 def group_of(name: str) -> str:
@@ -47,15 +49,14 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cudnn-heuristics", action="store_true")
-    ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = not args.cudnn_heuristics
     cfg = Config()
     predictor = Predictor(cfg)                  # the CUDA card or raise
-    torch.backends.cudnn.benchmark = not args.cudnn_heuristics
     randomize_(predictor.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(2)
     tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
@@ -84,7 +85,7 @@ def main(argv=None) -> int:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                for _ in range(args.iters):
+                for _ in range(ITERS):
                     predictor.model(sample, need_inter=False)
                 end.record()
                 end.synchronize()
@@ -101,19 +102,19 @@ def main(argv=None) -> int:
             busy[group_of(a.key)] += us
             count[group_of(a.key)] += a.count
             by_name[a.key] += us
-        total_ms = sum(busy.values()) / 1e3 / args.iters
+        total_ms = sum(busy.values()) / 1e3 / ITERS
         row = {
             "batch": b,
             "forward_ms_median": sorted(fwd)[5],
-            "profiled_window_ms_per_forward": window_ms / args.iters,
+            "profiled_window_ms_per_forward": window_ms / ITERS,
             "device_busy_ms_per_forward": total_ms,
-            "device_idle_share": 1.0 - total_ms / (window_ms / args.iters),
-            "kernel_launches_per_forward": sum(count.values()) / args.iters,
-            "groups_ms_per_forward": {g: v / 1e3 / args.iters for g, v in
+            "device_idle_share": 1.0 - total_ms / (window_ms / ITERS),
+            "kernel_launches_per_forward": sum(count.values()) / ITERS,
+            "groups_ms_per_forward": {g: v / 1e3 / ITERS for g, v in
                                       sorted(busy.items(), key=lambda kv: -kv[1])},
-            "group_launches_per_forward": {g: n / args.iters for g, n in count.items()},
+            "group_launches_per_forward": {g: n / ITERS for g, n in count.items()},
             "top_kernels_ms_per_forward": [
-                (n[:90], v / 1e3 / args.iters) for n, v in
+                (n[:90], v / 1e3 / ITERS) for n, v in
                 sorted(by_name.items(), key=lambda kv: -kv[1])[:15]],
         }
         report[f"b{b}"] = row

@@ -121,7 +121,6 @@ def _port_front(x, w0, b0, w1, b1):
 @pytest.mark.parametrize("shape", [(2, 24, 40, 16, 32), (1, 16, 24, 16, 8)])
 def test_dep_encode_front_matches_pallas(monkeypatch, shape):
     monkeypatch.setattr(jax_def, "FORCE_PALLAS_INTERPRET", True)
-    monkeypatch.setattr(jax_dat, "MATMUL_PRECISION", "highest")
     args = _front_inputs(np.random.default_rng(1), *shape)
     ref = jax_def._fwd_pallas(*map(jnp.asarray, args), jnp.float32)
     out = _port_front(*args)

@@ -61,6 +61,17 @@ def test_ragged_batch_matches_jax(predictors):
         assert_close(o, r)
 
 
+def test_predict_leaves_global_cudnn_flags(predictors):
+    """Serving picks cuDNN's benchmark mode for its own calls only."""
+    import torch
+    cudnn = torch.backends.cudnn
+    before = (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+              cudnn.allow_tf32)
+    predictors[0].predict(*[r[0] for r in requests([(16, 16)], seed=2)])
+    assert (cudnn.enabled, cudnn.benchmark, cudnn.deterministic,
+            cudnn.allow_tf32) == before
+
+
 def test_benchmark_needs_the_card(predictors):
     with pytest.raises(RuntimeError):
         predictors[0].benchmark(32, 32, calls=1)
