@@ -35,6 +35,10 @@
 // coalesced float2 pairs. The TPU kernel's phase decomposition into shifted
 // matmuls, its one-hot interleave matmuls and its 128-lane padding are
 // Mosaic devices and are not carried over. Plain f32 FMAs: no tensor cores.
+//
+// For training the caller may pass y1 (B, 16, 2Hg, 2Wg): each block then
+// also writes the intermediate it owns (without the halo), and the backward
+// (dec_aff_tail_bwd.cu) reads it instead of recomputing deconv1.
 
 #include <cuda_runtime.h>
 
@@ -71,7 +75,7 @@ __global__ void __launch_bounds__(NT)
 dec_aff_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out,
-                    int Hg, int Wg, int C) {
+                    float* __restrict__ y1out, int Hg, int Wg, int C) {
   static_assert(K % 4 == 0, "K in groups of 4");
   static_assert(M * 9 * K + K <= PHASE1, "deconv2 weights fit the union");
   // The union holds [w1s | xs] while deconv1 runs, then [w2s | b2s].
@@ -162,6 +166,16 @@ dec_aff_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   }
   __syncthreads();
 
+  if (y1out) {  // the owned 2TH x 2TW intermediate, coalesced along u
+    const int H1 = 2 * Hg, W1 = 2 * Wg;
+    for (int i = tid; i < M * 2 * TH * 2 * TW; i += NT) {
+      const int u = i % (2 * TW), v = (i / (2 * TW)) % (2 * TH), m = i / (4 * TH * TW);
+      const int gy = 2 * a0 + v, gx = 2 * t0 + u;
+      if (gy < H1 && gx < W1)
+        y1out[(((long)b * M + m) * H1 + gy) * W1 + gx] = y1s[m][v][u];
+    }
+  }
+
   // ---- deconv2: thread = (quad, group of 4 output channels) ----
   float* w2s = un;            // [M][9][K]
   float* b2s = un + M * 9 * K;
@@ -220,17 +234,19 @@ dec_aff_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch. K must be 8 or 24.
+// Returns cudaGetLastError() after the launch. K must be 8 or 24. y1 may be
+// null (no intermediate written).
 extern "C" int dec_aff_tail_f32(const float* x, const float* w1,
                                 const float* b1, const float* w2,
-                                const float* b2, float* out, int B, int Hg,
-                                int Wg, int C, int K, void* stream) {
+                                const float* b2, float* out, float* y1,
+                                int B, int Hg, int Wg, int C, int K,
+                                void* stream) {
   const dim3 grid((Wg + TW - 1) / TW, (Hg + TH - 1) / TH, B);
   cudaStream_t s = (cudaStream_t)stream;
   if (K == 8) {
-    dec_aff_tail_kernel<8><<<grid, NT, 0, s>>>(x, w1, b1, w2, b2, out, Hg, Wg, C);
+    dec_aff_tail_kernel<8><<<grid, NT, 0, s>>>(x, w1, b1, w2, b2, out, y1, Hg, Wg, C);
   } else if (K == 24) {
-    dec_aff_tail_kernel<24><<<grid, NT, 0, s>>>(x, w1, b1, w2, b2, out, Hg, Wg, C);
+    dec_aff_tail_kernel<24><<<grid, NT, 0, s>>>(x, w1, b1, w2, b2, out, y1, Hg, Wg, C);
   } else {
     return (int)cudaErrorInvalidValue;
   }

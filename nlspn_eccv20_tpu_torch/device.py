@@ -21,3 +21,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
+
+
+def cudnn_benchmark_mode():
+    """cuDNN times its algorithms once per conv shape, for the calls inside
+    this context only; every other cuDNN flag keeps its current value. Its
+    heuristics pick FFT convs at b=4 that double the forward's time
+    (PERF.md)."""
+    b = torch.backends.cudnn
+    return b.flags(enabled=b.enabled, benchmark=True,
+                   deterministic=b.deterministic, allow_tf32=b.allow_tf32)

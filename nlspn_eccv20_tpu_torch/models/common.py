@@ -10,13 +10,16 @@ to XLA. ``ConvTranspose`` keeps torch's own (un-flipped) weight layout
 ``(in, out, k, k)``; the weight bridge un-flips the JAX package's
 pre-flipped storage.
 
-BatchNorm runs in eval mode with its running statistics (serving only in
-this slice), eps 1e-5 as in the JAX package.
+``BatchNorm`` normalises with its running statistics in eval mode and with
+the batch's in train mode, eps 1e-5 and momentum 0.1 as in the JAX package;
+in train mode it updates the running variance with the batch's biased
+variance, as Flax does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -43,8 +46,24 @@ def ConvTranspose(ch_in: int, ch_out: int, bias: bool = True,
     return conv
 
 
-def BatchNorm(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+class BatchNorm(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same state_dict names) whose train mode updates
+    ``running_var`` with the biased batch variance, as Flax's BatchNorm
+    does; ``nn.BatchNorm2d`` would use the unbiased one."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
 
 
 class ConvBNReLU(nn.Sequential):

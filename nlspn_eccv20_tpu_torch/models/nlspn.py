@@ -1,4 +1,4 @@
-"""NLSPN model in PyTorch (NCHW), inference.
+"""NLSPN model in PyTorch (NCHW), inference and training.
 
 Counterpart of ``nlspn_eccv20_tpu/models/nlspn.py``: a dual-branch encoder
 (RGB conv + S2D sparse-depth pyramid), ResNet-18/34 stages, a shared
@@ -16,7 +16,14 @@ Parameter names are the reference NLSPN ``state_dict`` names
 (``conv1_rgb.0.*``, ``S2D.pool_convs.0.0.*``, ``conv2..conv4``,
 ``{id,off_aff,cf}_dec{1,0}.*``, ``encode_dep.{i}.0.*``, ``GRU.convz.*``,
 ``aff_scale_const`` ...). Only the fixed-local propagation (``offset=False``)
-and eval-mode BatchNorm are ported so far.
+is ported so far.
+
+Training runs the same forward in train mode (BatchNorm on batch statistics)
+and differentiates through the kernels' autograd Functions, whose backward
+kernels run 12 and 11 times per step. Gradients follow the JAX package's
+conventions: ``torch.maximum`` against zero where it writes ``jnp.maximum``
+(half the gradient at an exact tie), ``F.relu`` where it writes ``nn.relu``
+(none), and ``aff_scale_const`` trains only under TGASS.
 """
 
 from __future__ import annotations
@@ -222,10 +229,6 @@ class NLSPNModel(nn.Module):
 
     def forward(self, sample: Dict[str, torch.Tensor],
                 need_inter: bool = True) -> Dict[str, object]:
-        if self.training:
-            raise NotImplementedError(
-                "training (BatchNorm batch statistics, backward kernels) "
-                "comes in a later slice; call .eval() first")
         cfg = self.cfg
         rgb, dep = sample["rgb"], sample["dep"].float()
 
@@ -245,6 +248,8 @@ class NLSPNModel(nn.Module):
 
         # ---- Affinity normalization (reference :179-201, 323-325) ----
         gamma = self.aff_scale_const
+        if cfg.affinity != "TGASS":
+            gamma = gamma.detach()  # frozen for AS/ASS/TC (reference :95-102)
         aff = normalize_affinity_planar(aff_raw, gamma, cfg.affinity).contiguous()
         dep_p = dep[:, 0].contiguous()
         h, w = dep_p.shape[1:]
@@ -257,7 +262,7 @@ class NLSPNModel(nn.Module):
                 conf = (1.0 - mask_fix) * conf + mask_fix
             pred = (1.0 - mask_fix) * pred + mask_fix * dep_p
         if cfg.always_clip:
-            pred = torch.clamp_min(pred, 0.0)
+            pred = torch.maximum(pred, torch.zeros_like(pred))
         if conf is not None:
             conf = conf.contiguous()
         pred = pred.contiguous()
@@ -286,7 +291,7 @@ class NLSPNModel(nn.Module):
         if need_inter:
             inter.append(pred)
         if not cfg.always_clip:
-            pred = F.relu(pred)
+            pred = torch.maximum(pred, torch.zeros_like(pred))
 
         return {
             "pred": pred[:, None],

@@ -36,7 +36,8 @@ def normalize_affinity_planar(aff: torch.Tensor, gamma: torch.Tensor,
 
     aff_abs_sum = torch.sum(torch.abs(aff), dim=1, keepdim=True) + 1e-4
     if mode in ("ASS", "TGASS"):
-        aff_abs_sum = torch.clamp(aff_abs_sum, min=1.0)
+        # jnp.maximum's convention: half the gradient to each side at a tie
+        aff_abs_sum = torch.maximum(aff_abs_sum, torch.ones_like(aff_abs_sum))
     if mode in ("AS", "ASS", "TGASS"):
         aff = aff / aff_abs_sum
 

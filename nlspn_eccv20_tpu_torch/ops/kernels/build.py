@@ -48,8 +48,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by the hash of the source,
+    the shared headers of ``csrc/`` and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
@@ -93,8 +98,9 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, str]:
 def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
 
-    ``signatures`` maps each C entry point to its ``argtypes``; every entry
-    returns an ``int`` (a ``cudaError_t``).
+    ``signatures`` maps each C entry point to its ``argtypes``, or to
+    ``(argtypes, restype)``; an entry without a restype returns an ``int``
+    (a ``cudaError_t``).
     """
     lib = _loaded.get(name)
     if lib is None:
@@ -102,9 +108,10 @@ def load(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
         if not os.path.exists(path):
             build_all([name])
         lib = ctypes.CDLL(path)
-        for fn, argtypes in signatures.items():
+        for fn, sig in signatures.items():
+            argtypes, restype = sig if isinstance(sig, tuple) else (sig, ctypes.c_int)
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
 

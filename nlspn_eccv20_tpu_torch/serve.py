@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from nlspn_eccv20_tpu_torch.config import Config
+from nlspn_eccv20_tpu_torch.device import cudnn_benchmark_mode
 from nlspn_eccv20_tpu_torch.models import get_model
 
 # ImageNet statistics (the JAX package's data/transforms.py).
@@ -28,16 +29,6 @@ IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _cudnn_benchmark_mode():
-    """cuDNN times its algorithms once per conv shape, for the calls inside
-    this context only; every other cuDNN flag keeps its current value. Its
-    heuristics pick FFT convs at b=4 that double the forward's time
-    (PERF.md)."""
-    b = torch.backends.cudnn
-    return b.flags(enabled=b.enabled, benchmark=True,
-                   deterministic=b.deterministic, allow_tf32=b.allow_tf32)
 
 
 class Predictor:
@@ -96,7 +87,7 @@ class Predictor:
 
     def predict_batch(self, rgbs, deps) -> list:
         sample, sizes = self.make_sample(rgbs, deps)
-        with torch.inference_mode(), _cudnn_benchmark_mode():
+        with torch.inference_mode(), cudnn_benchmark_mode():
             pred = self.model(sample, need_inter=False)["pred"][:, 0]
         pred = pred.cpu().numpy()
         return [pred[i, :h, :w] for i, (h, w) in enumerate(sizes)]

@@ -177,9 +177,22 @@ def test_unported_options_raise(kw):
         get_model(Config(**kw), device="cpu")
 
 
-def test_training_mode_raises():
-    model = get_model(Config(**TINY), device="cpu").train()
-    s = sample(1, 32, 32)
-    with pytest.raises(NotImplementedError):
-        model({"rgb": torch.from_numpy(nchw(s["rgb"])),
-               "dep": torch.from_numpy(nchw(s["dep"]))})
+def test_training_forward_reaches_every_parameter():
+    """A train-mode forward on the CPU gives a loss whose backward gives
+    every trainable parameter a finite gradient: the kernels' autograd
+    Functions pass gradients through the loop to every layer before it."""
+    from nlspn_eccv20_tpu_torch.losses import LossFunction
+
+    cfg = Config(**TINY)
+    model = randomize_(get_model(cfg, device="cpu"),
+                       torch.Generator().manual_seed(0)).train()
+    s = sample(2, 32, 32)
+    batch = {"rgb": torch.from_numpy(nchw(s["rgb"])),
+             "dep": torch.from_numpy(nchw(s["dep"])),
+             "gt": torch.from_numpy(nchw(s["dep"])) + 1.0}
+    loss, _ = LossFunction(cfg)(batch, model(batch, need_inter=False))
+    loss.backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert torch.isfinite(p.grad).all(), name
+        assert torch.count_nonzero(p.grad) > 0, name
