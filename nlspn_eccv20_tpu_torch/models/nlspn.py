@@ -6,17 +6,27 @@ transposed-conv decoder with skip concats, the initial-depth / affinity /
 confidence heads, then ``prop_time`` steps of confidence-weighted spatial
 propagation with a ConvGRU affinity refresh.
 
-The loop runs three hand-written CUDA kernels on the card (``ops/kernels``):
+The loop runs hand-written CUDA kernels on the card (``ops/kernels``):
 ``prop_step`` 12 times and ``dep_encode_front`` and ``decode_aff_tail`` 11
-times per forward at the fork default. The model calls them through this
-module's names, with the JAX package's layouts at their boundary (planar
-planes and affinities, NHWC features). Everything else is stock PyTorch.
+times per forward at the fork default; with ``offset=True`` (the non-local
+propagation) ``deform_prop`` takes ``prop_step``'s place. The model calls
+them through this module's names, with the JAX package's layouts at their
+boundary (planar planes, affinities and offsets, NHWC features). Everything
+else is stock PyTorch.
 
 Parameter names are the reference NLSPN ``state_dict`` names
 (``conv1_rgb.0.*``, ``S2D.pool_convs.0.0.*``, ``conv2..conv4``,
 ``{id,off_aff,cf}_dec{1,0}.*``, ``encode_dep.{i}.0.*``, ``GRU.convz.*``,
-``aff_scale_const`` ...). Only the fixed-local propagation (``offset=False``)
-is ported so far.
+``aff_scale_const`` ...).
+
+With ``offset=True`` the ``off_aff`` head emits 3 N channels (N = K2 - 1):
+N (dy, dx) offset pairs, then N raw affinities. The offsets get a zero pair
+for the reference pixel and stay fixed for all steps (the ConvGRU refreshes
+only the affinities). In train mode they are clamped to
+[-offset_window, offset_window] (as ``jnp.clip``, gradient included) and
+the step's backward follows the JAX windowed form's tie rules; in eval mode
+the step is the exact gather for any offsets, as the JAX package's runtime
+switch between its windowed and exact forms computes.
 
 Training runs the same forward in train mode (BatchNorm on batch statistics)
 and differentiates through the kernels' autograd Functions, whose backward
@@ -42,11 +52,16 @@ from nlspn_eccv20_tpu_torch.models.common import (
     concat_trim,
 )
 from nlspn_eccv20_tpu_torch.models.resnet import make_encoder_stages
-from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity_planar
+from nlspn_eccv20_tpu_torch.ops.affinity import (
+    insert_center_offset_planar,
+    normalize_affinity_planar,
+)
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import decode_aff_tail
+from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import dep_encode_front
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
 from nlspn_eccv20_tpu_torch.ops.planar import planar_channel_mlp
+from nlspn_eccv20_tpu_torch.ops.propagate import clamp_offsets
 
 
 def _mp3(x: torch.Tensor) -> torch.Tensor:
@@ -176,11 +191,6 @@ class NLSPNModel(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.offset:
-            raise NotImplementedError(
-                "offset=True (the deformable non-local gather) is ported in "
-                "the --offset slice, after training; this slice serves "
-                "offset=False")
         if cfg.precision != "f32":
             raise NotImplementedError("the port runs precision='f32' only so far")
         self.cfg = cfg
@@ -199,7 +209,7 @@ class NLSPNModel(nn.Module):
         self.dec2 = ConvTBNReLU(64 + 128, 64)
 
         # Heads: stage 1 on concat(fd2, fe2), stage 2 on concat(stage 1, fe1).
-        self.head_specs = [("id", 1), ("off_aff", nn_)]
+        self.head_specs = [("id", 1), ("off_aff", 3 * nn_ if cfg.offset else nn_)]
         if cfg.conf_prop:
             self.head_specs.append(("cf", 1))
         for name, n_out in self.head_specs:
@@ -245,6 +255,14 @@ class NLSPNModel(nn.Module):
         fd3 = self.dec3(concat_trim(fd4, fe4))
         fd2 = self.dec2(concat_trim(fd3, fe3))
         pred_init, aff_raw, conf = self.run_heads(concat_trim(fd2, fe2), fe1)
+        off = step_off = radius = None
+        if cfg.offset:
+            off = insert_center_offset_planar(aff_raw[:, :2 * cfg.num_neighbors])
+            aff_raw = aff_raw[:, 2 * cfg.num_neighbors:]
+            step_off = off
+            if self.training:  # JAX: fallback=False clamps, then the window
+                radius = cfg.offset_window
+                step_off = clamp_offsets(off, radius)
 
         # ---- Affinity normalization (reference :179-201, 323-325) ----
         gamma = self.aff_scale_const
@@ -268,10 +286,12 @@ class NLSPNModel(nn.Module):
         pred = pred.contiguous()
 
         def step(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-            return prop_step(p, a, conf, dep_p if cfg.preserve_input else None,
-                             kernel=cfg.prop_kernel,
-                             preserve=cfg.preserve_input,
-                             clip=cfg.always_clip)
+            kw = dict(kernel=cfg.prop_kernel, preserve=cfg.preserve_input,
+                      clip=cfg.always_clip)
+            d = dep_p if cfg.preserve_input else None
+            if off is not None:
+                return deform_prop(p, step_off, a, conf, d, radius=radius, **kw)
+            return prop_step(p, a, conf, d, **kw)
 
         # ---- Propagation loop (reference :340-373) ----
         inter = []
@@ -297,7 +317,7 @@ class NLSPNModel(nn.Module):
             "pred": pred[:, None],
             "pred_init": pred_init[:, None],
             "pred_inter": [p[:, None] for p in inter],
-            "offset": None,
+            "offset": off,
             "aff": aff,
             "gamma": gamma.detach(),
             "confidence": conf[:, None] if conf is not None else None,

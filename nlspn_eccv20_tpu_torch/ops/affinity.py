@@ -5,7 +5,8 @@ Counterpart of the planar functions of ``nlspn_eccv20_tpu/ops/affinity.py``
 tanh/gamma scaling (TC / TGASS), abs-sum + 1e-4, the sum clamped to at least
 1 (ASS / TGASS), division (AS / ASS / TGASS; TC is scaled but not divided),
 then the reference pixel's affinity ``1 - sum(aff)`` inserted at channel
-``N // 2``.
+``N // 2``. ``insert_center_offset_planar`` is the offset counterpart
+(reference ``_off_insert``): a zero (dy, dx) pair for the reference pixel.
 """
 
 from __future__ import annotations
@@ -20,6 +21,14 @@ def insert_center_affinity_planar(aff: torch.Tensor) -> torch.Tensor:
     idx_ref = aff.shape[1] // 2
     center = 1.0 - torch.sum(aff, dim=1, keepdim=True)
     return torch.cat([aff[:, :idx_ref], center, aff[:, idx_ref:]], dim=1)
+
+
+def insert_center_offset_planar(off: torch.Tensor) -> torch.Tensor:
+    """(B, 2N, H, W) offsets, neighbour j's (dy, dx) at channels (2j, 2j+1)
+    -> (B, 2(N + 1), H, W) with a zero pair at neighbour N // 2."""
+    cut = 2 * (off.shape[1] // 4)
+    zeros = off.new_zeros((off.shape[0], 2) + off.shape[2:])
+    return torch.cat([off[:, :cut], zeros, off[:, cut:]], dim=1)
 
 
 def normalize_affinity_planar(aff: torch.Tensor, gamma: torch.Tensor,

@@ -1,0 +1,254 @@
+"""Kernel K7: one deformable (``--offset``) propagation step with its conf
+weighting, blend and clip, and its backward K8.
+
+K7 replaces the TPU kernel ``deform_prop._fwd_kernel`` (reached from
+``_deform_fwd_pallas``, ``nlspn_eccv20_tpu/ops/pallas/deform_prop.py``) and
+the elementwise work around it (models/nlspn.py ``_prop_and_blend``); CUDA
+source ``csrc/deform_prop.cu``. K8 replaces its backward
+(``_deform_bwd_pallas``: ``_bwd_kernel`` and ``_bwd_scatter_kernel``); CUDA
+source ``csrc/deform_prop_bwd.cu``. Each source's header says what bounds it
+on the card and how it is laid out.
+
+The forward is the exact bilinear gather, zero outside the image, for any
+offsets: that is what the JAX package computes in eval (its windowed form
+inside the window, its exact gather beyond) and in training, where the
+caller has clamped the offsets to [-radius, radius] first
+(``ops.propagate.clamp_offsets``). The backward follows the windowed form's
+gradient conventions (the tent's slope is -sign(t) with sign(0) = +1, half
+at |t| = 1, zero outside the window u in [-radius, radius + 1]) and is
+valid for offsets in [-radius, radius] only: ``radius`` None (eval) has no
+backward.
+
+``deform_prop`` is differentiable: under autograd it runs
+``DeformPropFunction``, whose backward is K8 on a CUDA tensor and
+``deform_prop_bwd_plain`` on a CPU tensor. ``deform_prop_plain`` is the same
+op through the plain versions on any device (forward and backward), which
+``chip_smoke.py`` holds the kernels against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import blend_and_clip
+from nlspn_eccv20_tpu_torch.ops.propagate import (
+    neighbor_shifts,
+    propagate_deformable_exact_planar,
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"deform_prop_f32": [_P] * 6 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"deform_prop_bwd_f32": [_P] * 11 + [_I] * 7 + [_P]}
+
+
+def deform_prop_fwd_plain(pred: torch.Tensor, off: torch.Tensor,
+                          aff: torch.Tensor, conf: Optional[torch.Tensor],
+                          dep: Optional[torch.Tensor], *, kernel: int,
+                          preserve: bool, clip: bool) -> torch.Tensor:
+    """``propagate_deformable_exact_planar`` of pred * conf, then the blend
+    and clip: K7's function, in the kernel's order of operations."""
+    feat = pred * conf if conf is not None else pred
+    return blend_and_clip(propagate_deformable_exact_planar(feat, off, aff, kernel),
+                          dep, preserve=preserve, clip=clip)
+
+
+def _tent_and_slope(t: torch.Tensor):
+    """max(0, 1 - |t|) and its derivative with JAX's ties (``_dhat`` of the
+    TPU backward): -sign(t) with sign(0) = +1, times 1 inside the support,
+    1/2 at |t| == 1 and 0 beyond."""
+    az = torch.where(t >= 0, t, -t)
+    one = torch.ones_like(t)
+    mag = torch.where(az < 1, one, torch.where(az == 1, 0.5 * one, 0 * one))
+    return torch.clamp_min(1.0 - az, 0.0), torch.where(t >= 0, -mag, mag)
+
+
+def deform_prop_bwd_plain(g: torch.Tensor, pred: torch.Tensor, off: torch.Tensor,
+                          aff: torch.Tensor, conf: Optional[torch.Tensor],
+                          dep: Optional[torch.Tensor], *, kernel: int, radius: int,
+                          preserve: bool, clip: bool):
+    """(d_pred, d_off, d_aff, d_conf) of K7's function at cotangent ``g``,
+    for offsets in [-radius, radius]; d_conf is None without conf, ``dep``
+    is data. Written out as the TPU backward computes it: for each
+    neighbour k and each (u, v) of the window [-radius, radius + 1]^2 around
+    its kernel shift, the tent weights and slopes of the offset read the
+    zero-padded plane for d_aff and d_off, and scatter aff * g into a
+    padded d_feat; nothing is differentiated by autograd."""
+    feat = pred * conf if conf is not None else pred
+    ga = g
+    if clip:  # jnp.maximum's tie: half the gradient where the output is 0
+        v = deform_prop_fwd_plain(pred, off, aff, conf, dep, kernel=kernel,
+                                  preserve=preserve, clip=False)
+        one = torch.ones_like(v)
+        ga = ga * torch.where(v > 0, one, torch.where(v == 0, 0.5 * one, 0 * one))
+    if preserve:
+        ga = ga * (1.0 - (dep > 0.0).to(g.dtype))
+    _, h, w = feat.shape
+    rp = radius + 1 + kernel // 2
+    p = F.pad(feat, (rp, rp, rp, rp))
+    dp = torch.zeros_like(p)
+    d_off, d_aff = torch.empty_like(off), torch.empty_like(aff)
+    window = range(-radius, radius + 2)
+    for k, (dy, dx) in enumerate(neighbor_shifts(kernel)):
+        oy, ox = off[:, 2 * k], off[:, 2 * k + 1]
+        q = aff[:, k] * ga
+        wxs = [_tent_and_slope(ox - v) for v in window]
+        s, doy, dox = (torch.zeros_like(feat) for _ in range(3))
+        for u in window:
+            wy, dwy = _tent_and_slope(oy - u)
+            qy = q * wy
+            row, row_dx = torch.zeros_like(feat), torch.zeros_like(feat)
+            y0 = rp + dy + u
+            for v, (wx, dwx) in zip(window, wxs):
+                x0 = rp + dx + v
+                patch = p[:, y0:y0 + h, x0:x0 + w]
+                row = row + patch * wx
+                row_dx = row_dx + patch * dwx
+                dp[:, y0:y0 + h, x0:x0 + w] += qy * wx
+            s = s + row * wy
+            doy = doy + row * dwy
+            dox = dox + row_dx * wy
+        d_aff[:, k] = s * ga
+        d_off[:, 2 * k] = doy * q
+        d_off[:, 2 * k + 1] = dox * q
+    d_feat = dp[:, rp:rp + h, rp:rp + w]
+    if conf is None:
+        return d_feat, d_off, d_aff, None
+    return d_feat * conf, d_off, d_aff, d_feat * pred
+
+
+def _check_inputs(pred, off, aff, conf, dep, kernel, preserve):
+    b, h, w = pred.shape
+    k2 = kernel * kernel
+    build.check_tensor(pred, "deform_prop pred")
+    build.check_tensor(off, "deform_prop off", (b, 2 * k2, h, w), pred.device)
+    build.check_tensor(aff, "deform_prop aff", (b, k2, h, w), pred.device)
+    for name, t in (("conf", conf), ("dep", dep if preserve else None)):
+        if t is not None:
+            build.check_tensor(t, f"deform_prop {name}", (b, h, w), pred.device)
+
+
+def _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip):
+    b, h, w = pred.shape
+    _check_inputs(pred, off, aff, conf, dep, kernel, preserve)
+    out = torch.empty_like(pred)
+    with torch.cuda.device(pred.device):
+        lib = build.load("deform_prop", _SIGNATURES)
+        err = lib.deform_prop_f32(
+            pred.data_ptr(), off.data_ptr(), aff.data_ptr(),
+            conf.data_ptr() if conf is not None else None,
+            dep.data_ptr() if preserve else None, out.data_ptr(),
+            b, h, w, kernel // 2, int(preserve), int(clip),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "deform_prop")
+    deform_prop.launches += 1
+    return out
+
+
+def deform_prop_bwd(g: torch.Tensor, pred: torch.Tensor, off: torch.Tensor,
+                    aff: torch.Tensor, conf: Optional[torch.Tensor] = None,
+                    dep: Optional[torch.Tensor] = None, *, kernel: int = 3,
+                    radius: int = 4, preserve: bool = False, clip: bool = False):
+    """K8: (d_pred, d_off, d_aff, d_conf) at cotangent ``g`` (B, H, W), for
+    offsets in [-radius, radius] (the training clamp's range; the caller
+    guarantees it). On a CPU tensor it runs ``deform_prop_bwd_plain``; on a
+    CUDA tensor it launches the kernel or raises."""
+    if pred.device.type == "cpu":
+        return deform_prop_bwd_plain(g, pred, off, aff, conf, dep, kernel=kernel,
+                                     radius=radius, preserve=preserve, clip=clip)
+    b, h, w = pred.shape
+    _check_inputs(pred, off, aff, conf, dep, kernel, preserve)
+    build.check_tensor(g, "deform_prop_bwd g", (b, h, w), pred.device)
+    d_pred, ga = torch.empty_like(pred), torch.empty_like(pred)
+    d_off, d_aff = torch.empty_like(off), torch.empty_like(aff)
+    d_conf = torch.empty_like(pred) if conf is not None else None
+    with torch.cuda.device(pred.device):
+        lib = build.load("deform_prop_bwd", _BWD_SIGNATURES)
+        err = lib.deform_prop_bwd_f32(
+            g.data_ptr(), pred.data_ptr(), off.data_ptr(), aff.data_ptr(),
+            conf.data_ptr() if conf is not None else None,
+            dep.data_ptr() if preserve else None,
+            d_pred.data_ptr(), d_off.data_ptr(), d_aff.data_ptr(),
+            d_conf.data_ptr() if conf is not None else None, ga.data_ptr(),
+            b, h, w, kernel // 2, radius, int(preserve), int(clip),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "deform_prop_bwd")
+    deform_prop_bwd.launches += 1
+    return d_pred, d_off, d_aff, d_conf
+
+
+class DeformPropFunction(torch.autograd.Function):
+    """K7 forward, K8 backward; their plain versions on CPU tensors or
+    with ``plain``."""
+
+    @staticmethod
+    def forward(ctx, pred, off, aff, conf, dep, kernel, radius, preserve, clip,
+                plain):
+        ctx.opts = dict(kernel=kernel, preserve=preserve, clip=clip)
+        ctx.radius, ctx.plain = radius, plain
+        ctx.save_for_backward(pred, off, aff, conf, dep)
+        if plain or pred.device.type == "cpu":
+            return deform_prop_fwd_plain(pred, off, aff, conf, dep, **ctx.opts)
+        return _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.radius is None:
+            raise NotImplementedError(
+                "the deformable step has a backward only for offsets clamped "
+                "to a window (radius set, the model's train mode); the exact "
+                "gather's gradients are not ported (ROADMAP.md)")
+        pred, off, aff, conf, dep = ctx.saved_tensors
+        bwd = deform_prop_bwd_plain if ctx.plain else deform_prop_bwd
+        d_pred, d_off, d_aff, d_conf = bwd(g.contiguous(), pred, off, aff, conf,
+                                           dep, radius=ctx.radius, **ctx.opts)
+        return d_pred, d_off, d_aff, d_conf, None, None, None, None, None, None
+
+
+def _deform(pred, off, aff, conf, dep, kernel, radius, preserve, clip, plain):
+    if preserve and dep is None:
+        raise ValueError("preserve=True needs dep")
+    if kernel % 2 != 1:
+        raise ValueError(f"kernel must be odd, got {kernel}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (pred, off, aff, conf)):
+        return DeformPropFunction.apply(pred, off, aff, conf, dep, kernel, radius,
+                                        preserve, clip, plain)
+    if plain or pred.device.type == "cpu":
+        return deform_prop_fwd_plain(pred, off, aff, conf, dep, kernel=kernel,
+                                     preserve=preserve, clip=clip)
+    return _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip)
+
+
+def deform_prop(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
+                conf: Optional[torch.Tensor] = None,
+                dep: Optional[torch.Tensor] = None, *, kernel: int = 3,
+                radius: Optional[int] = None, preserve: bool = False,
+                clip: bool = False) -> torch.Tensor:
+    """pred/conf/dep: (B, H, W) f32; off: (B, 2 * kernel**2, H, W) with the
+    (dy, dx) pair of neighbour k at channels (2k, 2k + 1); aff:
+    (B, kernel**2, H, W), row-major neighbours. ``radius``: the window of
+    the backward's tie rules, for offsets already clamped to it (training);
+    None in eval, where the step has no backward. ``preserve`` pins pixels
+    where dep > 0 to dep; ``clip`` clamps at 0. Returns (B, H, W)."""
+    return _deform(pred, off, aff, conf, dep, kernel, radius, preserve, clip,
+                   plain=False)
+
+
+def deform_prop_plain(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
+                      conf: Optional[torch.Tensor] = None,
+                      dep: Optional[torch.Tensor] = None, *, kernel: int = 3,
+                      radius: Optional[int] = None, preserve: bool = False,
+                      clip: bool = False) -> torch.Tensor:
+    """``deform_prop`` through the plain versions only, forward and backward,
+    on any device."""
+    return _deform(pred, off, aff, conf, dep, kernel, radius, preserve, clip,
+                   plain=True)
+
+
+deform_prop.launches = 0
+deform_prop_bwd.launches = 0

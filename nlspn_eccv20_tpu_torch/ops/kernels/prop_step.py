@@ -29,19 +29,25 @@ _SIGNATURES = {"prop_step_f32": [_P] * 5 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"prop_step_bwd_f32": [_P] * 8 + [_I] * 6 + [_P]}
 
 
-def prop_step_plain(pred: torch.Tensor, aff: torch.Tensor,
-                    conf: Optional[torch.Tensor], dep: Optional[torch.Tensor],
-                    *, kernel: int, preserve: bool, clip: bool) -> torch.Tensor:
-    """``propagate_local_planar`` plus the blend and clip of the JAX
-    package's ``_prop_and_blend`` (models/nlspn.py)."""
-    feat = pred * conf if conf is not None else pred
-    out = propagate_local_planar(feat, aff, kernel=kernel)
+def blend_and_clip(out: torch.Tensor, dep: Optional[torch.Tensor], *,
+                   preserve: bool, clip: bool) -> torch.Tensor:
+    """The blend and clip of the JAX package's ``_prop_and_blend``
+    (models/nlspn.py) after a propagation step."""
     if preserve:
         m = (dep > 0.0).to(out.dtype)
         out = (1.0 - m) * out + m * dep
     if clip:
         out = torch.maximum(out, torch.zeros_like(out))
     return out
+
+
+def prop_step_plain(pred: torch.Tensor, aff: torch.Tensor,
+                    conf: Optional[torch.Tensor], dep: Optional[torch.Tensor],
+                    *, kernel: int, preserve: bool, clip: bool) -> torch.Tensor:
+    """``propagate_local_planar`` plus the blend and clip."""
+    feat = pred * conf if conf is not None else pred
+    return blend_and_clip(propagate_local_planar(feat, aff, kernel=kernel), dep,
+                          preserve=preserve, clip=clip)
 
 
 def prop_step_bwd_plain(g: torch.Tensor, pred: torch.Tensor, aff: torch.Tensor,

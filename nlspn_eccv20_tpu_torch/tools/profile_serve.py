@@ -4,11 +4,12 @@ Runs the fork-default model (random weights from a seeded generator) at
 NYU size (228x304 requests in the 256x320 bucket) under ``torch.profiler``
 for b=1 and b=4 and prints, per batch size: the forward's time from CUDA
 events, the device's busy time and idle share over the profiled window,
-the device time by group (the port's three kernels, convolutions, the
-rest), and the top kernels by device time. TF32 stays off, as in
+the device time by group (the port's forward kernels, convolutions, the
+rest), and the top kernels by device time. ``--offset`` runs the non-local
+propagation (``Config(offset=True)``) instead. TF32 stays off, as in
 ``chip_smoke.py``. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--cudnn-heuristics]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--offset] [--cudnn-heuristics]
 
 By default cuDNN times its algorithms for each conv shape first
 (``torch.backends.cudnn.benchmark``), as ``Predictor.predict_batch`` has it
@@ -31,7 +32,8 @@ from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.serve import Predictor
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
-OUR_KERNELS = ("prop_step_kernel", "dec_aff_tail_kernel", "dep_encode_front_kernel")
+OUR_KERNELS = ("prop_step_kernel", "deform_prop_kernel", "dec_aff_tail_kernel",
+               "dep_encode_front_kernel")
 ITERS = 5          # forwards in the profiled window
 
 
@@ -49,17 +51,20 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cudnn-heuristics", action="store_true")
+    ap.add_argument("--offset", action="store_true")
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = not args.cudnn_heuristics
-    cfg = Config()
+    cfg = Config(offset=args.offset)
     predictor = Predictor(cfg)                  # the CUDA card or raise
     randomize_(predictor.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(2)
     tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
+    if args.offset:
+        tag += "_offset"
     report = {"device": torch.cuda.get_device_name(0), "mode": tag}
 
     for b in (1, 4):

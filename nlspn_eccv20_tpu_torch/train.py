@@ -4,9 +4,9 @@
 One train step: the model in train mode with ``need_inter=False`` (the loss
 reads only the final prediction), the weighted loss summed over the batch
 and divided by the batch size, backward through the kernels' autograd
-Functions (K1b, K4 and K5 on the card), then the optimizer with the
-per-step LR schedule. cuDNN runs in benchmark mode for the step's own calls
-only; the process-wide flag is left as it is.
+Functions (K1b, or K8 with ``offset``, K4 and K5 on the card), then the
+optimizer with the per-step LR schedule. cuDNN runs in benchmark mode for
+the step's own calls only; the process-wide flag is left as it is.
 
 Usage:
     eng = Engine(cfg, steps_per_epoch=len(loader))   # on the CUDA card
@@ -17,6 +17,7 @@ Usage:
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -67,7 +68,9 @@ class Engine:
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step. Returns {loss, loss_val, metric, lr, output}:
         loss and loss_val divided by the batch size, ``lr`` the rate this
-        step used, ``output`` the model's output (detached)."""
+        step used, ``output`` the model's output (detached); with
+        ``cfg.offset`` also ``off_max``, max |offset| (for
+        ``check_offset_telemetry``)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         gbatch = batch["rgb"].shape[0]
@@ -83,8 +86,11 @@ class Engine:
         self.step += 1
         out = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in out.items()}
-        return {"loss": loss.detach(), "loss_val": loss_val.detach() / gbatch,
-                "metric": evaluate(batch, out), "lr": lr, "output": out}
+        aux = {"loss": loss.detach(), "loss_val": loss_val.detach() / gbatch,
+               "metric": evaluate(batch, out), "lr": lr, "output": out}
+        if self.cfg.offset:
+            aux["off_max"] = out["offset"].abs().max()
+        return aux
 
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
@@ -98,3 +104,25 @@ class Engine:
             self.model.train()
         return {"loss_val": self.loss_fn.per_sample(batch, out),
                 "metric": evaluate_per_sample(batch, out), "output": out}
+
+
+def check_offset_telemetry(cfg: Config, off_max: float,
+                           batch_idx: Optional[int] = None) -> bool:
+    """Warn when learned offsets pass 0.8x the training clamp window.
+
+    Training clamps offsets to [-offset_window, offset_window] while eval
+    gathers exactly at any offset, so offsets that escape the window make
+    train and eval compute different functions. Call it with a step's
+    ``off_max``. Returns True when the warning fired."""
+    if not (cfg.offset and cfg.offset_window):
+        return False
+    if off_max <= 0.8 * cfg.offset_window:
+        return False
+    where = "" if batch_idx is None else f" at batch {batch_idx}"
+    warnings.warn(
+        f"max|offset| = {off_max:.2f}{where} exceeds 0.8x the training "
+        f"clamp window (offset_window={cfg.offset_window}); if it crosses "
+        f"{cfg.offset_window} the train step clamps while eval gathers "
+        f"exactly (silent train/eval divergence). Raise offset_window to "
+        f"widen the exact regime.", stacklevel=2)
+    return True

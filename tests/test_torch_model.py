@@ -171,7 +171,7 @@ def test_config_round_trips_and_validates_like_jax():
             Config(**bad)
 
 
-@pytest.mark.parametrize("kw", [{"offset": True}, {"precision": "bf16"}])
+@pytest.mark.parametrize("kw", [{"precision": "bf16"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         get_model(Config(**kw), device="cpu")

@@ -345,7 +345,8 @@ def test_planar_channel_mlp_matches_jax():
 
 def test_every_source_builds_for_sm_90a_into_build():
     names = build.kernel_names()
-    assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "dep_encode_front",
+    assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop",
+                     "deform_prop_bwd", "dep_encode_front",
                      "dep_encode_front_bwd", "prop_step", "prop_step_bwd"]
     cmd = " ".join(build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in cmd
@@ -359,9 +360,10 @@ def test_every_source_builds_for_sm_90a_into_build():
 def test_wrappers_declare_pointers_as_void_p():
     """ctypes would cut a pointer or the stream passed as a default int."""
     from nlspn_eccv20_tpu_torch.ops.kernels import (dec_aff_tail,
+                                                     deform_prop,
                                                      dep_encode_front,
                                                      prop_step)
-    for mod in (prop_step, dec_aff_tail, dep_encode_front):
+    for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop):
         for sigs in (mod._SIGNATURES, mod._BWD_SIGNATURES):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
