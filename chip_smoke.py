@@ -16,13 +16,21 @@ Phases (any failure exits non-zero and prints no result):
      at the train step's B=12 of 228x304 with offsets clamped to the
      window, and 5x5; at serving shapes its offsets reach past the window
      (eval has none); its library call is F.grid_sample over all K2
-     sampling grids stacked, then the affinity-weighted sum;
+     sampling grids stacked, then the affinity-weighted sum. K6 (prop_loop,
+     the whole constant-affinity loop) at B=1 and B=4 of 256x320 and B=12
+     of 228x304, also 5x5, 18 steps and 100 steps (a halo past shared
+     memory, split into launches) at B=1, with 12 launches of K1 on
+     the same inputs as its comparison (no single PyTorch call computes the
+     loop); K6 and K7 also timed at B=1 of KITTI's 240x1216;
   4. each backward kernel the same way, at the train step's shapes (B=12
      and B=1, 228x304 patches), and run twice to show equal bits; the
      library time is cuDNN's backward of the same two convs
      (aten.convolution_backward, what autograd runs for them), and for K8
      (deform_prop_bwd) aten.grid_sampler_2d_backward and the elementwise
-     rest; K8 also on offsets at their ties (zero, integers, +-R);
+     rest; K8 also on offsets at their ties (zero, integers, +-R); K6b
+     (prop_loop_bwd) from K6's saved step inputs, with 12 launches of K1b
+     as its comparison, on the clip's ties (an all-zero corner, with
+     the pre-blend) and on 100 steps;
   5. serving: a Predictor on the default Config, every parameter random
      from a seeded generator, answers 4 single requests and one batch of 4;
      the launch counters are set to 0 just before and read just after; the
@@ -40,24 +48,31 @@ Phases (any failure exits non-zero and prints no result):
      versions; then the median step time and the peak memory;
   8. the same training run on Config(offset=True) (deform_prop and
      deform_prop_bwd 12 a step, the other four kernels 11, prop_step and
-     prop_step_bwd 0);
-  9. the kernel line, then {"ok": true, "device": ...} as the last line.
+     prop_step_bwd 0), and one step of Config(offset=True, offset_window=0)
+     at batch 2 (the exact gather, unclamped: deform_prop 12, its backward
+     the exact gather's plain VJP, deform_prop_bwd 0), timed;
+  9. serving and training Config(use_GRU=False, prop_impl="pallas"), the
+     constant-affinity loop: prop_loop 1 a forward and prop_loop_bwd 1 a
+     backward, every other kernel 0;
+ 10. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
 runs in benchmark mode (it times its algorithms per conv shape), as the
 serving and training paths do.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
-prop_step, prop_step_bwd, deform_prop and deform_prop_bwd <= 1e-5 (the
-forwards: same operations in the same order, equal bits expected; the
-backwards: sums of at most 9, or (2R+2)^2 = 100, products a neighbour in
-another order), decode_aff_tail(_bwd) and dep_encode_front(_bwd) <= 1e-4
+prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop and
+prop_loop_bwd <= 1e-5 (the forwards: same operations in the same order,
+equal bits expected; the backwards: sums of at most 9, or (2R+2)^2 = 100,
+products a neighbour, and of 12 steps, in another order),
+decode_aff_tail(_bwd) and dep_encode_front(_bwd) <= 1e-4
 (f32 sums of up to 2,304 products, or a whole batch's pixels, in another
 order), whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
 <= 5e-3 (PARITY.md's gradient bar).
 The kernel line's launches are each kernel's count on its path: the
 default serving run's for the forward kernels, the default training run's
-for the backward ones, the offset runs' for deform_prop and deform_prop_bwd.
+for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
+the constant-affinity runs' for prop_loop and prop_loop_bwd.
 """
 
 import json
@@ -75,6 +90,8 @@ REQ_H, REQ_W = 228, 304
 TRAIN_B = 12               # Config() defaults: batch 12 of 228x304 patches
 TRAIN_STEPS, TIMED_STEPS = 5, 10
 RADIUS = 4                 # Config().offset_window
+KITTI_H, KITTI_W = 240, 1216
+LOOP = dict(use_GRU=False, prop_impl="pallas")   # the whole-loop route
 
 
 def log(msg):
@@ -112,6 +129,9 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
         dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_plain,
         dep_encode_front_plain)
+    from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
+        launch_fwd as launch_loop, prop_loop, prop_loop_bwd, prop_loop_bwd_plain,
+        prop_loop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
         prop_step, prop_step_bwd, prop_step_bwd_plain, prop_step_plain)
     from nlspn_eccv20_tpu_torch.ops.propagate import (clamp_offsets,
@@ -247,6 +267,15 @@ def main() -> int:
         # fractions and weights, 2 for the affinity; the blend
         return b * h * w * (26 * k2 + 5)
 
+    def loop_inputs(b, h, w, kernel):
+        """pred, TGASS-normalised affinities, conf and NYU-density sparse
+        depth for the constant-affinity loop."""
+        k2 = kernel * kernel
+        aff = normalize_affinity_planar(randn(b, k2 - 1, h, w),
+                                        torch.full((1,), 0.5 * (k2 - 1), device=dev))
+        return (rand(b, h, w, hi=10.0), aff.contiguous(), rand(b, h, w),
+                sparse_depth(b, h, w, 500 / (REQ_H * REQ_W)))
+
     # ---- 3. each forward kernel against its plain version ----
     rows = {}
 
@@ -265,6 +294,48 @@ def main() -> int:
         if b == main_b:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=bnd[0], bound_by=bnd[1])
+
+    def check_loop(b, h, w, kernel=3, steps=12, timed=True, row=True):
+        """K6 against its plain version as the model calls it (conf,
+        preserve, no clip, no pre-blend); if ``timed``, its time, its bound
+        and those of ``steps`` launches of K1 on the same inputs (the
+        per-step route), kept in the kernel line's row if ``row``."""
+        pred, aff, conf, dep = loop_inputs(b, h, w, kernel)
+        kw = dict(steps=steps, kernel=kernel, preserve=True, clip=False,
+                  pre_blend=False)
+        n0 = prop_loop.launches
+        out = prop_loop(pred, aff, conf, dep, **kw)
+        n = prop_loop.launches - n0
+        ref = prop_loop_plain(pred, aff, conf, dep, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        tag = f"prop_loop {kernel}x{kernel} {steps} steps B={b} {h}x{w}"
+        if not rel <= 1e-5:
+            raise AssertionError(f"{tag}: relative error {rel:.3e} > 1e-5")
+        log(f"[kernel] {tag}: {n} launch(es), rel {rel:.3e}, equal bits "
+            f"{torch.equal(out, ref)}")
+        if not timed:
+            return
+        ks = dict(kernel=kernel, preserve=True, clip=False)
+
+        def per_step():
+            p = pred
+            for _ in range(steps):
+                p = prop_step(p, aff, conf, dep, **ks)
+            return p
+
+        log(f"[kernel] {tag}: {steps} x K1 prop_step on the same inputs "
+            f"{time_ms(per_step):.4f} ms")
+        ms = time_ms(lambda: prop_loop(pred, aff, conf, dep, **kw))
+        bnd = bound(nbytes(pred, aff, conf, dep, out),
+                    b * h * w * steps * (2 * kernel * kernel + 5))
+        if row:
+            record("prop_loop", b, err, rel, 1e-5, ms,
+                   time_ms(lambda: prop_loop_plain(pred, aff, conf, dep, **kw)),
+                   None, bnd)
+        else:
+            log(f"[kernel] {tag}: kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms "
+                f"({bnd[1]})")
 
     for b in (1, 4):
         # K1: the fork default's step (3x3, conf, preserve, no clip)
@@ -291,6 +362,15 @@ def main() -> int:
                 raise AssertionError(f"prop_step 5x5: relative error {rel:.3e}")
             else:
                 log(f"[kernel] prop_step 5x5 B={b}: rel {rel:.3e}")
+
+        # K6: the constant-affinity loop as the model calls it; also 5x5,
+        # 18 steps, and 100 steps (a halo past shared memory: launches of
+        # fewer steps)
+        check_loop(b, H, W)
+        if b == 1:
+            check_loop(b, H, W, kernel=5, timed=False)
+            check_loop(b, H, W, steps=18, timed=False)
+            check_loop(b, H, W, steps=100, timed=False)
 
         # K2: decode_aff tail, base grid 64x80, 256 -> 16 -> K
         hg, wg = H // 4, W // 4
@@ -390,6 +470,21 @@ def main() -> int:
            time_ms(lambda: deform_library(pred, off, aff, conf, dep, 3)),
            bound(nbytes(pred, off, aff, conf, dep, out),
                  deform_flops(TRAIN_B, REQ_H, REQ_W, 9)))
+
+    # K6 at the train step's shape; K6 and K7 at KITTI's width, B=1
+    check_loop(TRAIN_B, REQ_H, REQ_W)
+    check_loop(1, KITTI_H, KITTI_W, row=False)
+    pred, off, aff, conf, dep = deform_inputs(1, KITTI_H, KITTI_W, 3, 1.5)
+    kw = dict(kernel=3, preserve=True, clip=False)
+    out = deform_prop(pred, off, aff, conf, dep, **kw)
+    err, rel = rel_err(out, deform_prop_fwd_plain(pred, off, aff, conf, dep, **kw))
+    if not rel <= 1e-5:
+        raise AssertionError(f"deform_prop {KITTI_H}x{KITTI_W}: rel {rel:.3e}")
+    bnd = bound(nbytes(pred, off, aff, conf, dep, out),
+                deform_flops(1, KITTI_H, KITTI_W, 9))
+    log(f"[kernel] deform_prop B=1 {KITTI_H}x{KITTI_W}: rel {rel:.3e}; kernel "
+        f"{time_ms(lambda: deform_prop(pred, off, aff, conf, dep, **kw)):.4f} ms, "
+        f"bound {bnd[0]:.4f} ms ({bnd[1]})")
 
     # ---- 4. each backward kernel against its plain version ----
     conv_bwd = torch.ops.aten.convolution_backward
@@ -562,25 +657,85 @@ def main() -> int:
                 log(f"[kernel] deform_prop_bwd ties clip={clip} B={b}: rel {rel:.3e}, "
                     f"equal bits in two runs")
 
+        # K6b: the loop's backward as the model calls it, from K6's saved
+        # step inputs; beside it 12 launches of K1b on the same inputs
+        pred, aff, conf, dep = loop_inputs(b, REQ_H, REQ_W, 3)
+        g = randn(b, REQ_H, REQ_W)
+        kw = dict(steps=12, kernel=3, preserve=True, clip=False, pre_blend=False)
+        _, saved = launch_loop(pred, aff, conf, dep, save=True, **kw)
+        outs = prop_loop_bwd(g, pred, aff, conf, dep, saved, **kw)
+        ks = dict(kernel=3, preserve=True, clip=False)
+
+        def per_step_bwd():
+            d = g
+            for k in range(11, -1, -1):
+                d = prop_step_bwd(d, saved[k], aff, conf, dep, **ks)[0]
+            return d
+
+        log(f"[kernel] prop_loop_bwd B={b}: 12 x K1b prop_step_bwd on the same "
+            f"inputs {time_ms(per_step_bwd):.4f} ms")
+        # per step and pixel: d_aff 3 and d_p 2 a tap, 5 more
+        check_bwd("prop_loop_bwd", b,
+                  lambda: prop_loop_bwd(g, pred, aff, conf, dep, saved, **kw),
+                  lambda: prop_loop_bwd_plain(g, pred, aff, conf, dep, **kw),
+                  1e-5, None,
+                  bound(nbytes(g, aff, conf, dep, saved, *outs),
+                        b * REQ_H * REQ_W * 12 * (5 * 9 + 5)))
+        if b == 1:  # the clip's ties (an all-zero corner), with the pre-blend; 5x5
+            pred[:, :64, :64] = 0.0
+            dep[:, :64, :64] = 0.0
+            for kernel in (3, 5):
+                a = loop_inputs(b, REQ_H, REQ_W, kernel)[1]
+                kwc = dict(steps=12, kernel=kernel, preserve=True, clip=True,
+                           pre_blend=True)
+                out, sv = launch_loop(pred, a, conf, dep, save=True, **kwc)
+                fn = lambda: prop_loop_bwd(g, pred, a, conf, dep, sv, **kwc)
+                _, rel = grads_err(fn(), prop_loop_bwd_plain(g, pred, a, conf, dep, **kwc))
+                if not rel <= 1e-5 or not same_bits(fn):
+                    raise AssertionError(f"prop_loop_bwd {kernel}x{kernel} ties: "
+                                         f"rel {rel:.3e} or other bits")
+                log(f"[kernel] prop_loop_bwd {kernel}x{kernel} clip ties B={b}: "
+                    f"{int((out == 0).sum())} zero outputs, rel {rel:.3e}, equal "
+                    f"bits in two runs")
+            # 100 steps: launches of fewer steps, each adding to the sums
+            kwl = dict(kw, steps=100)
+            _, sv = launch_loop(pred, aff, conf, dep, save=True, **kwl)
+            n0 = prop_loop_bwd.launches
+            got = prop_loop_bwd(g, pred, aff, conf, dep, sv, **kwl)
+            n = prop_loop_bwd.launches - n0
+            _, rel = grads_err(got, prop_loop_bwd_plain(g, pred, aff, conf, dep, **kwl))
+            if not rel <= 1e-5:
+                raise AssertionError(f"prop_loop_bwd 100 steps: rel {rel:.3e}")
+            log(f"[kernel] prop_loop_bwd 100 steps B={b}: {n} launch(es), "
+                f"rel {rel:.3e}")
+
     # ---- 5. and 6. serving ----
     fwd_wrappers = {"prop_step": prop_step, "deform_prop": deform_prop,
+                    "prop_loop": prop_loop,
                     "decode_aff_tail": decode_aff_tail,
                     "dep_encode_front": dep_encode_front}
     bwd_wrappers = {"prop_step_bwd": prop_step_bwd,
                     "deform_prop_bwd": deform_prop_bwd,
+                    "prop_loop_bwd": prop_loop_bwd,
                     "decode_aff_tail_bwd": decode_aff_tail_bwd,
                     "dep_encode_front_bwd": dep_encode_front_bwd}
     plain_of = {"prop_step": prop_step_plain, "deform_prop": deform_prop_plain,
+                "prop_loop": prop_loop_plain,
                 "decode_aff_tail": decode_aff_tail_plain,
                 "dep_encode_front": dep_encode_front_plain}
 
     def expected_launches(cfg, wrappers):
-        """Launches a forward (and a backward) of ``cfg`` makes: the step
-        kernel of its propagation prop_time times, the GRU's two
-        prop_time - 1 times, the other step kernel never."""
+        """Launches a forward (and a backward) of ``cfg`` makes on the
+        serving and training paths (need_inter=False): on the whole-loop
+        route one prop_loop (and one prop_loop_bwd, the count its 3x3
+        12-step loop takes) and nothing else; otherwise the step kernel of
+        its propagation prop_time times, the GRU's two prop_time - 1 times,
+        the other step kernels never."""
+        if nlspn_mod.uses_loop_kernel(cfg, need_inter=False):
+            return {k: int(k in ("prop_loop", "prop_loop_bwd")) for k in wrappers}
         step = "deform_prop" if cfg.offset else "prop_step"
         return {k: (cfg.prop_time if k in (step, step + "_bwd")
-                    else 0 if k.startswith(("prop_step", "deform_prop"))
+                    else 0 if k.startswith(("prop_step", "deform_prop", "prop_loop"))
                     else cfg.prop_time - 1) for k in wrappers}
 
     def with_plain_versions(fn):
@@ -638,12 +793,15 @@ def main() -> int:
             if per_forward[k] and n == 0:
                 raise AssertionError(f"{k} was not launched on the serving path")
 
-        # the whole forward through the kernels vs the same with plain versions
+        # the whole forward through the kernels vs the same with plain
+        # versions (with the per-step outputs, except on the whole-loop route)
         sample, _ = predictor.make_sample([r for r, _ in batches[-1]],
                                           [d for _, d in batches[-1]])
+        need_inter = not nlspn_mod.uses_loop_kernel(cfg, need_inter=False)
         with torch.inference_mode():
-            out_k = predictor.model(sample)
-            out_p = with_plain_versions(lambda: predictor.model(sample))
+            out_k = predictor.model(sample, need_inter=need_inter)
+            out_p = with_plain_versions(lambda: predictor.model(sample,
+                                                                need_inter=need_inter))
         keys = ("pred", "aff", "pred_init") + (("offset",) if cfg.offset else ())
         for key in keys:
             err = (out_k[key] - out_p[key]).abs().max().item()
@@ -686,6 +844,7 @@ def main() -> int:
 
     launches = serve(Config(), "")
     offset_launches = serve(Config(offset=True), " offset")
+    loop_launches = serve(Config(**LOOP), " loop")
     torch.cuda.empty_cache()
 
     # ---- 7. and 8. training ----
@@ -792,9 +951,52 @@ def main() -> int:
             f"and metric {tuple(ev['metric'].shape)} rows, finite")
         return train_launches
 
+    def train_window_0():
+        """One Engine step of Config(offset=True, offset_window=0) at batch
+        2 of 228x304 (the exact gather at unclamped offsets, its backward
+        the exact gather's plain VJP): launches, a finite loss, a finite
+        gradient for every parameter; then the median of 5 timed steps."""
+        cfg = Config(offset=True, offset_window=0, batch_size=2)
+        eng = Engine(cfg, steps_per_epoch=100, device=dev)
+        randomize_(eng.model, torch.Generator().manual_seed(6))
+        model = eng.init_state()
+        data = Synthetic(cfg, "train")
+        drng = np.random.default_rng(7)
+        wbatches = [eng.put_batch(data.batch([2 * i, 2 * i + 1], drng)) for i in range(6)]
+        wrappers = {**fwd_wrappers, **bwd_wrappers}
+        per_step = dict(expected_launches(cfg, wrappers), deform_prop_bwd=0)
+        for fn in wrappers.values():
+            fn.launches = 0
+        aux = eng.train_step(wbatches[0])
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        if counts != per_step:
+            raise AssertionError(f"window 0: launches {counts}, expected {per_step}")
+        if not np.isfinite(aux["loss"].item()):
+            raise AssertionError(f"window 0: loss {aux['loss'].item()}")
+        for pname, p in model.named_parameters():
+            if p.grad is None or not torch.isfinite(p.grad).all():
+                raise AssertionError(f"window 0: {pname} has no finite gradient")
+        step_ms = []
+        for batch in wbatches[1:]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng.train_step(batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        log(f"[train offset window 0] one step of 2 x {REQ_H}x{REQ_W}: loss "
+            f"{aux['loss'].item():.4f}, finite; every parameter got a finite "
+            f"gradient; launches {counts}; max |offset| {aux['off_max'].item():.3f}; "
+            f"step (CUDA events) median {sorted(step_ms)[2]:.3f} ms of 5")
+
     train_launches = train(Config(), "")
     torch.cuda.empty_cache()
     offset_train_launches = train(Config(offset=True), " offset")
+    torch.cuda.empty_cache()
+    train_window_0()
+    torch.cuda.empty_cache()
+    loop_train_launches = train(Config(**LOOP), " loop")
 
     # ---- 9. results ----
     sources = {
@@ -814,10 +1016,16 @@ def main() -> int:
                         "nlspn_eccv20_tpu/ops/pallas/deform_prop.py:171"),
         "deform_prop_bwd": ("nlspn_eccv20_tpu_torch/csrc/deform_prop_bwd.cu",
                             "nlspn_eccv20_tpu/ops/pallas/deform_prop.py:300"),
+        "prop_loop": ("nlspn_eccv20_tpu_torch/csrc/prop_loop.cu",
+                      "nlspn_eccv20_tpu/ops/pallas/local_prop.py:174"),
+        "prop_loop_bwd": ("nlspn_eccv20_tpu_torch/csrc/prop_loop_bwd.cu",
+                          "nlspn_eccv20_tpu/ops/pallas/local_prop.py:413"),
     }
     path_launches = {**launches, **{k: train_launches[k] for k in bwd_wrappers},
                      "deform_prop": offset_launches["deform_prop"],
-                     "deform_prop_bwd": offset_train_launches["deform_prop_bwd"]}
+                     "deform_prop_bwd": offset_train_launches["deform_prop_bwd"],
+                     "prop_loop": loop_launches["prop_loop"],
+                     "prop_loop_bwd": loop_train_launches["prop_loop_bwd"]}
     kernels = []
     for k, (src, replaces) in sources.items():
         r = rows[k]

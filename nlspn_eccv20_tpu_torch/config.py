@@ -3,9 +3,13 @@
 A copy of the JAX package's ``Config`` dataclass with the same field names,
 defaults and validation, so that one dict builds both packages' configs:
 ``Config(**dataclasses.asdict(jax_cfg))``. Fields that only steer the JAX
-package's backends (``platform``, ``prop_impl``, ``prop_loop``,
-``fused_kernels``, ``compile_cache*``) are kept for that round trip and are
-not read by the port. The CLI parser is not ported yet.
+package's backends (``platform``, ``prop_loop``, ``fused_kernels``,
+``compile_cache*``) are kept for that round trip and are not read by the
+port. ``prop_impl`` is read for one route only: ``'pallas'`` with
+``use_GRU=False`` runs the whole propagation loop as one ``prop_loop``
+kernel, as it takes the JAX package to its whole-loop kernel; ``'auto'``
+and ``'xla'`` keep a ``prop_step`` launch per step. The CLI parser is not
+ported yet.
 """
 
 from __future__ import annotations

@@ -9,10 +9,13 @@ propagation with a ConvGRU affinity refresh.
 The loop runs hand-written CUDA kernels on the card (``ops/kernels``):
 ``prop_step`` 12 times and ``dep_encode_front`` and ``decode_aff_tail`` 11
 times per forward at the fork default; with ``offset=True`` (the non-local
-propagation) ``deform_prop`` takes ``prop_step``'s place. The model calls
-them through this module's names, with the JAX package's layouts at their
-boundary (planar planes, affinities and offsets, NHWC features). Everything
-else is stock PyTorch.
+propagation) ``deform_prop`` takes ``prop_step``'s place. With a constant
+affinity (``use_GRU=False``), ``prop_impl='pallas'``, no offsets and no
+per-step outputs asked for, the whole loop is one ``prop_loop`` launch, as
+the JAX package routes its whole-loop kernel (``_use_loop_kernel``). The
+model calls them through this module's names, with the JAX package's
+layouts at their boundary (planar planes, affinities and offsets, NHWC
+features). Everything else is stock PyTorch.
 
 Parameter names are the reference NLSPN ``state_dict`` names
 (``conv1_rgb.0.*``, ``S2D.pool_convs.0.0.*``, ``conv2..conv4``,
@@ -24,13 +27,16 @@ N (dy, dx) offset pairs, then N raw affinities. The offsets get a zero pair
 for the reference pixel and stay fixed for all steps (the ConvGRU refreshes
 only the affinities). In train mode they are clamped to
 [-offset_window, offset_window] (as ``jnp.clip``, gradient included) and
-the step's backward follows the JAX windowed form's tie rules; in eval mode
-the step is the exact gather for any offsets, as the JAX package's runtime
-switch between its windowed and exact forms computes.
+the step's backward follows the JAX windowed form's tie rules; with
+``offset_window=0`` training gathers exactly at the unclamped offsets and
+differentiates the exact gather, as the JAX package does there; in eval
+mode the step is the exact gather for any offsets, as the JAX package's
+runtime switch between its windowed and exact forms computes.
 
 Training runs the same forward in train mode (BatchNorm on batch statistics)
 and differentiates through the kernels' autograd Functions, whose backward
-kernels run 12 and 11 times per step. Gradients follow the JAX package's
+kernels run 12 and 11 times per step (``prop_loop``'s once, on the
+whole-loop route). Gradients follow the JAX package's
 conventions: ``torch.maximum`` against zero where it writes ``jnp.maximum``
 (half the gradient at an exact tie), ``F.relu`` where it writes ``nn.relu``
 (none), and ``aff_scale_const`` trains only under TGASS.
@@ -59,9 +65,18 @@ from nlspn_eccv20_tpu_torch.ops.affinity import (
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import decode_aff_tail
 from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import dep_encode_front
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import prop_loop
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
 from nlspn_eccv20_tpu_torch.ops.planar import planar_channel_mlp
 from nlspn_eccv20_tpu_torch.ops.propagate import clamp_offsets
+
+
+def uses_loop_kernel(cfg: Config, need_inter: bool) -> bool:
+    """The whole loop as one ``prop_loop``: the JAX package's
+    ``_use_loop_kernel`` condition. Its VMEM check has no counterpart: the
+    CUDA kernel takes any shape."""
+    return (not cfg.use_GRU and not cfg.offset and not need_inter
+            and cfg.prop_time >= 1 and cfg.prop_impl == "pallas")
 
 
 def _mp3(x: torch.Tensor) -> torch.Tensor:
@@ -260,7 +275,9 @@ class NLSPNModel(nn.Module):
             off = insert_center_offset_planar(aff_raw[:, :2 * cfg.num_neighbors])
             aff_raw = aff_raw[:, 2 * cfg.num_neighbors:]
             step_off = off
-            if self.training:  # JAX: fallback=False clamps, then the window
+            if self.training and cfg.offset_window:
+                # JAX: fallback=False clamps, then the window; window 0
+                # (radius None) is the exact gather, unclamped
                 radius = cfg.offset_window
                 step_off = clamp_offsets(off, radius)
 
@@ -295,21 +312,30 @@ class NLSPNModel(nn.Module):
 
         # ---- Propagation loop (reference :340-373) ----
         inter = []
-        if cfg.use_GRU:
-            aff_feat = self.encode_aff(aff)
-        for _ in range(cfg.prop_time - 1):
+        if uses_loop_kernel(cfg, need_inter):
+            # all steps in one launch; the k == 1 blend above already
+            # happened, so no pre-blend (as JAX); pred_inter stays empty
+            pred = prop_loop(pred, aff, conf,
+                             dep_p if cfg.preserve_input else None,
+                             steps=cfg.prop_time, kernel=cfg.prop_kernel,
+                             preserve=cfg.preserve_input,
+                             clip=cfg.always_clip, pre_blend=False)
+        else:
+            if cfg.use_GRU:
+                aff_feat = self.encode_aff(aff)
+            for _ in range(cfg.prop_time - 1):
+                pred = step(pred, aff)
+                if need_inter:
+                    inter.append(pred)
+                if cfg.use_GRU:
+                    dep_feat = self.encode_dep(pred / cfg.max_depth)
+                    aff_feat = self.GRU(aff_feat, dep_feat)
+                    raw = self.decode_aff(aff_feat)[:, :, :h, :w]
+                    aff = normalize_affinity_planar(raw, gamma, cfg.affinity).contiguous()
+            # Final iteration: propagate only, no GRU refresh (reference k == K).
             pred = step(pred, aff)
             if need_inter:
                 inter.append(pred)
-            if cfg.use_GRU:
-                dep_feat = self.encode_dep(pred / cfg.max_depth)
-                aff_feat = self.GRU(aff_feat, dep_feat)
-                raw = self.decode_aff(aff_feat)[:, :, :h, :w]
-                aff = normalize_affinity_planar(raw, gamma, cfg.affinity).contiguous()
-        # Final iteration: propagate only, no GRU refresh (reference k == K).
-        pred = step(pred, aff)
-        if need_inter:
-            inter.append(pred)
         if not cfg.always_clip:
             pred = torch.maximum(pred, torch.zeros_like(pred))
 

@@ -16,12 +16,19 @@ caller has clamped the offsets to [-radius, radius] first
 (``ops.propagate.clamp_offsets``). The backward follows the windowed form's
 gradient conventions (the tent's slope is -sign(t) with sign(0) = +1, half
 at |t| = 1, zero outside the window u in [-radius, radius + 1]) and is
-valid for offsets in [-radius, radius] only: ``radius`` None (eval) has no
-backward.
+valid for offsets in [-radius, radius] only. With ``radius`` None (training
+at ``offset_window=0``) the offsets are not clamped and the backward is
+``deform_prop_exact_bwd_plain``, the VJP of the exact gather: the JAX
+package differentiates its exact gather with XLA's autodiff there and has no
+Pallas kernel for it, so a plain PyTorch backward, on the card too, is its
+faithful counterpart, not a fall back. (On the card, autograd's backward of
+``torch.gather`` scatters with atomic adds, so its d_pred and d_conf can
+differ in the last bits from run to run.)
 
 ``deform_prop`` is differentiable: under autograd it runs
 ``DeformPropFunction``, whose backward is K8 on a CUDA tensor and
-``deform_prop_bwd_plain`` on a CPU tensor. ``deform_prop_plain`` is the same
+``deform_prop_bwd_plain`` on a CPU tensor (with a radius; without one,
+``deform_prop_exact_bwd_plain`` on either). ``deform_prop_plain`` is the same
 op through the plain versions on any device (forward and backward), which
 ``chip_smoke.py`` holds the kernels against.
 """
@@ -55,6 +62,26 @@ def deform_prop_fwd_plain(pred: torch.Tensor, off: torch.Tensor,
     feat = pred * conf if conf is not None else pred
     return blend_and_clip(propagate_deformable_exact_planar(feat, off, aff, kernel),
                           dep, preserve=preserve, clip=clip)
+
+
+def deform_prop_exact_bwd_plain(g: torch.Tensor, pred: torch.Tensor,
+                                off: torch.Tensor, aff: torch.Tensor,
+                                conf: Optional[torch.Tensor],
+                                dep: Optional[torch.Tensor], *, kernel: int,
+                                preserve: bool, clip: bool):
+    """(d_pred, d_off, d_aff, d_conf) of ``deform_prop_fwd_plain`` at
+    cotangent ``g``, for any offsets: ``torch.func.vjp`` of the exact gather,
+    whose fractions give the floor-based bilinear gradients (the slope of
+    each tap's weight in the offset, with no term from the floor); d_conf is
+    None without conf, ``dep`` is data."""
+    def fwd(p, o, a, *c):
+        return deform_prop_fwd_plain(p, o, a, c[0] if c else None, dep,
+                                     kernel=kernel, preserve=preserve, clip=clip)
+
+    primals = (pred, off, aff) if conf is None else (pred, off, aff, conf)
+    _, vjp = torch.func.vjp(fwd, *primals)
+    grads = vjp(g)
+    return grads + (None,) if conf is None else grads
 
 
 def _tent_and_slope(t: torch.Tensor):
@@ -197,15 +224,15 @@ class DeformPropFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.radius is None:
-            raise NotImplementedError(
-                "the deformable step has a backward only for offsets clamped "
-                "to a window (radius set, the model's train mode); the exact "
-                "gather's gradients are not ported (ROADMAP.md)")
         pred, off, aff, conf, dep = ctx.saved_tensors
-        bwd = deform_prop_bwd_plain if ctx.plain else deform_prop_bwd
-        d_pred, d_off, d_aff, d_conf = bwd(g.contiguous(), pred, off, aff, conf,
-                                           dep, radius=ctx.radius, **ctx.opts)
+        if ctx.radius is None:   # the exact gather's VJP, as JAX's autodiff
+            d_pred, d_off, d_aff, d_conf = deform_prop_exact_bwd_plain(
+                g.contiguous(), pred, off, aff, conf, dep, **ctx.opts)
+        else:
+            bwd = deform_prop_bwd_plain if ctx.plain else deform_prop_bwd
+            d_pred, d_off, d_aff, d_conf = bwd(g.contiguous(), pred, off, aff,
+                                               conf, dep, radius=ctx.radius,
+                                               **ctx.opts)
         return d_pred, d_off, d_aff, d_conf, None, None, None, None, None, None
 
 
@@ -233,7 +260,8 @@ def deform_prop(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
     (dy, dx) pair of neighbour k at channels (2k, 2k + 1); aff:
     (B, kernel**2, H, W), row-major neighbours. ``radius``: the window of
     the backward's tie rules, for offsets already clamped to it (training);
-    None in eval, where the step has no backward. ``preserve`` pins pixels
+    None for unclamped offsets (eval, and training at ``offset_window=0``),
+    whose backward is the exact gather's VJP. ``preserve`` pins pixels
     where dep > 0 to dep; ``clip`` clamps at 0. Returns (B, H, W)."""
     return _deform(pred, off, aff, conf, dep, kernel, radius, preserve, clip,
                    plain=False)

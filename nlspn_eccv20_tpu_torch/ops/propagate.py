@@ -14,8 +14,8 @@ Counterpart of ``nlspn_eccv20_tpu/ops/propagate.py``:
   shift, equal to the exact gather for offsets in [-R, R]. Its autograd
   gives the JAX package's gradients, ties included.
 * ``propagate_deformable_planar``: the JAX package's router between them
-  (train: offsets clamped to [-R, R], then the windowed form; eval: the
-  exact gather).
+  (train: offsets clamped to [-R, R], then the windowed form; eval, and
+  training with R = 0: the exact gather).
 
 The JAX package's scan and union variants of the windowed form are code
 generation choices of XLA with the same math and have no counterpart here.
@@ -147,15 +147,11 @@ def propagate_deformable_windowed_planar(feat: torch.Tensor, off: torch.Tensor,
     return out
 
 
-def clamp_offsets(off: torch.Tensor, radius: Optional[int]) -> torch.Tensor:
+def clamp_offsets(off: torch.Tensor, radius: int) -> torch.Tensor:
     """Offsets clamped to [-radius, radius] as ``jnp.clip`` does, also in
     the gradient: half at exactly +-radius, none beyond: what training runs
-    the windowed form on. ``radius`` 0 or None means the exact gather, whose
-    training is not ported yet (ROADMAP): it raises."""
-    if not radius:
-        raise NotImplementedError(
-            "offset_window=0 (the exact gather) in training is not ported "
-            "yet: see ROADMAP.md, the --offset slice's open items")
+    the windowed form on (radius >= 1; a window of 0 clamps nothing, see
+    ``propagate_deformable_planar``)."""
     lo = torch.full((), -float(radius), dtype=off.dtype, device=off.device)
     return torch.minimum(torch.maximum(off, lo), -lo)
 
@@ -169,9 +165,10 @@ def propagate_deformable_planar(feat: torch.Tensor, off: torch.Tensor,
     [-radius, radius] and runs the windowed form; eval runs the exact
     gather, which the JAX package's runtime switch between its windowed
     form (offsets inside the window) and its exact gather (offsets beyond)
-    computes too. ``radius`` 0 or None means the exact gather; training
-    with it is not ported yet (ROADMAP) and raises."""
-    if train:
+    computes too. ``radius`` 0 or None means the exact gather, unclamped,
+    in training too (the JAX package's ``radius=None``), whose autograd
+    gives the floor-based bilinear gradients."""
+    if train and radius:
         return propagate_deformable_windowed_planar(
             feat, clamp_offsets(off, radius), aff, kernel, radius)
     return propagate_deformable_exact_planar(feat, off, aff, kernel)

@@ -6,10 +6,12 @@ for b=1 and b=4 and prints, per batch size: the forward's time from CUDA
 events, the device's busy time and idle share over the profiled window,
 the device time by group (the port's forward kernels, convolutions, the
 rest), and the top kernels by device time. ``--offset`` runs the non-local
-propagation (``Config(offset=True)``) instead. TF32 stays off, as in
-``chip_smoke.py``. Needs the CUDA card:
+propagation (``Config(offset=True)``) instead, ``--loop`` the
+constant-affinity configuration (``Config(use_GRU=False,
+prop_impl="pallas")``, the whole loop one ``prop_loop`` launch). TF32 stays
+off, as in ``chip_smoke.py``. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--offset] [--cudnn-heuristics]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--offset | --loop] [--cudnn-heuristics]
 
 By default cuDNN times its algorithms for each conv shape first
 (``torch.backends.cudnn.benchmark``), as ``Predictor.predict_batch`` has it
@@ -32,9 +34,21 @@ from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.serve import Predictor
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
-OUR_KERNELS = ("prop_step_kernel", "deform_prop_kernel", "dec_aff_tail_kernel",
-               "dep_encode_front_kernel")
+OUR_KERNELS = ("prop_step_kernel", "deform_prop_kernel", "prop_loop_kernel",
+               "dec_aff_tail_kernel", "dep_encode_front_kernel")
 ITERS = 5          # forwards in the profiled window
+LOOP = dict(use_GRU=False, prop_impl="pallas")   # the whole-loop route
+
+
+def config_of(args) -> Config:
+    """The configuration ``--offset`` or ``--loop`` names, else Config()."""
+    return Config(offset=args.offset, **(LOOP if args.loop else {}))
+
+
+def add_config_options(ap: argparse.ArgumentParser) -> None:
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--offset", action="store_true")
+    which.add_argument("--loop", action="store_true")
 
 
 def group_of(name: str) -> str:
@@ -51,20 +65,20 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cudnn-heuristics", action="store_true")
-    ap.add_argument("--offset", action="store_true")
+    add_config_options(ap)
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = not args.cudnn_heuristics
-    cfg = Config(offset=args.offset)
+    cfg = config_of(args)
     predictor = Predictor(cfg)                  # the CUDA card or raise
     randomize_(predictor.model, torch.Generator().manual_seed(1))
     rng = np.random.default_rng(2)
     tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
-    if args.offset:
-        tag += "_offset"
+    if args.offset or args.loop:
+        tag += "_offset" if args.offset else "_loop"
     report = {"device": torch.cuda.get_device_name(0), "mode": tag}
 
     for b in (1, 4):

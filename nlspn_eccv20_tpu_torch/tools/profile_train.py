@@ -1,8 +1,9 @@
 """Where the train step's time goes on the card, op by op.
 
-Runs ``train.Engine`` on the fork-default ``Config()``, or with
-``--offset`` on ``Config(offset=True)`` (batch 12 of 228x304 synthetic
-patches, Adam; random weights from a seeded generator) under
+Runs ``train.Engine`` on the fork-default ``Config()``, with ``--offset``
+on ``Config(offset=True)``, or with ``--loop`` on the constant-affinity
+``Config(use_GRU=False, prop_impl="pallas")`` (batch 12 of 228x304
+synthetic patches, Adam; random weights from a seeded generator) under
 ``torch.profiler`` and prints: the step's time from CUDA events, the peak
 memory, the device's busy time and idle share over the profiled window,
 the device time by group (the port's forward and backward kernels,
@@ -11,7 +12,7 @@ time, and writes the chrome trace into ``--trace-dir`` (default
 ``build/``). TF32 stays off, as in ``chip_smoke.py``; cuDNN runs in
 benchmark mode, as ``Engine.train_step`` scopes it. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_train [--offset] [--trace-dir DIR]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_train [--offset | --loop] [--trace-dir DIR]
 """
 
 from __future__ import annotations
@@ -25,15 +26,16 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+from nlspn_eccv20_tpu_torch.tools.profile_serve import add_config_options, config_of
 from nlspn_eccv20_tpu_torch.tools.profile_serve import group_of as serve_group
 from nlspn_eccv20_tpu_torch.train import Engine
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
-# kernel-name fragments of the backward kernels: K1b, K8's two passes, then
-# K4's and K5's passes (bwd_common.cuh's two are shared by K4 and K5)
+# kernel-name fragments of the backward kernels: K1b, K6b, K8's two passes,
+# then K4's and K5's passes (bwd_common.cuh's two are shared by K4 and K5)
 BWD_KERNELS = {"prop_step_bwd_kernel": "K1b prop_step_bwd",
+               "prop_loop_bwd_kernel": "K6b prop_loop_bwd",
                "deform_bwd_read_kernel": "K8 deform_prop_bwd (d_off, d_aff)",
                "deform_bwd_feat_kernel": "K8 deform_prop_bwd (d_feat)",
                "dy1_kernel": "K4 decode_aff_tail_bwd", "dx_kernel": "K4 decode_aff_tail_bwd",
@@ -56,11 +58,11 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default="build")
-    ap.add_argument("--offset", action="store_true")
+    add_config_options(ap)
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Config(offset=args.offset)
+    cfg = config_of(args)
     eng = Engine(cfg, steps_per_epoch=100)      # the CUDA card or raise
     randomize_(eng.model, torch.Generator().manual_seed(4))
     eng.init_state()
@@ -105,7 +107,8 @@ def main(argv=None) -> int:
     busy_ms = sum(busy.values()) / 1e3 / ITERS
     report = {
         "device": torch.cuda.get_device_name(0),
-        "offset": cfg.offset, "batch": b, "patch": [cfg.patch_height, cfg.patch_width],
+        "offset": cfg.offset, "loop": args.loop, "batch": b,
+        "patch": [cfg.patch_height, cfg.patch_width],
         "step_ms_median": sorted(step_ms)[TIMED // 2],
         "step_ms_min": min(step_ms),
         "peak_memory_gib": peak / 2**30,
@@ -122,7 +125,7 @@ def main(argv=None) -> int:
     }
     print(json.dumps(report, indent=1), flush=True)
     os.makedirs(args.trace_dir, exist_ok=True)
-    name = "trace_train_offset_b12.json" if cfg.offset else "trace_train_b12.json"
+    name = f"trace_train{'_offset' if args.offset else '_loop' if args.loop else ''}_b12.json"
     prof.export_chrome_trace(os.path.join(args.trace_dir, name))
     return 0
 

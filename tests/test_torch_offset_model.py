@@ -3,7 +3,7 @@
 Same weights on both sides (every JAX param and batch statistic seeded, then
 carried into the port by ``from_jax_variables``), same seeded numpy inputs.
 The JAX side is kept cheap: 32x48 planes, ``prop_time`` 3, ``offset_window``
-2 and its neighbour scan (``offset_neighbor_loop='scan'``, the same math as
+2 (and 0, the exact gather, in one training case) and its neighbour scan (``offset_neighbor_loop='scan'``, the same math as
 the unrolled window in fewer XLA ops). The offset head's weights are scaled
 so that the offsets either stay inside the window (JAX's eval takes its
 windowed branch) or escape it (its exact branch; in training the clamp).
@@ -25,12 +25,13 @@ import torch
 
 from nlspn_eccv20_tpu.config import Config as JaxConfig
 from nlspn_eccv20_tpu.losses import get_loss as jax_get_loss
+from nlspn_eccv20_tpu.models import get_model as jax_get_model
 from nlspn_eccv20_tpu.train import check_offset_telemetry as jax_telemetry
 from nlspn_eccv20_tpu.utils.torch_import import import_nlspn_state_dict
 from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.models import get_model
 from nlspn_eccv20_tpu_torch.train import Engine, check_offset_telemetry
-from nlspn_eccv20_tpu_torch.utils.weights import from_jax_variables
+from nlspn_eccv20_tpu_torch.utils.weights import from_jax_variables, randomize_
 from test_torch_model import TINY, assert_forward_close, nchw, sample
 from test_torch_train import (
     BN_TOL, GRAD_TOL, LOSS_TOL, assert_trees_close, grads_as_jax_tree,
@@ -91,13 +92,20 @@ def test_eval_forward_matches_jax(offset_model, scale, escapes):
 
 # Batch seeds with no ReLU input within the two frameworks' BatchNorm noise
 # of zero (see test_torch_train.py's note on seeds).
-@pytest.mark.parametrize("scale,escapes,seed", [(0.3, False, 4), (3.0, True, 4)])
-def test_train_step_matches_jax(offset_model, scale, escapes, seed):
+@pytest.mark.parametrize("scale,escapes,seed,window", [
+    (0.3, False, 4, 2), (3.0, True, 4, 2),
+    (3.0, True, 4, 0),     # offset_window 0: the exact gather, unclamped
+])
+def test_train_step_matches_jax(offset_model, scale, escapes, seed, window):
     """One Engine step against jax.value_and_grad of the JAX train-mode
     loss: loss, every gradient, the BatchNorm statistics and off_max. With
     escaping offsets the clamp cuts the gradient of those beyond the window
-    and halves it at the edge."""
+    and halves it at the edge; at window 0 nothing is clamped and both
+    differentiate the exact gather."""
     jcfg, jmodel, variables = offset_model
+    if window != jcfg.offset_window:
+        jcfg = dataclasses.replace(jcfg, offset_window=window)
+        jmodel = jax_get_model(jcfg)
     variables = with_offset_scale(variables, jcfg, scale)
     batch = train_batch(2, H, W, seed=seed)
     jloss = jax_get_loss(jcfg)
@@ -143,17 +151,25 @@ def test_bridge_round_trip_is_exact(offset_model):
 
 
 def test_offset_head_is_zero_initialised_and_window_0_does_not_train():
+    """The offset head starts at zero; at offset_window=0 the model gathers
+    exactly in eval and in training, where its unclamped offsets get a
+    gradient."""
     cfg = Config(**OFFSET)
     model = get_model(cfg, device="cpu")
     for k in ("off_aff_dec0.0.weight", "off_aff_dec0.0.bias"):
         assert model.state_dict()[k].shape[0] == 24
         assert torch.count_nonzero(model.state_dict()[k]) == 0, k
-    model = get_model(cfg.replace(offset_window=0), device="cpu")
-    s = {"rgb": torch.zeros(1, 3, 16, 16), "dep": torch.zeros(1, 1, 16, 16)}
+    model = randomize_(get_model(cfg.replace(offset_window=0), device="cpu"),
+                       torch.Generator().manual_seed(0))
+    s = {"rgb": torch.from_numpy(nchw(sample(1, 16, 16)["rgb"])),
+         "dep": torch.from_numpy(nchw(sample(1, 16, 16)["dep"]))}
     with torch.no_grad():
-        assert model(s)["offset"].shape == (1, 18, 16, 16)   # eval: exact
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()(s)
+        ref = model(s)
+    assert ref["offset"].shape == (1, 18, 16, 16)           # eval: exact
+    out = model.train()(s, need_inter=False)
+    out["pred"].sum().backward()
+    grad = model.off_aff_dec0[0].weight.grad[:2 * cfg.num_neighbors]
+    assert torch.isfinite(grad).all() and torch.count_nonzero(grad) > 0
 
 
 @contextlib.contextmanager

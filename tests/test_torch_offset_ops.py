@@ -14,7 +14,12 @@ numpy inputs to the port and to the JAX package:
   and beyond it, to 1e-5 of each gradient's largest entry; with the conf
   weighting, the preserve blend and the clip's ties against ``jax.vjp`` of
   the JAX model's own step (``_prop_and_blend``), to rtol 2e-4, atol 2e-5
-  as ``tests/test_deform_prop_pallas.py`` holds the TPU kernel.
+  as ``tests/test_deform_prop_pallas.py`` holds the TPU kernel;
+- the unclamped step's backward (``offset_window=0`` in training, radius
+  None) against ``jax.vjp`` of ``propagate_deformable_exact`` and of the
+  JAX model's step at window 0, on offsets kept away from integers: there
+  the port takes the fraction of the offset alone and JAX that of the
+  absolute coordinate, and the two may take different segments.
 """
 
 import jax
@@ -318,14 +323,107 @@ def test_clamp_passes_half_the_gradient_at_the_window_edge():
 
 
 def test_eval_step_has_no_backward_and_window_0_does_not_train():
+    """The unclamped step (radius None) differentiates as the exact gather,
+    whose autograd is its backward, and the router's window 0 trains the
+    exact gather on unclamped offsets, as the JAX package's radius=None."""
     feat, off, aff = inputs(1, 5, 6, 3, 1.0, seed=2)
-    out = deform_prop(leaf(feat), t(off), t(aff), kernel=3)   # radius None
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        propagate_deformable_planar(t(feat), t(off), t(aff), 3, 0, train=True)
+    leaves = [leaf(feat), leaf(off), leaf(aff)]
+    out = deform_prop(*leaves, kernel=3)                      # radius None
+    grads = torch.autograd.grad(out.sum(), leaves)
+    leaves2 = [leaf(feat), leaf(off), leaf(aff)]
+    exact = propagate_deformable_planar(*leaves2, 3, 0, train=True)
+    assert torch.equal(exact, out)
+    for gp, ge in zip(grads, torch.autograd.grad(exact.sum(), leaves2)):
+        np.testing.assert_allclose(gp.numpy(), ge.numpy(), rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError):
         deform_prop(t(feat), t(off), t(aff), kernel=3, preserve=True)
+
+
+def off_integer_offsets(rng, shape, span):
+    """Offsets at least 0.05 from any integer, in (-span, span)."""
+    whole = rng.integers(-span, span, shape)
+    return (whole + rng.uniform(0.05, 0.95, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kernel,fused", [(3, False), (5, False), (3, True)])
+def test_exact_gather_gradients_match_jax_vjp(kernel, fused):
+    """The unclamped step's (d_pred, d_off, d_aff[, d_conf]) against
+    jax.vjp of ``propagate_deformable_exact`` (XLA's autodiff, the floor
+    treated as a constant), and fused with conf, blend and the clip's ties
+    against the JAX model's train-mode step at ``offset_window=0``; offsets
+    reach past the image."""
+    rng = np.random.default_rng(40 + kernel)
+    b, h, w, k2 = 2, 9, 11, kernel * kernel
+    feat = rng.uniform(-1.0, 4.0, (b, h, w)).astype(np.float32)
+    off = off_integer_offsets(rng, (b, 2 * k2, h, w), 3)
+    aff = (rng.standard_normal((b, k2, h, w)) / k2).astype(np.float32)
+    g = rng.standard_normal((b, h, w)).astype(np.float32)
+    if not fused:
+        def jax_step(f, o, a):
+            return propagate_deformable_exact(f[..., None], jnp.moveaxis(o, 1, -1),
+                                              jnp.moveaxis(a, 1, -1), kernel)[..., 0]
+        primals = (feat, off, aff)
+        port_kw = dict(kernel=kernel)
+    else:
+        feat[:, :5, :6] = 0.0                     # exact zeros before the clip
+        off[:, :, :5, :6] = rng.uniform(-0.45, 0.45, off[:, :, :5, :6].shape)
+        aff = np.abs(aff)
+        cf = rng.uniform(0.1, 1.0, (b, h, w)).astype(np.float32)
+        dep = ((rng.random((b, h, w)) > 0.8) * rng.uniform(0.5, 5.0, (b, h, w))
+               ).astype(np.float32)
+        dep[:, :5, :6] = 0.0
+        cfg = JaxConfig(offset=True, offset_window=0, always_clip=True)
+
+        def jax_step(p, o, a, c):
+            return _prop_and_blend(cfg, p, a, c, jnp.asarray(dep),
+                                   jnp.moveaxis(o, 1, -1), train=True)
+        primals = (feat, off, aff, cf)
+        port_kw = dict(kernel=kernel, dep=t(dep), preserve=True, clip=True)
+
+    out_j, vjp = jax.vjp(jax_step, *map(jnp.asarray, primals))
+    ref = vjp(jnp.asarray(g))
+    if fused:
+        assert np.any(np.asarray(out_j) == 0.0)    # the ties are exercised
+    leaves = [leaf(a) for a in primals]
+    out = deform_prop(*leaves[:3], leaves[3] if fused else None, **port_kw)
+    assert_rel("out", out, out_j, 1e-5)
+    for name, gp, gr in zip(("d_pred", "d_off", "d_aff", "d_conf"),
+                            torch.autograd.grad(out, leaves, t(g)), ref):
+        np.testing.assert_allclose(gp.numpy(), gr, rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+
+
+def test_exact_gather_gradients_take_the_offsets_own_segment():
+    """At an offset a few ulps below an integer the port's exact gradient is
+    the slope of the segment that the offset's own floor picks: at
+    o = -4e-8 that of [-1, 0], as at o = -0.5. JAX floors the absolute
+    coordinate y + dy + o, which rounds up to y + dy from y + dy = 2 on, so
+    its slope there is that of [0, 1]."""
+    rng = np.random.default_rng(13)
+    b, h, w = 1, 8, 9
+    feat = rng.standard_normal((b, h, w)).astype(np.float32)
+    aff = rng.standard_normal((b, 9, h, w)).astype(np.float32)
+    g = rng.standard_normal((b, h, w)).astype(np.float32)
+
+    def d_off(oy, backend):
+        off = np.full((b, 18, h, w), 0.3, np.float32)
+        off[:, 0::2] = oy
+        if backend == "port":
+            leaves = [t(feat), leaf(off), t(aff)]
+            out = deform_prop(*leaves, kernel=3)
+            return torch.autograd.grad(out, leaves[1], t(g))[0].numpy()[:, 0::2]
+        _, vjp = jax.vjp(lambda o: propagate_deformable_exact(
+            jnp.asarray(feat)[..., None], jnp.moveaxis(o, 1, -1),
+            nhwc(aff), 3)[..., 0], jnp.asarray(off))
+        return np.asarray(vjp(jnp.asarray(g))[0])[:, 0::2]
+
+    near = np.float32(-4e-8)
+    np.testing.assert_allclose(d_off(near, "port"), d_off(-0.5, "port"),
+                               rtol=1e-5, atol=1e-6)
+    inner = (slice(None), slice(None), slice(3, None))     # y + dy >= 2
+    np.testing.assert_allclose(d_off(near, "jax")[inner], d_off(0.5, "jax")[inner],
+                               rtol=1e-5, atol=1e-6)
+    assert not np.allclose(d_off(near, "port"), d_off(near, "jax"), atol=1e-3)
 
 
 def test_windowed_form_equals_exact_gather_inside_the_window():

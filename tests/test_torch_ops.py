@@ -347,7 +347,8 @@ def test_every_source_builds_for_sm_90a_into_build():
     names = build.kernel_names()
     assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop",
                      "deform_prop_bwd", "dep_encode_front",
-                     "dep_encode_front_bwd", "prop_step", "prop_step_bwd"]
+                     "dep_encode_front_bwd", "prop_loop", "prop_loop_bwd",
+                     "prop_step", "prop_step_bwd"]
     cmd = " ".join(build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd and "-O3" in cmd
@@ -362,8 +363,9 @@ def test_wrappers_declare_pointers_as_void_p():
     from nlspn_eccv20_tpu_torch.ops.kernels import (dec_aff_tail,
                                                      deform_prop,
                                                      dep_encode_front,
-                                                     prop_step)
-    for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop):
+                                                     prop_loop, prop_step)
+    for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop,
+                prop_loop):
         for sigs in (mod._SIGNATURES, mod._BWD_SIGNATURES):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
