@@ -54,7 +54,22 @@ Phases (any failure exits non-zero and prints no result):
   9. serving and training Config(use_GRU=False, prop_impl="pallas"), the
      constant-affinity loop: prop_loop 1 a forward and prop_loop_bwd 1 a
      backward, every other kernel 0;
- 10. the kernel line, then {"ok": true, "device": ...} as the last line.
+ 10. the op library (nlspn_eccv20_tpu_torch.ops): K9 small_conv3x3 against
+     its plain version (F.conv2d over the concat; the library time is the
+     same call) at B=1 and B=4 of 256x320 and B=12 of 228x304 (Ca 192, Cb
+     64, K 10) and B=2 of 57x75 with K 26; K9b small_conv3x3_bwd at B=12
+     and B=1 of 228x304, twice for equal bits, its library time cuDNN's
+     backward of the concat conv; then the op-library path with the
+     counters at 0: the heads identity (K9 with the fused stage-2 weights
+     on the default model's and the offset model's stage-1 outputs and fe1
+     equals their three *_dec0 convs, K 10 and 26), one autograd step
+     through small_conv3x3_planar (K9 and K9b against the plain
+     gradients), ModulatedDeformConvPack, DeformConvPack and
+     DeformRoIPoolingPack forward and backward on the card against the
+     same modules on the CPU, conv3x3_s2 / convt3x3_s2 against F.conv2d /
+     F.conv_transpose2d, and propagate_step(impl="pallas") launching K1
+     once and K7 once, equal to impl="xla";
+ 11. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
 runs in benchmark mode (it times its algorithms per conv shape), as the
@@ -64,17 +79,22 @@ prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop and
 prop_loop_bwd <= 1e-5 (the forwards: same operations in the same order,
 equal bits expected; the backwards: sums of at most 9, or (2R+2)^2 = 100,
 products a neighbour, and of 12 steps, in another order),
-decode_aff_tail(_bwd) and dep_encode_front(_bwd) <= 1e-4
-(f32 sums of up to 2,304 products, or a whole batch's pixels, in another
-order), whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
+decode_aff_tail(_bwd), dep_encode_front(_bwd) and small_conv3x3(_bwd)
+<= 1e-4 (f32 sums of up to 2,304 products, or a whole batch's pixels, in
+another order; small_conv3x3(_bwd), the heads identity and spaceconv are
+held against their plain versions run in float64, since cuDNN's own f32
+backward of that conv is 1.4e-4 off), the DCN modules (card against CPU)
+<= 1e-4, whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
 <= 5e-3 (PARITY.md's gradient bar).
 The kernel line's launches are each kernel's count on its path: the
 default serving run's for the forward kernels, the default training run's
 for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
-the constant-affinity runs' for prop_loop and prop_loop_bwd.
+the constant-affinity runs' for prop_loop and prop_loop_bwd, the op-library
+path's for small_conv3x3 and small_conv3x3_bwd.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -118,7 +138,7 @@ def main() -> int:
     import nlspn_eccv20_tpu_torch.models.nlspn as nlspn_mod
     from nlspn_eccv20_tpu_torch.config import Config
     from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
-    from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity_planar
+    from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
     from nlspn_eccv20_tpu_torch.ops.kernels import build
     from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
         decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_plain,
@@ -134,6 +154,11 @@ def main() -> int:
         prop_loop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
         prop_step, prop_step_bwd, prop_step_bwd_plain, prop_step_plain)
+    from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
+        fuse_heads_dec0, small_conv3x3_bwd, small_conv3x3_bwd_plain,
+        small_conv3x3_plain, small_conv3x3_planar)
+    from nlspn_eccv20_tpu_torch import ops as oplib
+    from nlspn_eccv20_tpu_torch.ops import spaceconv
     from nlspn_eccv20_tpu_torch.ops.propagate import (clamp_offsets,
                                                        neighbor_shifts)
     from nlspn_eccv20_tpu_torch.serve import Predictor
@@ -230,7 +255,7 @@ def main() -> int:
         """pred, offsets ~ N(0, off_std^2), TGASS-normalised affinities,
         conf and NYU-density sparse depth for one deformable step."""
         k2 = kernel * kernel
-        aff = normalize_affinity_planar(randn(b, k2 - 1, h, w),
+        aff = normalize_affinity(randn(b, k2 - 1, h, w),
                                         torch.full((1,), 0.5 * (k2 - 1), device=dev))
         return (rand(b, h, w, hi=10.0), randn(b, 2 * k2, h, w, std=off_std),
                 aff.contiguous(), rand(b, h, w),
@@ -271,7 +296,7 @@ def main() -> int:
         """pred, TGASS-normalised affinities, conf and NYU-density sparse
         depth for the constant-affinity loop."""
         k2 = kernel * kernel
-        aff = normalize_affinity_planar(randn(b, k2 - 1, h, w),
+        aff = normalize_affinity(randn(b, k2 - 1, h, w),
                                         torch.full((1,), 0.5 * (k2 - 1), device=dev))
         return (rand(b, h, w, hi=10.0), aff.contiguous(), rand(b, h, w),
                 sparse_depth(b, h, w, 500 / (REQ_H * REQ_W)))
@@ -342,7 +367,7 @@ def main() -> int:
         for kernel in (3, 5) if b == 1 else (3,):
             k2 = kernel * kernel
             pred = rand(b, H, W, hi=10.0)
-            aff = normalize_affinity_planar(randn(b, k2 - 1, H, W),
+            aff = normalize_affinity(randn(b, k2 - 1, H, W),
                                             torch.full((1,), 0.5 * (k2 - 1), device=dev))
             aff = aff.contiguous()
             conf, dep = rand(b, H, W), sparse_depth(b, H, W, 500 / (REQ_H * REQ_W))
@@ -500,8 +525,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
-    def check_bwd(kname, b, fn, plain, tol, lib, bnd, plain_reps=20):
-        got, want = fn(), plain()
+    def check_bwd(kname, b, fn, plain, tol, lib, bnd, plain_reps=20, ref=None):
+        """``ref``: what the kernel is held against, the plain version by
+        default (timed as ``plain``)."""
+        got, want = fn(), (ref or plain)()
         torch.cuda.synchronize()
         err, rel = grads_err(got, want)
         if not same_bits(fn):
@@ -513,7 +540,7 @@ def main() -> int:
     for b in (TRAIN_B, 1):
         # K1b: the fork default's step (3x3, conf, preserve, no clip)
         pred = rand(b, REQ_H, REQ_W, hi=10.0)
-        aff = normalize_affinity_planar(randn(b, 8, REQ_H, REQ_W),
+        aff = normalize_affinity(randn(b, 8, REQ_H, REQ_W),
                                         torch.full((1,), 4.0, device=dev))
         aff = aff.contiguous()
         conf = rand(b, REQ_H, REQ_W)
@@ -530,7 +557,7 @@ def main() -> int:
         if b == 1:  # the clip's ties (an all-zero corner) and the 5x5 kernel
             pred[:, :64, :64] = 0.0
             for kernel in (3, 5):
-                a = normalize_affinity_planar(
+                a = normalize_affinity(
                     randn(b, kernel * kernel - 1, REQ_H, REQ_W),
                     torch.full((1,), 0.5 * (kernel * kernel - 1), device=dev))
                 a = a.contiguous()
@@ -998,7 +1025,206 @@ def main() -> int:
     torch.cuda.empty_cache()
     loop_train_launches = train(Config(**LOOP), " loop")
 
-    # ---- 9. results ----
+    torch.cuda.empty_cache()
+
+    # ---- 10. the op library ----
+    t_oplib = time.perf_counter()
+    CA, CB = 3 * nlspn_mod.NLSPNModel.HEAD_WIDTH, 64   # the heads' stage 2
+
+    def conv_flops(b, h, w, c, k):
+        return 2 * b * h * w * c * 9 * k
+
+    for b, h, w, k in ((1, H, W, 10), (4, H, W, 10), (TRAIN_B, REQ_H, REQ_W, 10),
+                       (2, 57, 75, 26)):
+        xa, xb = randn(b, CA, h, w), randn(b, CB, h, w)
+        wk, bk = randn(k, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5), randn(k, std=0.1)
+        out = small_conv3x3_planar(xa, xb, wk, bk)
+        # held against the plain version in float64: cuDNN's f32 backward
+        # of this conv is itself ~1e-4 off at these sums (the forward's log
+        # line shows how far its f32 forward is)
+        ref = small_conv3x3_plain(*(t.double() for t in (xa, xb, wk, bk)))
+        torch.cuda.synchronize()
+        err, rel = rel_err(out.double(), ref)
+        log(f"[kernel] small_conv3x3 B={b}: plain f32 vs float64 rel "
+            f"{rel_err(small_conv3x3_plain(xa, xb, wk, bk).double(), ref)[1]:.3e}")
+        del ref
+        ms = time_ms(lambda: small_conv3x3_planar(xa, xb, wk, bk))
+        plain_ms = time_ms(lambda: small_conv3x3_plain(xa, xb, wk, bk))
+        bnd = bound(nbytes(xa, xb, wk, bk, out), conv_flops(b, h, w, CA + CB, k))
+        log(f"[kernel] small_conv3x3 B={b} {h}x{w} K={k}:")
+        # the library call is the plain version itself: F.conv2d over the concat
+        record("small_conv3x3", b, err, rel, 1e-4, ms, plain_ms, plain_ms, bnd)
+
+    for b in (TRAIN_B, 1):
+        xa, xb = randn(b, CA, REQ_H, REQ_W), randn(b, CB, REQ_H, REQ_W)
+        wk = randn(10, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5)
+        g = randn(b, 10, REQ_H, REQ_W)
+        outs = small_conv3x3_bwd(g, xa, xb, wk)
+        xcat = torch.cat([xa, xb], 1)
+
+        def library():
+            """cuDNN's backward of the concat conv (autograd's, whose cat
+            backward is two views)."""
+            dx, dw, db = conv_bwd(g, xcat, wk, [10], [1, 1], [1, 1], [1, 1], False,
+                                  [0, 0], 1, [True, True, True])
+            return dx[:, :CA], dx[:, CA:], dw, db
+
+        def plain64():
+            return [t.float() for t in small_conv3x3_bwd_plain(
+                *(t.double() for t in (g, xa, xb, wk)))]
+
+        _, rel32 = grads_err(small_conv3x3_bwd_plain(g, xa, xb, wk), plain64())
+        log(f"[kernel] small_conv3x3_bwd B={b}: plain f32 vs float64 rel {rel32:.3e}")
+        check_bwd("small_conv3x3_bwd", b,
+                  lambda: small_conv3x3_bwd(g, xa, xb, wk),
+                  lambda: small_conv3x3_bwd_plain(g, xa, xb, wk),
+                  1e-4, library,
+                  bound(nbytes(g, xa, xb, wk, *outs),
+                        2 * conv_flops(b, REQ_H, REQ_W, CA + CB, 10)
+                        + b * REQ_H * REQ_W * 10), ref=plain64)
+        del xa, xb, xcat, outs
+    torch.cuda.empty_cache()
+
+    def check_close(tag, got, want, tol):
+        err, rel = rel_err(got, want)
+        if not rel <= tol or not torch.isfinite(got).all():
+            raise AssertionError(f"{tag}: relative error {rel:.3e} > {tol:.0e}")
+        log(f"[oplib] {tag}: max_abs_err {err:.3e} rel {rel:.3e} (tol {tol:.0e})")
+
+    def heads_identity(cfg, tag):
+        """K9 over a b=1 request's stage-1 outputs and fe1, with the fused
+        stage-2 weights, against the model's three *_dec0 convs."""
+        predictor = Predictor(cfg, device=dev)
+        model = predictor.model
+        randomize_(model, torch.Generator().manual_seed(8))
+        seen = {}
+        names = [n for n, _ in model.head_specs]
+        hooks = [getattr(model, f"{n}_dec0").register_forward_hook(
+            lambda mod, inp, out, n=n: seen.__setitem__(n, (inp[0], out)))
+            for n in names]
+        rng = np.random.default_rng(9)
+        dep = np.zeros((REQ_H, REQ_W), np.float32)
+        dep.flat[rng.choice(REQ_H * REQ_W, cfg.num_sample, replace=False)] = \
+            rng.uniform(0.5, 10.0, cfg.num_sample)
+        sample, _ = predictor.make_sample(
+            [rng.integers(0, 256, (REQ_H, REQ_W, 3), dtype=np.uint8)], [dep])
+        width = model.HEAD_WIDTH
+        with torch.inference_mode():
+            model(sample, need_inter=False)
+            for hk in hooks:
+                hk.remove()
+            xa = torch.cat([seen[n][0][:, :width] for n in names], 1).contiguous()
+            xb = seen[names[0]][0][:, width:].contiguous()
+            wk, bk = fuse_heads_dec0([(getattr(model, f"{n}_dec0")[0].weight,
+                                       getattr(model, f"{n}_dec0")[0].bias)
+                                      for n in names], width)
+            out = small_conv3x3_planar(xa, xb, wk.contiguous(), bk.contiguous())
+            ref = torch.cat([seen[n][1] for n in names], 1)
+            # the same *_dec0 convs in float64, as K9 is held above
+            ref64 = torch.cat([F.conv2d(seen[n][0].double(), m[0].weight.double(),
+                                        m[0].bias.double(), padding=1)
+                               for n in names for m in [getattr(model, f"{n}_dec0")]], 1)
+        log(f"[oplib] heads identity{tag}: K9 vs the model's f32 *_dec0 outputs rel "
+            f"{rel_err(out, ref)[1]:.3e}")
+        check_close(f"heads identity{tag}: K9 (K={wk.shape[0]}) on {tuple(xa.shape)} "
+                    f"+ fe1 {tuple(xb.shape)} vs the *_dec0 convs in float64",
+                    out.double(), ref64, 1e-4)
+
+    def module_on_card_and_cpu(tag, mod, inputs):
+        """Forward and backward of ``mod`` on the card against the same
+        module (same state_dict) on the CPU."""
+        cpu_mod = copy.deepcopy(mod).cpu()
+        mod = mod.to(dev)
+        xin = [t.detach().to(dev).requires_grad_(i == 0) for i, t in enumerate(inputs)]
+        cin = [t.detach().clone().requires_grad_(i == 0) for i, t in enumerate(inputs)]
+        out, out_c = mod(*xin), cpu_mod(*cin)
+        g = torch.randn(out.shape, generator=gen)
+        out.backward(g.to(dev))
+        out_c.backward(g)
+        torch.cuda.synchronize()
+        check_close(f"{tag} forward, card vs CPU", out, out_c.to(dev), 1e-4)
+        check_close(f"{tag} d_input", xin[0].grad, cin[0].grad.to(dev), 1e-4)
+        for (pname, p), (_, pc) in zip(mod.named_parameters(), cpu_mod.named_parameters()):
+            check_close(f"{tag} d_{pname}", p.grad, pc.grad.to(dev), 1e-4)
+
+    def op_library():
+        """The op library's path on the card; returns the K9 counts."""
+        for fn in (small_conv3x3_planar, small_conv3x3_bwd):
+            fn.launches = 0
+        heads_identity(Config(), "")
+        heads_identity(Config(offset=True), " offset")
+        # one autograd step through the op (K9 forward, K9b backward)
+        leaves = [randn(2, CA, 57, 76), randn(2, CB, 57, 76),
+                  randn(26, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5),
+                  randn(26, std=0.1)]
+        leaves = [t.requires_grad_(True) for t in leaves]
+        g = randn(2, 26, 57, 76)
+        small_conv3x3_planar(*leaves).backward(g)
+        want = small_conv3x3_bwd_plain(g, *[t.detach() for t in leaves[:3]])
+        for name, leaf, ref in zip(("dxa", "dxb", "dw", "db"), leaves, want):
+            check_close(f"small_conv3x3_planar autograd {name}", leaf.grad, ref, 1e-4)
+        counts = {"small_conv3x3": small_conv3x3_planar.launches,
+                  "small_conv3x3_bwd": small_conv3x3_bwd.launches}
+        log(f"[oplib] K9 launches on the op-library path: {counts}")
+        for k, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{k} was not launched on the op-library path")
+
+        # the DCN modules with offsets and masks made non-trivial: integer +
+        # 0.5 biases and small weights keep every offset within 0.3 of a
+        # half, where the card's and the CPU's floors cannot differ
+        mgen = torch.Generator().manual_seed(10)
+        x = torch.randn(4, 64, 57, 76, generator=mgen)
+        for cls, gen_name in ((oplib.ModulatedDeformConvPack, "conv_offset_mask"),
+                              (oplib.DeformConvPack, "conv_offset")):
+            mod = cls(64, 64, generator=mgen)
+            with torch.no_grad():
+                conv = getattr(mod, gen_name)
+                conv.weight.normal_(0.0, 0.002, generator=mgen)
+                conv.bias.copy_(torch.randint(-2, 3, conv.bias.shape, generator=mgen) + 0.5)
+                mod.bias.normal_(0.0, 0.1, generator=mgen)
+            module_on_card_and_cpu(f"{cls.__name__}(64, 64) on {tuple(x.shape)}", mod, [x])
+        data = torch.randn(2, 8 * 49, 57, 76, generator=mgen)
+        lo = torch.rand(16, 2, generator=mgen) * torch.tensor([200.0, 150.0])
+        size = 16 + torch.rand(16, 2, generator=mgen) * 80
+        rois = torch.cat([torch.arange(16).remainder(2).float()[:, None], lo, lo + size], 1)
+        pool = oplib.DeformRoIPoolingPack(0.25, 7, 8, group_size=7, trans_std=0.1,
+                                          generator=mgen)
+        with torch.no_grad():
+            pool.fc_offset.weight.normal_(0.0, 0.05, generator=mgen)
+        module_on_card_and_cpu(f"DeformRoIPoolingPack on {tuple(data.shape)}, 16 rois",
+                               pool, [data, rois])
+
+        # space-to-depth convs against the strided and transposed convs
+        # (float64, as above)
+        xs, w3 = randn(4, 64, 58, 76), randn(32, 64, 3, 3, std=1 / 24)
+        check_close("conv3x3_s2 vs F.conv2d", spaceconv.conv3x3_s2(xs, w3).double(),
+                    F.conv2d(xs.double(), w3.double(), None, 2, 1), 1e-4)
+        xt, wt = randn(4, 64, 29, 38), randn(64, 32, 3, 3, std=1 / 12)
+        check_close("convt3x3_s2 vs F.conv_transpose2d",
+                    spaceconv.convt3x3_s2(xt, wt).double(),
+                    F.conv_transpose2d(xt.double(), wt.double(), None, 2, 1, 1), 1e-4)
+
+        # propagate_step(impl="pallas"): one K1, one K7
+        feat = rand(2, 1, H, W, hi=10.0)
+        aff = normalize_affinity(randn(2, 8, H, W),
+                                        torch.full((1,), 4.0, device=dev)).contiguous()
+        off = randn(2, 18, H, W, std=1.5)
+        for offset, fn in ((None, prop_step), (off, deform_prop)):
+            n0 = fn.launches
+            got = oplib.propagate_step(feat, aff, offset, impl="pallas")
+            if fn.launches - n0 != 1:
+                raise AssertionError(f"propagate_step(impl='pallas'): "
+                                     f"{fn.launches - n0} launches of {fn.__name__}")
+            check_close(f"propagate_step(impl='pallas') through {fn.__name__} "
+                        f"(1 launch) vs impl='xla'", got,
+                        oplib.propagate_step(feat, aff, offset, impl="xla"), 1e-5)
+        return counts
+
+    oplib_launches = op_library()
+    log(f"[oplib] phase 10: {time.perf_counter() - t_oplib:.1f} s")
+
+    # ---- 11. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -1020,12 +1246,17 @@ def main() -> int:
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:174"),
         "prop_loop_bwd": ("nlspn_eccv20_tpu_torch/csrc/prop_loop_bwd.cu",
                           "nlspn_eccv20_tpu/ops/pallas/local_prop.py:413"),
+        "small_conv3x3": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3.cu",
+                          "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:158"),
+        "small_conv3x3_bwd": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3_bwd.cu",
+                              "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:188"),
     }
     path_launches = {**launches, **{k: train_launches[k] for k in bwd_wrappers},
                      "deform_prop": offset_launches["deform_prop"],
                      "deform_prop_bwd": offset_train_launches["deform_prop_bwd"],
                      "prop_loop": loop_launches["prop_loop"],
-                     "prop_loop_bwd": loop_train_launches["prop_loop_bwd"]}
+                     "prop_loop_bwd": loop_train_launches["prop_loop_bwd"],
+                     **oplib_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         r = rows[k]

@@ -59,8 +59,8 @@ from nlspn_eccv20_tpu_torch.models.common import (
 )
 from nlspn_eccv20_tpu_torch.models.resnet import make_encoder_stages
 from nlspn_eccv20_tpu_torch.ops.affinity import (
-    insert_center_offset_planar,
-    normalize_affinity_planar,
+    insert_center_offset,
+    normalize_affinity,
 )
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import decode_aff_tail
 from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
@@ -272,7 +272,7 @@ class NLSPNModel(nn.Module):
         pred_init, aff_raw, conf = self.run_heads(concat_trim(fd2, fe2), fe1)
         off = step_off = radius = None
         if cfg.offset:
-            off = insert_center_offset_planar(aff_raw[:, :2 * cfg.num_neighbors])
+            off = insert_center_offset(aff_raw[:, :2 * cfg.num_neighbors])
             aff_raw = aff_raw[:, 2 * cfg.num_neighbors:]
             step_off = off
             if self.training and cfg.offset_window:
@@ -285,7 +285,7 @@ class NLSPNModel(nn.Module):
         gamma = self.aff_scale_const
         if cfg.affinity != "TGASS":
             gamma = gamma.detach()  # frozen for AS/ASS/TC (reference :95-102)
-        aff = normalize_affinity_planar(aff_raw, gamma, cfg.affinity).contiguous()
+        aff = normalize_affinity(aff_raw, gamma, cfg.affinity).contiguous()
         dep_p = dep[:, 0].contiguous()
         h, w = dep_p.shape[1:]
 
@@ -331,7 +331,7 @@ class NLSPNModel(nn.Module):
                     dep_feat = self.encode_dep(pred / cfg.max_depth)
                     aff_feat = self.GRU(aff_feat, dep_feat)
                     raw = self.decode_aff(aff_feat)[:, :, :h, :w]
-                    aff = normalize_affinity_planar(raw, gamma, cfg.affinity).contiguous()
+                    aff = normalize_affinity(raw, gamma, cfg.affinity).contiguous()
             # Final iteration: propagate only, no GRU refresh (reference k == K).
             pred = step(pred, aff)
             if need_inter:

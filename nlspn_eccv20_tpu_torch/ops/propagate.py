@@ -21,6 +21,15 @@ The JAX package's scan and union variants of the windowed form are code
 generation choices of XLA with the same math and have no counterpart here.
 Offsets are planar (B, 2 * K2, H, W), the (dy, dx) pair of neighbour k at
 channels (2k, 2k + 1).
+
+The op library's entry points, on NCHW tensors (feat (B, 1, H, W), aff
+(B, K2, H, W), offset (B, 2 K2, H, W)): ``propagate_local``,
+``propagate_deformable`` and ``propagate_step``. Their ``impl`` keeps the
+JAX package's meaning: ``'xla'`` and ``'auto'`` run the plain PyTorch forms
+above, as the JAX package runs its XLA forms at op level; ``'pallas'`` runs
+the kernel wrappers, which launch K1 (``prop_step``) or K7
+(``deform_prop``) on a CUDA tensor or raise, and run their plain versions
+on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -172,3 +181,68 @@ def propagate_deformable_planar(feat: torch.Tensor, off: torch.Tensor,
         return propagate_deformable_windowed_planar(
             feat, clamp_offsets(off, radius), aff, kernel, radius)
     return propagate_deformable_exact_planar(feat, off, aff, kernel)
+
+
+def propagate_local(feat: torch.Tensor, aff: torch.Tensor,
+                    kernel: int = 3) -> torch.Tensor:
+    """feat (B, 1, H, W), aff (B, K2, H, W) -> (B, 1, H, W):
+    ``propagate_local_planar`` of the one channel."""
+    if feat.shape[1] != 1:
+        raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
+    return propagate_local_planar(feat[:, 0], aff, kernel=kernel)[:, None]
+
+
+def propagate_deformable(feat: torch.Tensor, offset: torch.Tensor,
+                         aff: torch.Tensor, kernel: int = 3,
+                         radius: Optional[int] = 4, impl: str = "auto",
+                         fallback: bool = True) -> torch.Tensor:
+    """One deformable step, feat (B, 1, H, W) -> (B, 1, H, W), as the JAX
+    package's ``propagate_deformable``:
+
+    * ``fallback=False`` (training): offsets clamped to [-radius, radius],
+      then the window form, whose backward has the window's tie rules;
+    * ``fallback=True`` (inference) or ``radius`` None: the exact gather,
+      whose backward is its own VJP. The JAX op takes its window form when
+      every offset lies in the window: the same values, and gradients that
+      differ only where an offset is an integer.
+
+    ``impl='pallas'`` runs K7 (``deform_prop``) on the same offsets, with
+    K8 as its backward in training; the exact gather's backward is
+    ``deform_prop_exact_bwd_plain``, plain PyTorch on the card too."""
+    if feat.shape[1] != 1:
+        raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
+    if impl not in ("pallas", "xla", "auto"):
+        raise ValueError(f"unknown impl {impl}")
+    f = feat[:, 0]
+    window = None if fallback or radius is None else radius
+    off = offset if window is None else clamp_offsets(offset, window)
+    if impl == "pallas":
+        # imported here: the kernel modules import this one
+        from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
+
+        return deform_prop(f.contiguous(), off.contiguous(), aff.contiguous(),
+                           kernel=kernel, radius=window)[:, None]
+    if window is None:
+        return propagate_deformable_exact_planar(f, off, aff, kernel)[:, None]
+    return propagate_deformable_windowed_planar(f, off, aff, kernel, window)[:, None]
+
+
+def propagate_step(feat: torch.Tensor, aff: torch.Tensor,
+                   offset: Optional[torch.Tensor] = None, kernel: int = 3,
+                   impl: str = "auto", radius: Optional[int] = 4) -> torch.Tensor:
+    """One propagation step, (B, 1, H, W): deformable when ``offset`` is
+    given (``propagate_deformable`` with its inference fallback), else
+    local; ``impl`` as the module docstring says."""
+    if offset is not None:
+        return propagate_deformable(feat, offset, aff, kernel=kernel,
+                                    radius=radius, impl=impl)
+    if impl in ("xla", "auto"):
+        return propagate_local(feat, aff, kernel=kernel)
+    if impl == "pallas":
+        from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
+
+        if feat.shape[1] != 1:
+            raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
+        return prop_step(feat[:, 0].contiguous(), aff.contiguous(),
+                         kernel=kernel)[:, None]
+    raise ValueError(f"unknown impl {impl}")

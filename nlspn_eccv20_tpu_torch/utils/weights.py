@@ -15,6 +15,10 @@ takes. Layout conversions:
   channels of all heads (id, off_aff[, cf]); they are split back per head.
 * BatchNorm scale/bias come from ``params``, running mean/var from
   ``batch_stats``.
+
+``from_jax_op_variables`` does the same for the op library's six modules
+(``ops/modules.py``): conv kernels HWIO -> OIHW, Dense kernels (in, out) ->
+Linear (out, in).
 """
 
 from __future__ import annotations
@@ -26,12 +30,13 @@ import torch
 from torch import nn
 
 from nlspn_eccv20_tpu_torch.models.resnet import STAGE_BLOCKS
+from nlspn_eccv20_tpu_torch.ops import modules
 
 Tree = Dict[str, Any]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32, order="C"))
 
 
 def _conv_w(k) -> torch.Tensor:
@@ -121,6 +126,36 @@ def from_jax_variables(variables: Tree, cfg) -> Dict[str, torch.Tensor]:
             sd[f"GRU.{gate}.bias"] = _t(gru[f"{gate}_bias"])
         sd["GRU.convq.weight"] = _conv_w(gru["convq"]["kernel"])
         sd["GRU.convq.bias"] = _t(gru["convq"]["bias"])
+    return sd
+
+
+def from_jax_op_variables(variables: Tree, module: nn.Module) -> Dict[str, torch.Tensor]:
+    """The ``{params}`` of one of the JAX package's op-library modules ->
+    the ``state_dict`` of ``module``, the port's module of the same class.
+    ``DeformRoIPoolingPack``'s ``fc0`` reads the pooled map flattened as
+    (output_dim, ps, ps) in the port and as (ps, ps, output_dim) in the JAX
+    package: its input rows are permuted, not copied."""
+    p = variables.get("params", {})
+    sd: Dict[str, torch.Tensor] = {}
+    if isinstance(module, modules.DeformConv):
+        sd["weight"] = _conv_w(p["weight"])
+        if "bias" in p:
+            sd["bias"] = _t(p["bias"])
+        for name in ("conv_offset", "conv_offset_mask"):
+            if name in p:
+                sd[name + ".weight"] = _conv_w(p[name]["kernel"])
+                sd[name + ".bias"] = _t(p[name]["bias"])
+    elif isinstance(module, modules.DeformRoIPoolingPack):
+        ps, d = module.pooled_size, module.output_dim
+        k0 = np.asarray(p["fc0"]["kernel"])
+        k0 = k0.reshape(ps, ps, d, -1).transpose(2, 0, 1, 3).reshape(d * ps * ps, -1)
+        sd["fc0.weight"] = _t(k0.T)
+        sd["fc0.bias"] = _t(p["fc0"]["bias"])
+        for name in ("fc1", "fc_offset"):
+            sd[name + ".weight"] = _t(np.asarray(p[name]["kernel"]).T)
+            sd[name + ".bias"] = _t(p[name]["bias"])
+    elif not isinstance(module, modules.DeformRoIPooling):
+        raise TypeError(f"not an op-library module: {type(module).__name__}")
     return sd
 
 

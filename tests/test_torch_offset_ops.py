@@ -30,14 +30,14 @@ import torch
 
 from nlspn_eccv20_tpu.config import Config as JaxConfig
 from nlspn_eccv20_tpu.models.nlspn import _prop_and_blend
-from nlspn_eccv20_tpu.ops.affinity import insert_center_offset
+from nlspn_eccv20_tpu.ops.affinity import insert_center_offset as jax_insert_center_offset
 from nlspn_eccv20_tpu.ops.pallas.deform_prop import _deform_op, _pure_windowed_planar
 from nlspn_eccv20_tpu.ops.propagate import (
     propagate_deformable,
     propagate_deformable_exact,
     propagate_deformable_windowed_scan,
 )
-from nlspn_eccv20_tpu_torch.ops.affinity import insert_center_offset_planar
+from nlspn_eccv20_tpu_torch.ops.affinity import insert_center_offset
 from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
     deform_prop,
     deform_prop_bwd,
@@ -101,8 +101,8 @@ def tie_offsets(rng, b, k2, h, w, radius):
 @pytest.mark.parametrize("n", [8, 24])
 def test_insert_center_offset_matches_jax(n):
     off = np.random.default_rng(n).standard_normal((2, 2 * n, 3, 5)).astype(np.float32)
-    ref = insert_center_offset(nhwc(off))
-    out = insert_center_offset_planar(t(off))
+    ref = jax_insert_center_offset(nhwc(off))
+    out = insert_center_offset(t(off))
     assert out.shape == (2, 2 * n + 2, 3, 5)
     np.testing.assert_array_equal(out.permute(0, 2, 3, 1).numpy(), np.asarray(ref))
     assert torch.count_nonzero(out[:, n:n + 2]) == 0

@@ -29,7 +29,7 @@ import nlspn_eccv20_tpu.ops.pallas.dep_encode_front as jax_def
 from nlspn_eccv20_tpu.ops.affinity import normalize_affinity_planar as jax_norm
 from nlspn_eccv20_tpu.ops.pallas.local_prop import fused_prop_step_planar
 from nlspn_eccv20_tpu.ops.planar import planar_channel_mlp as jax_mlp
-from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity_planar
+from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_plain)
@@ -320,14 +320,14 @@ def test_normalize_affinity_matches_jax(mode, n):
     raw = (rng.standard_normal((2, n, 7, 9)) * 2).astype(np.float32)
     gamma = np.asarray([0.5 * n], np.float32)
     ref = jax_norm(jnp.asarray(raw), jnp.asarray(gamma), mode)
-    out = normalize_affinity_planar(t(raw), t(gamma), mode)
+    out = normalize_affinity(t(raw), t(gamma), mode)
     assert out.shape == (2, n + 1, 7, 9)
     close(out, ref, 1e-6)
 
 
 def test_normalize_affinity_rejects_unknown_mode():
     with pytest.raises(NotImplementedError):
-        normalize_affinity_planar(torch.zeros(1, 8, 2, 2), torch.ones(1), "XX")
+        normalize_affinity(torch.zeros(1, 8, 2, 2), torch.ones(1), "XX")
 
 
 def test_planar_channel_mlp_matches_jax():
@@ -348,7 +348,8 @@ def test_every_source_builds_for_sm_90a_into_build():
     assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop",
                      "deform_prop_bwd", "dep_encode_front",
                      "dep_encode_front_bwd", "prop_loop", "prop_loop_bwd",
-                     "prop_step", "prop_step_bwd"]
+                     "prop_step", "prop_step_bwd", "small_conv3x3",
+                     "small_conv3x3_bwd"]
     cmd = " ".join(build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd and "-O3" in cmd
@@ -363,9 +364,10 @@ def test_wrappers_declare_pointers_as_void_p():
     from nlspn_eccv20_tpu_torch.ops.kernels import (dec_aff_tail,
                                                      deform_prop,
                                                      dep_encode_front,
-                                                     prop_loop, prop_step)
+                                                     prop_loop, prop_step,
+                                                     small_conv3x3)
     for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop,
-                prop_loop):
+                prop_loop, small_conv3x3):
         for sigs in (mod._SIGNATURES, mod._BWD_SIGNATURES):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
