@@ -68,16 +68,30 @@ Phases (any failure exits non-zero and prints no result):
      DeformRoIPoolingPack forward and backward on the card against the
      same modules on the CPU, conv3x3_s2 / convt3x3_s2 against F.conv2d /
      F.conv_transpose2d, and propagate_step(impl="pallas") launching K1
-     once and K7 once, equal to impl="xla";
- 11. the kernel line, then {"ok": true, "device": ...} as the last line.
+     once and K7 once, equal to impl="xla", and under autograd with offsets
+     in the window K7 and K8 once each, its gradients equal to impl="xla"'s;
+ 11. the devtools prototypes (nlspn_eccv20_tpu_torch.devtools): K10a
+     deform_windowed and K10b deform_colgather against their plain
+     versions and the exact gather at the experiments' shapes (b=12 of
+     228x304 and b=1 of 240x1216, R 4, offsets clip(N(0, 1.5^2), -4, 4)),
+     K10a also 5x5, each timed beside K7 on the same inputs, with the
+     library time of F.grid_sample over the stacked grids and the weighted
+     sum; K10c gather_probe equal bits to its plain version along both
+     axes, negative indices too, its library time torch.gather; then the
+     devtools path with the counters at 0: propagate_deformable_pallas
+     forward and backward at b=12 (K10a and K8 against the plain versions,
+     offsets inside the window and beyond it, to +-5.5),
+     exp_deform3.main() and exp_deform2.main();
+ 12. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
 runs in benchmark mode (it times its algorithms per conv shape), as the
 serving and training paths do.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
-prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop and
-prop_loop_bwd <= 1e-5 (the forwards: same operations in the same order,
-equal bits expected; the backwards: sums of at most 9, or (2R+2)^2 = 100,
+prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop,
+prop_loop_bwd, deform_windowed and deform_colgather <= 1e-5 (the
+forwards: same operations in the same order, equal bits expected; the
+backwards: sums of at most 9, or (2R+2)^2 = 100,
 products a neighbour, and of 12 steps, in another order),
 decode_aff_tail(_bwd), dep_encode_front(_bwd) and small_conv3x3(_bwd)
 <= 1e-4 (f32 sums of up to 2,304 products, or a whole batch's pixels, in
@@ -91,7 +105,8 @@ The kernel line's launches are each kernel's count on its path: the
 default serving run's for the forward kernels, the default training run's
 for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
 the constant-affinity runs' for prop_loop and prop_loop_bwd, the op-library
-path's for small_conv3x3 and small_conv3x3_bwd.
+path's for small_conv3x3 and small_conv3x3_bwd, the devtools path's for
+deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits).
 """
 
 import copy
@@ -158,9 +173,18 @@ def main() -> int:
         fuse_heads_dec0, small_conv3x3_bwd, small_conv3x3_bwd_plain,
         small_conv3x3_plain, small_conv3x3_planar)
     from nlspn_eccv20_tpu_torch import ops as oplib
+    from nlspn_eccv20_tpu_torch.devtools import exp_deform2, exp_deform3
+    from nlspn_eccv20_tpu_torch.devtools.exp_deform2 import (probe_gather,
+                                                            probe_gather_plain)
+    from nlspn_eccv20_tpu_torch.devtools.exp_deform3 import (deform_colgather,
+                                                            deform_colgather_plain)
+    from nlspn_eccv20_tpu_torch.devtools.exp_deform_prop_kernel import (
+        deform_windowed, propagate_deformable_pallas)
+    from nlspn_eccv20_tpu_torch.devtools.measure import measure
     from nlspn_eccv20_tpu_torch.ops import spaceconv
-    from nlspn_eccv20_tpu_torch.ops.propagate import (clamp_offsets,
-                                                       neighbor_shifts)
+    from nlspn_eccv20_tpu_torch.ops.propagate import (
+        clamp_offsets, neighbor_shifts, propagate_deformable_exact_planar,
+        propagate_deformable_windowed_planar)
     from nlspn_eccv20_tpu_torch.serve import Predictor
     from nlspn_eccv20_tpu_torch.train import Engine
     from nlspn_eccv20_tpu_torch.utils.weights import randomize_
@@ -205,32 +229,11 @@ def main() -> int:
         keep = torch.rand((b, h, w), generator=gen) < frac
         return (keep * (0.5 + 9.5 * torch.rand((b, h, w), generator=gen))).to(dev)
 
-    def time_ms(fn, reps=20, rounds=5):
+    def time_ms(fn, reps=20):
         """Device time of one call: CUDA-graph replay of `reps` back-to-back
-        calls between two CUDA events (no host launch cost), median of
-        `rounds`, after a warm-up."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fn()
-        torch.cuda.current_stream().wait_stream(stream)
-        torch.cuda.synchronize()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        times = []
-        for _ in range(rounds):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-        return sorted(times)[rounds // 2]
+        calls between two CUDA events (no host launch cost), median of 5,
+        after a warm-up."""
+        return 1e3 * measure(fn, calls=reps, warmup=1)
 
     def rel_err(out, ref):
         err = (out - ref).abs().max().item()
@@ -1219,12 +1222,142 @@ def main() -> int:
             check_close(f"propagate_step(impl='pallas') through {fn.__name__} "
                         f"(1 launch) vs impl='xla'", got,
                         oplib.propagate_step(feat, aff, offset, impl="xla"), 1e-5)
+        # under autograd with every offset in the window, the JAX op's
+        # lax.cond takes its window form: K7 forward and K8 backward, once
+        # each, against impl="xla" (autograd of the plain window form)
+        off_w = clamp_offsets(off, RADIUS).contiguous()
+        gout = randn(2, 1, H, W)
+        grads = []
+        for impl in ("pallas", "xla"):
+            leaves = [x.clone().requires_grad_(True) for x in (feat, off_w, aff)]
+            n7, n8 = deform_prop.launches, deform_prop_bwd.launches
+            out = oplib.propagate_step(leaves[0], leaves[2], leaves[1], impl=impl)
+            grads.append([out] + list(torch.autograd.grad(out, leaves, gout)))
+            if impl == "pallas" and (deform_prop.launches - n7, deform_prop_bwd.launches - n8) != (1, 1):
+                raise AssertionError(
+                    f"propagate_step(impl='pallas') under autograd: "
+                    f"{deform_prop.launches - n7} K7 and {deform_prop_bwd.launches - n8} "
+                    f"K8 launches, want 1 and 1")
+        for name, got, want in zip(("out", "d_feat", "d_offset", "d_aff"), *grads):
+            check_close(f"propagate_step(impl='pallas') under autograd, offsets in the "
+                        f"window (K7 + K8, 1 launch each) vs impl='xla': {name}",
+                        got, want, 1e-5)
         return counts
 
     oplib_launches = op_library()
     log(f"[oplib] phase 10: {time.perf_counter() - t_oplib:.1f} s")
+    torch.cuda.empty_cache()
 
-    # ---- 11. results ----
+    # ---- 11. the devtools prototypes ----
+    t_devtools = time.perf_counter()
+
+    def windowed_library(f, off, aff):
+        """K10a's and K10b's function (the exact gather inside the window)
+        through F.grid_sample over the stacked grids and the weighted sum."""
+        b, h, w = f.shape
+        smp = F.grid_sample(f[:, None], sampling_grid(off, 3), mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        return (smp.view(b, -1, h, w) * aff).sum(1)
+
+    def devtools_kernels():
+        """K10a, K10b and K10c against their plain versions, timed, at the
+        experiments' shapes and inputs."""
+        k10_flops = {"deform_windowed": 2 * 9 * (2 * RADIUS + 2) ** 2,
+                     "deform_colgather": 9 * (2 * RADIUS + 2) * 8 + 18}
+        for b, h, w in exp_deform3.SHAPES:
+            feat, off, aff = exp_deform3.experiment_inputs(b, h, w, dev)
+            f = feat[:, 0]
+            exact = propagate_deformable_exact_planar(f, off, aff)
+            for kname, fn, plain in (
+                    ("deform_windowed", lambda: deform_windowed(f, off, aff, 3, RADIUS),
+                     lambda: propagate_deformable_windowed_planar(f, off, aff, 3, RADIUS)),
+                    ("deform_colgather", lambda: deform_colgather(f, off, aff, RADIUS),
+                     lambda: deform_colgather_plain(f, off, aff, RADIUS))):
+                out, ref = fn(), plain()
+                torch.cuda.synchronize()
+                err, rel = rel_err(out, ref)
+                _, rel_exact = rel_err(out, exact)
+                if not rel_exact <= 1e-5:
+                    raise AssertionError(f"{kname} B={b} {h}x{w}: relative error "
+                                         f"{rel_exact:.3e} against the exact gather")
+                log(f"[devtools] {kname} B={b} {h}x{w}: equal bits {torch.equal(out, ref)}, "
+                    f"rel {rel_exact:.3e} against the exact gather")
+                record(kname, b, err, rel, 1e-5, time_ms(fn), time_ms(plain, reps=2),
+                       time_ms(lambda: windowed_library(f, off, aff)),
+                       bound(nbytes(f, off, aff, out), b * h * w * k10_flops[kname]),
+                       main_b=TRAIN_B)
+            log(f"[devtools] B={b} {h}x{w}: K7 deform_prop on the same inputs "
+                f"{time_ms(lambda: deform_prop(f, off, aff, kernel=3)):.4f} ms")
+        # K10a at 5x5, b=1
+        f = randn(1, REQ_H, REQ_W)
+        off = (randn(1, 50, REQ_H, REQ_W, std=1.5)).clamp(-RADIUS, RADIUS).contiguous()
+        aff = randn(1, 25, REQ_H, REQ_W, std=0.11)
+        _, rel = rel_err(deform_windowed(f, off, aff, 5, RADIUS),
+                         propagate_deformable_windowed_planar(f, off, aff, 5, RADIUS))
+        if not rel <= 1e-5:
+            raise AssertionError(f"deform_windowed 5x5: rel {rel:.3e}")
+        log(f"[devtools] deform_windowed 5x5 B=1 {REQ_H}x{REQ_W}: rel {rel:.3e}")
+        # K10c on the probe's block, its indices and negative ones
+        x, idx = exp_deform2.probe_inputs(dev)
+        neg = torch.randint(-300, 300, idx.shape, generator=gen, dtype=torch.int32).to(dev)
+        for axis in (0, 1):
+            for ind in (idx, neg):
+                if not torch.equal(probe_gather(x, ind, axis), probe_gather_plain(x, ind, axis)):
+                    raise AssertionError(f"gather_probe axis {axis}: other bits")
+            log(f"[devtools] gather_probe (64, 128) axis {axis}: equal bits, indices "
+                f"in [0, 64) and in [-300, 300)")
+        ind64 = idx.long()
+        record("gather_probe", 1, 0.0, 0.0, 0.0, time_ms(lambda: probe_gather(x, idx, 1)),
+               time_ms(lambda: probe_gather_plain(x, idx, 1)),
+               time_ms(lambda: torch.gather(x, 1, ind64)),
+               bound(nbytes(x, idx, x), x.numel()))
+
+    def devtools_path():
+        """The devtools entry points with the counters at 0: K10a's
+        drop-in forward and backward (K8) at b=12, offsets as drawn (inside
+        the window) and spread to +-(R + 1.5) (beyond it), against the
+        plain versions; exp_deform3.main() and exp_deform2.main() at their
+        shapes. Returns the counts."""
+        wrappers = {"deform_windowed": deform_windowed, "deform_colgather": deform_colgather,
+                    "gather_probe": probe_gather, "deform_prop_bwd": deform_prop_bwd}
+        for fn in wrappers.values():
+            fn.launches = 0
+        feat, off, aff = exp_deform3.experiment_inputs(TRAIN_B, REQ_H, REQ_W, dev)
+        g = randn(TRAIN_B, 1, REQ_H, REQ_W)
+        for tag, o in (("inside", off), ("beyond", (off * 1.4).clamp(
+                -RADIUS - 1.5, RADIUS + 1.5).contiguous())):
+            leaves = [x.clone().requires_grad_(True) for x in (feat, o, aff)]
+            out = propagate_deformable_pallas(*leaves, radius=RADIUS)
+            got = torch.autograd.grad(out, leaves, g)
+            f = feat[:, 0]
+            want = (propagate_deformable_windowed_planar(f, o, aff, 3, RADIUS),
+                    *deform_prop_bwd_plain(g[:, 0], f, o, aff, None, None, kernel=3,
+                                           radius=RADIUS, preserve=False, clip=False)[:3])
+            errs = [rel_err(a, b)[1] for a, b in zip((out[:, 0], got[0][:, 0]) + got[1:], want)]
+            if not max(errs) <= 1e-5:
+                raise AssertionError(f"propagate_deformable_pallas, offsets {tag}: rel {errs}")
+            log(f"[devtools] propagate_deformable_pallas B={TRAIN_B} forward and backward, "
+                f"offsets {tag} the window (max |o| {o.abs().max().item():.2f}): "
+                f"rel {max(errs):.3e} against the plain versions")
+        r3 = exp_deform3.main(dev)
+        r2 = exp_deform2.main(dev)
+        for shape, r in list(r3.items()) + [(k, v) for k, v in r2.items() if k != "probe"]:
+            if not r["max_err"] <= 1e-5:
+                raise AssertionError(f"devtools main {shape}: max_err {r['max_err']:.3e}")
+        if r2["probe"] != {0: True, 1: True}:
+            raise AssertionError(f"gather probe: {r2['probe']}")
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"[devtools] launches on the devtools path: {counts}")
+        for k, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{k} was not launched on the devtools path")
+        return counts
+
+    devtools_kernels()
+    devtools_launches = devtools_path()
+    log(f"[devtools] phase 11: {time.perf_counter() - t_devtools:.1f} s")
+
+    # ---- 12. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -1250,13 +1383,21 @@ def main() -> int:
                           "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:158"),
         "small_conv3x3_bwd": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3_bwd.cu",
                               "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:188"),
+        "deform_windowed": ("nlspn_eccv20_tpu_torch/csrc/deform_windowed.cu",
+                            "devtools/exp_deform_prop_kernel.py:95"),
+        "deform_colgather": ("nlspn_eccv20_tpu_torch/csrc/deform_colgather.cu",
+                             "devtools/exp_deform3.py:26"),
+        "gather_probe": ("nlspn_eccv20_tpu_torch/csrc/gather_probe.cu",
+                         "devtools/exp_deform2.py:26"),
     }
     path_launches = {**launches, **{k: train_launches[k] for k in bwd_wrappers},
                      "deform_prop": offset_launches["deform_prop"],
                      "deform_prop_bwd": offset_train_launches["deform_prop_bwd"],
                      "prop_loop": loop_launches["prop_loop"],
                      "prop_loop_bwd": loop_train_launches["prop_loop_bwd"],
-                     **oplib_launches}
+                     **oplib_launches,
+                     **{k: devtools_launches[k] for k in
+                        ("deform_windowed", "deform_colgather", "gather_probe")}}
     kernels = []
     for k, (src, replaces) in sources.items():
         r = rows[k]

@@ -7,8 +7,9 @@
 //   out  = max(v, 0)                                    (clip)
 //
 // with t(s) = max(0, 1 - |s|) and (u, v) over the window [-R, R+1]^2 around
-// neighbour k's kernel shift, given g = dL/d(out), for offsets in [-R, R]
-// (the training clamp's range; there S_k is the bilinear sample):
+// neighbour k's kernel shift, given g = dL/d(out), for any offset. In the
+// training clamp's range [-R, R] S_k is the bilinear sample; beyond it the
+// window truncates it, as the windowed form K10a (deform_windowed.cu):
 //
 //   ga(o)      = g(o) * (1 - m(o)) * c(o),  c = [v > 0] + 0.5 [v == 0]
 //   d_aff_k(o) = ga(o) * S_k(o)
@@ -193,8 +194,8 @@ deform_bwd_feat_kernel(const float* __restrict__ off, const float* __restrict__ 
 // g, pred, conf, dep, d_pred, d_conf, ga: (B, H, W) f32 contiguous; off,
 // d_off: (B, 2 (2r+1)^2, H, W); aff, d_aff: (B, (2r+1)^2, H, W). conf and
 // d_conf may be null (no confidence weighting); dep is read only if
-// preserve. ga is scratch the caller allocates. R is the offset window
-// (offsets must lie in [-R, R]). Returns cudaGetLastError().
+// preserve. ga is scratch the caller allocates. R is the offset window.
+// Returns cudaGetLastError().
 extern "C" int deform_prop_bwd_f32(const float* g, const float* pred,
                                    const float* off, const float* aff,
                                    const float* conf, const float* dep,

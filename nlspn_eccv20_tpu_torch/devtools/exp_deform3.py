@@ -1,0 +1,178 @@
+"""Kernel K10b: the column-exact, row-windowed deformable gather, and the
+experiment that times it.
+
+Counterpart of the JAX package's ``devtools/exp_deform3.py``: K10b
+(``csrc/deform_colgather.cu``) replaces its TPU kernel ``_kernel`` (reached
+from ``deform_pallas``). For each neighbour k of the 3x3 stencil, with
+ty = oy_k + dy_k and tx = ox_k + dx_k, the column is resolved exactly by
+the two taps at floor(tx) and floor(tx) + 1, the rows by the static tent
+window u in [dy_k - R, dy_k + R + 1]:
+
+    n_k = sum_u tent(ty - u) * (P(y+u, x+x0) * (1 - fx) + P(y+u, x+x0+1) * fx)
+    out = sum_k aff_k * n_k
+
+on the plane P zero-padded by R + 2: the exact gather when every offset
+lies in [-R, R]. A column tap outside the padded row is zero (the TPU's
+lane gather has no such row). 3x3 only: the TPU kernel's padding of R + 2
+is one row short for a 5x5 stencil's shift of 2, so other kernels raise.
+Forward only, as the TPU prototype.
+
+``main()`` runs the TPU experiment's comparison at NYU b=12 of 228x304 and
+KITTI b=1 of 240x1216 with offsets clip(N(0, 1.5^2), -4, 4): K10b's largest
+error against the exact gather, and the device times of K10b, the plain
+windowed form and K7 (``deform_prop``, the exact gather the model runs).
+It needs the card unless it is given ``device="cpu"`` (then no times).
+
+    python -m nlspn_eccv20_tpu_torch.devtools.exp_deform3
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nlspn_eccv20_tpu_torch.device import resolve_device
+from nlspn_eccv20_tpu_torch.devtools.measure import measure
+from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
+from nlspn_eccv20_tpu_torch.ops.propagate import (
+    neighbor_shifts,
+    propagate_deformable_exact_planar,
+    propagate_deformable_windowed_planar,
+    tent,
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {"deform_colgather_f32": [_P] * 4 + [_I] * 4 + [_P]}
+SHAPES = ((12, 228, 304), (1, 240, 1216))   # NYU train batch, KITTI b=1
+RADIUS = 4
+
+
+def _check(feat, off, aff, kernel, radius):
+    if kernel != 3:
+        raise ValueError(f"deform_colgather is 3x3 only, got kernel {kernel}")
+    if radius < 0:
+        raise ValueError(f"radius must be >= 0, got {radius}")
+    b, h, w = feat.shape
+    if off.shape != (b, 18, h, w) or aff.shape != (b, 9, h, w):
+        raise ValueError(f"off {tuple(off.shape)} and aff {tuple(aff.shape)} "
+                         f"do not fit feat {tuple(feat.shape)}")
+
+
+def deform_colgather_plain(feat: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
+                           radius: int = 4) -> torch.Tensor:
+    """K10b's function in the TPU kernel's order: feat (B, H, W), off
+    (B, 18, H, W) with channel 2k = dy, aff (B, 9, H, W) -> (B, H, W)."""
+    _check(feat, off, aff, 3, radius)
+    b, h, w = feat.shape
+    rp = radius + 2
+    p = F.pad(feat, (rp, rp, rp, rp))
+    w2 = w + 2 * rp
+    cols = torch.arange(w, device=feat.device).view(1, 1, w)
+    acc = torch.zeros_like(feat)
+    for k, (dy, dx) in enumerate(neighbor_shifts(3)):
+        ty, tx = off[:, 2 * k] + dy, off[:, 2 * k + 1] + dx
+        a = aff[:, k]
+        x0f = torch.floor(tx)
+        fx = tx - x0f
+        # the left tap's column in the padded row; clamped first, so that
+        # any finite offset lands outside the row
+        xi = cols + torch.clamp(x0f, -w2, w2).long() + rp
+        taps = []
+        for xj in (xi, xi + 1):
+            valid = (xj >= 0) & (xj < w2)
+            taps.append((xj.clamp(0, w2 - 1), valid))
+        neighk = torch.zeros_like(feat)
+        for u in range(dy - radius, dy + radius + 2):
+            rowblk = p[:, rp + u:rp + u + h]
+            g0, g1 = (torch.where(valid, torch.gather(rowblk, 2, xj),
+                                  torch.zeros_like(feat)) for xj, valid in taps)
+            wy = tent(ty - u)
+            neighk = neighk + wy * (g0 * (1.0 - fx) + g1 * fx)
+        acc = acc + a * neighk
+    return acc
+
+
+def deform_colgather(feat: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
+                     radius: int = 4) -> torch.Tensor:
+    """K10b on planar tensors (as ``deform_colgather_plain``). On a CPU
+    tensor it runs the plain version; on a CUDA tensor it launches the
+    kernel or raises."""
+    if feat.device.type == "cpu":
+        return deform_colgather_plain(feat, off, aff, radius)
+    _check(feat, off, aff, 3, radius)
+    b, h, w = feat.shape
+    build.check_tensor(feat, "deform_colgather feat")
+    build.check_tensor(off, "deform_colgather off", device=feat.device)
+    build.check_tensor(aff, "deform_colgather aff", device=feat.device)
+    out = torch.empty_like(feat)
+    with torch.cuda.device(feat.device):
+        lib = build.load("deform_colgather", _SIGNATURES)
+        err = lib.deform_colgather_f32(
+            feat.data_ptr(), off.data_ptr(), aff.data_ptr(), out.data_ptr(),
+            b, h, w, radius, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "deform_colgather")
+    deform_colgather.launches += 1
+    return out
+
+
+deform_colgather.launches = 0
+
+
+def deform_pallas(feat: torch.Tensor, offset: torch.Tensor, aff: torch.Tensor,
+                  kernel: int = 3, radius: int = 4) -> torch.Tensor:
+    """The JAX prototype's ``deform_pallas`` on the port's layout: feat
+    (B, 1, H, W), offset (B, 18, H, W), aff (B, 9, H, W) -> (B, 1, H, W)."""
+    if feat.shape[1] != 1:
+        raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
+    if kernel != 3:
+        raise ValueError(f"deform_pallas is 3x3 only, got kernel {kernel}")
+    return deform_colgather(feat[:, 0].contiguous(), offset.contiguous(),
+                            aff.contiguous(), radius)[:, None]
+
+
+def experiment_inputs(b, h, w, device, seed=0):
+    """The JAX experiment's inputs, drawn in its NHWC order from one numpy
+    generator and moved to the port's layout: feat N(0, 1), offsets
+    clip(N(0, 1.5^2), -4, 4), affinities N(0, 0.11^2)."""
+    rng = np.random.default_rng(seed)
+    feat = rng.standard_normal((b, h, w, 1)).astype(np.float32)
+    off = np.clip(rng.standard_normal((b, h, w, 18)) * 1.5, -4, 4).astype(np.float32)
+    aff = (rng.standard_normal((b, h, w, 9)) * 0.11).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(device)
+                 for a in (feat, off, aff))
+
+
+def main(device=None, shapes=SHAPES):
+    """Per shape: K10b's largest error against the exact gather and, on
+    the card, the device times (ms) of K10b, the plain windowed form and K7.
+    Returns {(b, h, w): {...}}."""
+    dev = resolve_device(device)
+    print(f"device: {dev}", flush=True)
+    results = {}
+    for b, h, w in shapes:
+        feat, off, aff = experiment_inputs(b, h, w, dev)
+        f = feat[:, 0]
+        ref = propagate_deformable_exact_planar(f, off, aff)
+        out = deform_pallas(feat, off, aff, radius=RADIUS)
+        row = {"max_err": (out[:, 0] - ref).abs().max().item()}
+        line = f"{b}x{h}x{w} colgather: max_err={row['max_err']:.2e}"
+        if dev.type == "cuda":
+            row["ms"] = 1e3 * measure(lambda: deform_pallas(feat, off, aff, radius=RADIUS))
+            row["windowed_plain_ms"] = 1e3 * measure(
+                lambda: propagate_deformable_windowed_planar(f, off, aff, 3, RADIUS),
+                calls=2)
+            row["k7_ms"] = 1e3 * measure(lambda: deform_prop(f, off, aff, kernel=3))
+            line += (f" fwd {row['ms'] * 1e3:.1f}us; plain windowed "
+                     f"{row['windowed_plain_ms'] * 1e3:.0f}us; K7 deform_prop "
+                     f"{row['k7_ms'] * 1e3:.1f}us")
+        print(line, flush=True)
+        results[(b, h, w)] = row
+    return results
+
+
+if __name__ == "__main__":
+    main()

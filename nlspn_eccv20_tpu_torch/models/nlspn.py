@@ -311,6 +311,8 @@ class NLSPNModel(nn.Module):
             return prop_step(p, a, conf, d, **kw)
 
         # ---- Propagation loop (reference :340-373) ----
+        # every step's plane, whatever need_inter says (as JAX): each is the
+        # next step's input anyway. need_inter only rules out the loop kernel.
         inter = []
         if uses_loop_kernel(cfg, need_inter):
             # all steps in one launch; the k == 1 blend above already
@@ -325,8 +327,7 @@ class NLSPNModel(nn.Module):
                 aff_feat = self.encode_aff(aff)
             for _ in range(cfg.prop_time - 1):
                 pred = step(pred, aff)
-                if need_inter:
-                    inter.append(pred)
+                inter.append(pred)
                 if cfg.use_GRU:
                     dep_feat = self.encode_dep(pred / cfg.max_depth)
                     aff_feat = self.GRU(aff_feat, dep_feat)
@@ -334,8 +335,7 @@ class NLSPNModel(nn.Module):
                     aff = normalize_affinity(raw, gamma, cfg.affinity).contiguous()
             # Final iteration: propagate only, no GRU refresh (reference k == K).
             pred = step(pred, aff)
-            if need_inter:
-                inter.append(pred)
+            inter.append(pred)
         if not cfg.always_clip:
             pred = torch.maximum(pred, torch.zeros_like(pred))
 

@@ -15,8 +15,11 @@ inside the window, its exact gather beyond) and in training, where the
 caller has clamped the offsets to [-radius, radius] first
 (``ops.propagate.clamp_offsets``). The backward follows the windowed form's
 gradient conventions (the tent's slope is -sign(t) with sign(0) = +1, half
-at |t| = 1, zero outside the window u in [-radius, radius + 1]) and is
-valid for offsets in [-radius, radius] only. With ``radius`` None (training
+at |t| = 1, zero outside the window u in [-radius, radius + 1]): it is the
+VJP of the windowed form for any offset, which is K7's function only for
+offsets in [-radius, radius] (beyond, the window truncates it; K10a in
+``devtools`` computes that truncated form and takes K8 as its backward
+there too). With ``radius`` None (training
 at ``offset_window=0``) the offsets are not clamped and the backward is
 ``deform_prop_exact_bwd_plain``, the VJP of the exact gather: the JAX
 package differentiates its exact gather with XLA's autodiff there and has no
@@ -99,7 +102,8 @@ def deform_prop_bwd_plain(g: torch.Tensor, pred: torch.Tensor, off: torch.Tensor
                           dep: Optional[torch.Tensor], *, kernel: int, radius: int,
                           preserve: bool, clip: bool):
     """(d_pred, d_off, d_aff, d_conf) of K7's function at cotangent ``g``,
-    for offsets in [-radius, radius]; d_conf is None without conf, ``dep``
+    for offsets in [-radius, radius] (beyond, of the window form, which the
+    window truncates); d_conf is None without conf, ``dep``
     is data. Written out as the TPU backward computes it: for each
     neighbour k and each (u, v) of the window [-radius, radius + 1]^2 around
     its kernel shift, the tent weights and slopes of the offset read the
@@ -180,10 +184,11 @@ def deform_prop_bwd(g: torch.Tensor, pred: torch.Tensor, off: torch.Tensor,
                     aff: torch.Tensor, conf: Optional[torch.Tensor] = None,
                     dep: Optional[torch.Tensor] = None, *, kernel: int = 3,
                     radius: int = 4, preserve: bool = False, clip: bool = False):
-    """K8: (d_pred, d_off, d_aff, d_conf) at cotangent ``g`` (B, H, W), for
-    offsets in [-radius, radius] (the training clamp's range; the caller
-    guarantees it). On a CPU tensor it runs ``deform_prop_bwd_plain``; on a
-    CUDA tensor it launches the kernel or raises."""
+    """K8: (d_pred, d_off, d_aff, d_conf) at cotangent ``g`` (B, H, W), as
+    ``deform_prop_bwd_plain``: K7's gradient for offsets in [-radius,
+    radius] (the training clamp's range), the window form's beyond. On a
+    CPU tensor it runs ``deform_prop_bwd_plain``; on a CUDA tensor it
+    launches the kernel or raises."""
     if pred.device.type == "cpu":
         return deform_prop_bwd_plain(g, pred, off, aff, conf, dep, kernel=kernel,
                                      radius=radius, preserve=preserve, clip=clip)

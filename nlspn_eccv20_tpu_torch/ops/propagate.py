@@ -201,21 +201,29 @@ def propagate_deformable(feat: torch.Tensor, offset: torch.Tensor,
 
     * ``fallback=False`` (training): offsets clamped to [-radius, radius],
       then the window form, whose backward has the window's tie rules;
-    * ``fallback=True`` (inference) or ``radius`` None: the exact gather,
-      whose backward is its own VJP. The JAX op takes its window form when
-      every offset lies in the window: the same values, and gradients that
-      differ only where an offset is an integer.
+    * ``fallback=True`` (inference): the JAX op's ``lax.cond`` takes its
+      window form when every offset lies in [-radius, radius] and the exact
+      gather otherwise. The values are equal; the gradients differ where an
+      offset is an integer. So under autograd this op makes the same test
+      (one host sync) and differentiates the window form inside the window;
+      without autograd, and beyond the window, it runs the exact gather;
+    * ``radius`` None: the exact gather, whose backward is its own VJP.
 
-    ``impl='pallas'`` runs K7 (``deform_prop``) on the same offsets, with
-    K8 as its backward in training; the exact gather's backward is
+    ``impl='pallas'`` runs K7 (``deform_prop``) on the same offsets: with a
+    window, K8 is its backward; for the exact gather the backward is
     ``deform_prop_exact_bwd_plain``, plain PyTorch on the card too."""
     if feat.shape[1] != 1:
         raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
     if impl not in ("pallas", "xla", "auto"):
         raise ValueError(f"unknown impl {impl}")
     f = feat[:, 0]
-    window = None if fallback or radius is None else radius
-    off = offset if window is None else clamp_offsets(offset, window)
+    window = radius
+    if radius is not None and fallback:
+        recording = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (feat, offset, aff))
+        if not (recording and bool(offset.abs().max() <= radius)):
+            window = None
+    off = offset if window is None or fallback else clamp_offsets(offset, window)
     if impl == "pallas":
         # imported here: the kernel modules import this one
         from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop

@@ -90,7 +90,7 @@ def test_route_is_the_jax_packages(monkeypatch, prop_impl, need_inter, train, lo
                  "dep": torch.from_numpy(nchw(s["dep"]))}, need_inter=need_inter)
     assert calls == ({"prop_loop": 1, "prop_step": 0} if loop else
                      {"prop_loop": 0, "prop_step": cfg.prop_time})
-    assert len(out["pred_inter"]) == (cfg.prop_time if need_inter else 0)
+    assert len(out["pred_inter"]) == (0 if loop else cfg.prop_time)
 
 
 def test_train_step_matches_jax():

@@ -196,3 +196,42 @@ def test_training_forward_reaches_every_parameter():
         assert p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
         assert torch.count_nonzero(p.grad) > 0, name
+
+
+
+_JAX_STRUCTURE = {}
+
+
+def jax_variables_structure(jmodel, s, key):
+    """The JAX model's variables as shapes (``jax.eval_shape`` of its init:
+    traced, not compiled), once per configuration."""
+    if key not in _JAX_STRUCTURE:
+        _JAX_STRUCTURE[key] = jax.eval_shape(
+            lambda k: jmodel.init(k, s, train=False), jax.random.PRNGKey(0))
+    return _JAX_STRUCTURE[key]
+
+
+@pytest.mark.parametrize("kw", [
+    {},
+    {"offset": True, "offset_neighbor_loop": "scan"},
+    {"use_GRU": False, "prop_impl": "pallas"},
+], ids=["default", "offset", "loop"])
+@pytest.mark.parametrize("need_inter", [False, True])
+def test_pred_inter_has_the_jax_models_length(kw, need_inter):
+    """In training (``Engine.train_step`` passes ``need_inter=False``) every
+    route but the whole-loop kernel returns each step's plane, whatever
+    ``need_inter`` says, as the JAX model does; the JAX side is traced
+    only (``jax.eval_shape``), not compiled."""
+    jcfg = JaxConfig(**TINY, **kw)
+    jmodel = jax_get_model(jcfg)
+    s = sample(1, 16, 24)
+    ref, _ = jax.eval_shape(lambda v: jmodel.apply(
+        v, s, train=True, need_inter=need_inter, mutable=["batch_stats"]),
+        jax_variables_structure(jmodel, s, tuple(kw)))
+    model = get_model(Config(**dataclasses.asdict(jcfg)), device="cpu").train()
+    with torch.no_grad():
+        out = model({"rgb": torch.from_numpy(nchw(s["rgb"])),
+                     "dep": torch.from_numpy(nchw(s["dep"]))}, need_inter=need_inter)
+    assert len(out["pred_inter"]) == len(ref["pred_inter"])
+    loop = jmodel._use_loop_kernel(need_inter, True, 16, 24)
+    assert len(ref["pred_inter"]) == (0 if loop else jcfg.prop_time)

@@ -439,6 +439,44 @@ def test_propagate_deformable_matches_jax(fallback, radius, past, impl):
         assert torch.equal(step, out)
 
 
+_JAX_INTEGER_OFFSETS = {}
+
+
+@pytest.mark.parametrize("past", [False, True], ids=["inside", "past"])
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_inference_gradients_at_integer_offsets_match_jax(past, impl):
+    """At inference (``fallback=True``) with every offset inside the window,
+    JAX's ``lax.cond`` differentiates its window form, whose tie rules at
+    integer offsets differ from the exact gather's; the port takes the same
+    route under autograd (on the CPU with 'pallas', K8's plain version).
+    Half the offsets are integers in [-2, 2], the others off the lattice;
+    "past" puts a quarter of them at +-3, beyond the window of 2, where both
+    take the exact gather. Forward 1e-5, gradients 1e-4."""
+    if past not in _JAX_INTEGER_OFFSETS:
+        rng = np.random.default_rng(52)
+        shape = (2, 6, 8, 18)
+        off = np.where(rng.random(shape) < 0.5, rng.integers(-2, 3, shape),
+                       off_lattice(rng, shape, -2, 1)).astype(np.float32)
+        if past:
+            off = np.where(rng.random(shape) < 0.25, 3.0 * np.sign(off - 0.1),
+                           off).astype(np.float32)
+        feat = rng.standard_normal((2, 6, 8, 1)).astype(np.float32)
+        aff = rng.uniform(size=(2, 6, 8, 9)).astype(np.float32)
+        g = rng.standard_normal((2, 6, 8, 1)).astype(np.float32)
+        ref, grads = jax_vjp(lambda *x: jops.propagate_deformable(
+            *x, radius=2, impl="xla", fallback=True,
+            neighbor_loop="scan"))((feat, off, aff), g)
+        _JAX_INTEGER_OFFSETS[past] = ((feat, off, aff, g), ref, grads)
+    (feat, off, aff, g), ref, (rf, ro, ra) = _JAX_INTEGER_OFFSETS[past]
+    assert (np.abs(off).max() > 2) == past
+    leaves = [t(nchw(a)).requires_grad_(True) for a in (feat, off, aff)]
+    out = tops.propagate_deformable(*leaves, radius=2, impl=impl, fallback=True)
+    assert_rel("out", out, nchw(ref), 1e-5)
+    for name, got, want in zip(("feat", "offset", "aff"),
+                               torch.autograd.grad(out, leaves, t(nchw(g))), (rf, ro, ra)):
+        assert_rel(f"d_{name}", got, nchw(want), 1e-4)
+
+
 @pytest.mark.parametrize("fallback", [True, False])
 def test_propagate_deformable_impls_share_one_semantics(fallback):
     """'xla' and 'pallas' (on the CPU, K7's plain version and its VJP) give

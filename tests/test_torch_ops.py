@@ -345,9 +345,10 @@ def test_planar_channel_mlp_matches_jax():
 
 def test_every_source_builds_for_sm_90a_into_build():
     names = build.kernel_names()
-    assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop",
-                     "deform_prop_bwd", "dep_encode_front",
-                     "dep_encode_front_bwd", "prop_loop", "prop_loop_bwd",
+    assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_colgather",
+                     "deform_prop", "deform_prop_bwd", "deform_windowed",
+                     "dep_encode_front", "dep_encode_front_bwd",
+                     "gather_probe", "prop_loop", "prop_loop_bwd",
                      "prop_step", "prop_step_bwd", "small_conv3x3",
                      "small_conv3x3_bwd"]
     cmd = " ".join(build.NVCC_FLAGS)
@@ -361,14 +362,17 @@ def test_every_source_builds_for_sm_90a_into_build():
 
 def test_wrappers_declare_pointers_as_void_p():
     """ctypes would cut a pointer or the stream passed as a default int."""
+    from nlspn_eccv20_tpu_torch.devtools import (exp_deform2, exp_deform3,
+                                                  exp_deform_prop_kernel)
     from nlspn_eccv20_tpu_torch.ops.kernels import (dec_aff_tail,
                                                      deform_prop,
                                                      dep_encode_front,
                                                      prop_loop, prop_step,
                                                      small_conv3x3)
     for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop,
-                prop_loop, small_conv3x3):
-        for sigs in (mod._SIGNATURES, mod._BWD_SIGNATURES):
+                prop_loop, small_conv3x3, exp_deform_prop_kernel,
+                exp_deform3, exp_deform2):
+        for sigs in (mod._SIGNATURES, getattr(mod, "_BWD_SIGNATURES", {})):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
                 if not isinstance(sig, tuple):          # a kernel launch
