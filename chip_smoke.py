@@ -82,7 +82,19 @@ Phases (any failure exits non-zero and prints no result):
      forward and backward at b=12 (K10a and K8 against the plain versions,
      offsets inside the window and beyond it, to +-5.5),
      exp_deform3.main() and exp_deform2.main();
- 12. the kernel line, then {"ok": true, "device": ...} as the last line.
+ 12. the interleave microbenchmarks (devtools.microbench_interleave and
+     microbench_asm): K11a interleave_asm, K11b interleave_strided, K11c
+     tile_repeat_probe and K11d interleave_onehot (with the one-hot E)
+     equal bits to their plain versions at b=12 of (12, 128, 64, 128)
+     phases whose padding is random, so a read outside the 58x76 window
+     shows; K11a, K11b and K11d also equal bits to the interleave, K11c (a
+     probe, not an interleave) to its own formula only; K11d with a random
+     E against its plain version; the library time of K11a, K11b and K11d
+     the .contiguous() copy of the permuted window, of K11c one
+     advanced-indexing gather; then, with the counters at 0, the two
+     microbenchmarks' main()s (deconv0's NCHW and channels-last outputs
+     must agree);
+ 13. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
 runs in benchmark mode (it times its algorithms per conv shape), as the
@@ -98,7 +110,10 @@ decode_aff_tail(_bwd), dep_encode_front(_bwd) and small_conv3x3(_bwd)
 another order; small_conv3x3(_bwd), the heads identity and spaceconv are
 held against their plain versions run in float64, since cuDNN's own f32
 backward of that conv is 1.4e-4 off), the DCN modules (card against CPU)
-<= 1e-4, whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
+<= 1e-4, K11a-c and K11d with the one-hot E equal bits (copies; one
+product not zero in each sum), K11d with a random E <= 1e-5 (sums of 304
+products in another order), deconv0 channels-last against NCHW <= 1e-4,
+whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
 <= 5e-3 (PARITY.md's gradient bar).
 The kernel line's launches are each kernel's count on its path: the
@@ -106,7 +121,8 @@ default serving run's for the forward kernels, the default training run's
 for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
 the constant-affinity runs' for prop_loop and prop_loop_bwd, the op-library
 path's for small_conv3x3 and small_conv3x3_bwd, the devtools path's for
-deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits).
+deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits),
+the two microbenchmark main()s' for K11a-d.
 """
 
 import copy
@@ -180,7 +196,14 @@ def main() -> int:
                                                             deform_colgather_plain)
     from nlspn_eccv20_tpu_torch.devtools.exp_deform_prop_kernel import (
         deform_windowed, propagate_deformable_pallas)
+    from nlspn_eccv20_tpu_torch.devtools import microbench_asm, microbench_interleave
     from nlspn_eccv20_tpu_torch.devtools.measure import measure
+    from nlspn_eccv20_tpu_torch.devtools.microbench_asm import (
+        E_SHAPE, interleave_onehot, interleave_onehot_plain, interleave_strided,
+        interleave_strided_plain, onehot_expansion, tile_repeat_probe,
+        tile_repeat_probe_plain)
+    from nlspn_eccv20_tpu_torch.devtools.microbench_interleave import (
+        PADDED, PHASES, interleave_asm, interleave_asm_plain, interleave_window)
     from nlspn_eccv20_tpu_torch.ops import spaceconv
     from nlspn_eccv20_tpu_torch.ops.propagate import (
         clamp_offsets, neighbor_shifts, propagate_deformable_exact_planar,
@@ -1356,8 +1379,89 @@ def main() -> int:
     devtools_kernels()
     devtools_launches = devtools_path()
     log(f"[devtools] phase 11: {time.perf_counter() - t_devtools:.1f} s")
+    torch.cuda.empty_cache()
 
-    # ---- 12. results ----
+    # ---- 12. the interleave microbenchmarks ----
+    t_micro = time.perf_counter()
+
+    def micro_kernels():
+        """K11a-d against their plain versions at b=12, timed beside the
+        library calls, on phases whose padding is random."""
+        ph = randn(TRAIN_B, PHASES, *PADDED)
+        win_bytes = ph[:, :, :58, :76].numel() * 4
+        e1, er = onehot_expansion(dev), randn(*E_SHAPE)
+        ref = interleave_window(ph)
+        # K11c's gather indices, made here: no host copy in a captured graph
+        yy = torch.arange(232, device=dev).view(232, 1)
+        xx = torch.arange(304, device=dev).view(1, 304)
+        ch = ((yy % 4) * 4 + xx % 4) * 8 + torch.arange(8, device=dev).view(8, 1, 1)
+        iy, ix = yy % 58, xx % 76
+        gemm_flops = 2 * TRAIN_B * 4 * (8 * 58) * 304 * 304
+        for kname, fn, plain, lib, flops, extra in (
+                ("interleave_asm", lambda: interleave_asm(ph),
+                 lambda: interleave_asm_plain(ph), lambda: interleave_window(ph), 0, 0),
+                ("interleave_strided", lambda: interleave_strided(ph),
+                 lambda: interleave_strided_plain(ph), lambda: interleave_window(ph), 0, 0),
+                ("tile_repeat_probe", lambda: tile_repeat_probe(ph),
+                 lambda: tile_repeat_probe_plain(ph), lambda: ph[:, ch, iy, ix], 0, 0),
+                ("interleave_onehot", lambda: interleave_onehot(ph, e1),
+                 lambda: interleave_onehot_plain(ph, e1), lambda: interleave_window(ph),
+                 gemm_flops, nbytes(e1))):
+            out, want = fn(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{kname}: other bits than its plain version")
+            if kname == "tile_repeat_probe":
+                if not torch.equal(lib(), want):
+                    raise AssertionError("tile_repeat_probe: the gather disagrees")
+            elif not torch.equal(out, ref):
+                raise AssertionError(f"{kname}: other bits than the interleave")
+            log(f"[micro] {kname} B={TRAIN_B}: equal bits to its plain version"
+                + (", a probe, not the interleave" if kname == "tile_repeat_probe"
+                   else " and to the interleave"))
+            record(kname, TRAIN_B, 0.0, 0.0, 0.0, time_ms(fn), time_ms(plain), time_ms(lib),
+                   bound(win_bytes + extra + nbytes(out), flops), main_b=TRAIN_B)
+        err, rel = rel_err(interleave_onehot(ph, er), interleave_onehot_plain(ph, er))
+        if not rel <= 1e-5:
+            raise AssertionError(f"interleave_onehot, random E: rel {rel:.3e} > 1e-05")
+        rows["interleave_onehot"]["max_abs_err"] = err
+        log(f"[micro] interleave_onehot B={TRAIN_B}, random E: max_abs_err {err:.3e} "
+            f"rel {rel:.3e} (tol 1e-05)")
+
+    def micro_path():
+        """The two microbenchmarks' main()s with the counters at 0.
+        Returns the counts."""
+        wrappers = {"interleave_asm": interleave_asm, "interleave_strided": interleave_strided,
+                    "tile_repeat_probe": tile_repeat_probe,
+                    "interleave_onehot": interleave_onehot}
+        for fn in wrappers.values():
+            fn.launches = 0
+        ri = microbench_interleave.main(dev)
+        ra = microbench_asm.main(dev)
+        if not ri["asm_equal"]:
+            raise AssertionError("microbench_interleave: K11a is not the interleave")
+        if not ri["deconv0_rel"] <= 1e-4:
+            raise AssertionError(f"deconv0 channels-last vs NCHW: rel {ri['deconv0_rel']:.3e}")
+        for k, r in ra.items():
+            if not r["equal"]:
+                raise AssertionError(f"microbench_asm {k}: not equal")
+        lines = ri["lines"]
+        log(f"[micro] deconv0 b={TRAIN_B} 128->256 29x38->58x76: NCHW "
+            f"{lines['deconv0 128->256 NCHW out']['us']:.1f} us, channels-last "
+            f"{lines['deconv0 128->256 channels-last out']['us']:.1f} us, rel "
+            f"{ri['deconv0_rel']:.2e}")
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"[micro] launches on the microbenchmark path: {counts}")
+        for k, n in counts.items():
+            if n == 0:
+                raise AssertionError(f"{k} was not launched on the microbenchmark path")
+        return counts
+
+    micro_kernels()
+    micro_launches = micro_path()
+    log(f"[micro] phase 12: {time.perf_counter() - t_micro:.1f} s")
+
+    # ---- 13. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -1389,6 +1493,14 @@ def main() -> int:
                              "devtools/exp_deform3.py:26"),
         "gather_probe": ("nlspn_eccv20_tpu_torch/csrc/gather_probe.cu",
                          "devtools/exp_deform2.py:26"),
+        "interleave_asm": ("nlspn_eccv20_tpu_torch/csrc/interleave_asm.cu",
+                           "devtools/microbench_interleave.py:81"),
+        "interleave_strided": ("nlspn_eccv20_tpu_torch/csrc/interleave_strided.cu",
+                               "devtools/microbench_asm.py:65"),
+        "tile_repeat_probe": ("nlspn_eccv20_tpu_torch/csrc/tile_repeat_probe.cu",
+                              "devtools/microbench_asm.py:73"),
+        "interleave_onehot": ("nlspn_eccv20_tpu_torch/csrc/interleave_onehot.cu",
+                              "devtools/microbench_asm.py:88"),
     }
     path_launches = {**launches, **{k: train_launches[k] for k in bwd_wrappers},
                      "deform_prop": offset_launches["deform_prop"],
@@ -1397,7 +1509,8 @@ def main() -> int:
                      "prop_loop_bwd": loop_train_launches["prop_loop_bwd"],
                      **oplib_launches,
                      **{k: devtools_launches[k] for k in
-                        ("deform_windowed", "deform_colgather", "gather_probe")}}
+                        ("deform_windowed", "deform_colgather", "gather_probe")},
+                     **micro_launches}
     kernels = []
     for k, (src, replaces) in sources.items():
         r = rows[k]

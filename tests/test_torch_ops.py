@@ -348,9 +348,10 @@ def test_every_source_builds_for_sm_90a_into_build():
     assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_colgather",
                      "deform_prop", "deform_prop_bwd", "deform_windowed",
                      "dep_encode_front", "dep_encode_front_bwd",
-                     "gather_probe", "prop_loop", "prop_loop_bwd",
+                     "gather_probe", "interleave_asm", "interleave_onehot",
+                     "interleave_strided", "prop_loop", "prop_loop_bwd",
                      "prop_step", "prop_step_bwd", "small_conv3x3",
-                     "small_conv3x3_bwd"]
+                     "small_conv3x3_bwd", "tile_repeat_probe"]
     cmd = " ".join(build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd and "-O3" in cmd
@@ -363,7 +364,9 @@ def test_every_source_builds_for_sm_90a_into_build():
 def test_wrappers_declare_pointers_as_void_p():
     """ctypes would cut a pointer or the stream passed as a default int."""
     from nlspn_eccv20_tpu_torch.devtools import (exp_deform2, exp_deform3,
-                                                  exp_deform_prop_kernel)
+                                                  exp_deform_prop_kernel,
+                                                  microbench_asm,
+                                                  microbench_interleave)
     from nlspn_eccv20_tpu_torch.ops.kernels import (dec_aff_tail,
                                                      deform_prop,
                                                      dep_encode_front,
@@ -371,7 +374,8 @@ def test_wrappers_declare_pointers_as_void_p():
                                                      small_conv3x3)
     for mod in (prop_step, dec_aff_tail, dep_encode_front, deform_prop,
                 prop_loop, small_conv3x3, exp_deform_prop_kernel,
-                exp_deform3, exp_deform2):
+                exp_deform3, exp_deform2, microbench_interleave,
+                microbench_asm):
         for sigs in (mod._SIGNATURES, getattr(mod, "_BWD_SIGNATURES", {})):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
