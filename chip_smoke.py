@@ -23,7 +23,11 @@ Phases (any failure exits non-zero and prints no result):
      the same inputs as its comparison (no single PyTorch call computes the
      loop); K6 and K7 also timed at B=1 of KITTI's 240x1216;
   4. each backward kernel the same way, at the train step's shapes (B=12
-     and B=1, 228x304 patches), and run twice to show equal bits; the
+     and B=1, 228x304 patches), and run twice to show equal bits; K4
+     (decode_aff_tail_bwd) and K5 (dep_encode_front_bwd) also at the
+     shapes their tiles make risky: K4 with K=24 at B=1, K5 on a 230x306
+     plane at B=2 and on KITTI's 240x1216 at B=1, K4 on its 60x304 base
+     grid at B=1 and on an odd 58x75 one, both with C=30 at B=1; the
      library time is cuDNN's backward of the same two convs
      (aten.convolution_backward, what autograd runs for them), and for K8
      (deform_prop_bwd) aten.grid_sampler_2d_backward and the elementwise
@@ -172,14 +176,14 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
     from nlspn_eccv20_tpu_torch.ops.kernels import build
     from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
-        decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_plain,
-        decode_aff_tail_fwd_y1, decode_aff_tail_plain)
+        decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
+        decode_aff_tail_bwd_plain, decode_aff_tail_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
         deform_prop, deform_prop_bwd, deform_prop_bwd_plain,
         deform_prop_fwd_plain, deform_prop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
-        dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_plain,
-        dep_encode_front_plain)
+        dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
+        dep_encode_front_bwd_plain, dep_encode_front_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, prop_loop, prop_loop_bwd, prop_loop_bwd_plain,
         prop_loop_plain)
@@ -330,19 +334,21 @@ def main() -> int:
     # ---- 3. each forward kernel against its plain version ----
     rows = {}
 
-    def record(kname, b, err, rel, tol, ms, plain_ms, lib_ms, bnd, main_b=1):
+    def record(kname, b, err, rel, tol, ms, plain_ms, lib_ms, bnd, main_b=1,
+               shape=""):
         """Log one kernel's check and times; the kernel line keeps those
-        at batch ``main_b`` (the serving path's 1, the train step's 12)."""
+        at batch ``main_b`` (the serving path's 1, the train step's 12) of
+        the path's own shape (``shape`` empty)."""
         if not rel <= tol:
             raise AssertionError(
-                f"{kname} B={b}: relative error {rel:.3e} > {tol:.0e}")
+                f"{kname} B={b}{shape}: relative error {rel:.3e} > {tol:.0e}")
         r = rows.setdefault(kname, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        log(f"[kernel] {kname} B={b}: max_abs_err {err:.3e} rel {rel:.3e} "
+        log(f"[kernel] {kname} B={b}{shape}: max_abs_err {err:.3e} rel {rel:.3e} "
             f"(tol {tol:.0e}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
             f"bound {bnd[0]:.4f} ms ({bnd[1]})")
-        if b == main_b:
+        if b == main_b and not shape:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=bnd[0], bound_by=bnd[1])
 
@@ -551,17 +557,47 @@ def main() -> int:
         torch.cuda.synchronize()
         return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
-    def check_bwd(kname, b, fn, plain, tol, lib, bnd, plain_reps=20, ref=None):
+    def check_bwd(kname, b, fn, plain, tol, lib, bnd, plain_reps=20, ref=None,
+                  shape=""):
         """``ref``: what the kernel is held against, the plain version by
-        default (timed as ``plain``)."""
+        default (timed as ``plain``). ``shape`` names a shape other than
+        the train step's; such a check stays out of the kernel line's
+        times."""
         got, want = fn(), (ref or plain)()
         torch.cuda.synchronize()
         err, rel = grads_err(got, want)
         if not same_bits(fn):
-            raise AssertionError(f"{kname} B={b}: two runs gave other bits")
+            raise AssertionError(f"{kname} B={b}{shape}: two runs gave other bits")
         record(kname, b, err, rel, tol, time_ms(fn), time_ms(plain, reps=plain_reps),
-               None if lib is None else time_ms(lib), bnd, main_b=TRAIN_B)
-        log(f"[kernel] {kname} B={b}: two runs, equal bits")
+               None if lib is None else time_ms(lib), bnd, main_b=TRAIN_B, shape=shape)
+        log(f"[kernel] {kname} B={b}{shape}: two runs, equal bits")
+
+    def check_k4(b, hg, wg, k, c=256):
+        """K4 (decode_aff tail backward) against its plain version on a base
+        grid hg x wg x c with K = k output channels."""
+        args, library = decode_aff_tail_bwd_case(gen, dev, b, hg, wg, k, c)
+        outs = decode_aff_tail_bwd(*args)
+        flops = 2 * 2 * b * (taps_t2(hg) * taps_t2(wg) * c * 16
+                             + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
+        shape = ("" if (hg, wg, k, c) == (58, 76, 8, 256)
+                 else f" {hg}x{wg} K={k} C={c}")
+        check_bwd("decode_aff_tail_bwd", b, lambda: decode_aff_tail_bwd(*args),
+                  lambda: decode_aff_tail_bwd_plain(*args), 1e-4, library,
+                  bound(nbytes(*args, *outs), flops), shape=shape)
+
+    def check_k5(b, h, w, c=256):
+        """K5 (encode_dep front backward) against its plain version on an
+        h x w plane -> ceil(ceil(h/2)/2) x ceil(ceil(w/2)/2) x c."""
+        args, library = dep_encode_front_bwd_case(gen, dev, b, h, w, c)
+        outs = dep_encode_front_bwd(*args)
+        conv0_pairs = taps_s2(h) * taps_s2(w) * 16
+        conv1_pairs = taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c
+        # dx, dW0 and the recomputed conv0; dP0 and dW1
+        flops = 2 * b * (3 * conv0_pairs + 2 * conv1_pairs)
+        shape = "" if (h, w, c) == (REQ_H, REQ_W, 256) else f" {h}x{w} C={c}"
+        check_bwd("dep_encode_front_bwd", b, lambda: dep_encode_front_bwd(*args),
+                  lambda: dep_encode_front_bwd_plain(*args), 1e-4, library,
+                  bound(nbytes(*args, *outs), flops), shape=shape)
 
     for b in (TRAIN_B, 1):
         # K1b: the fork default's step (3x3, conf, preserve, no clip)
@@ -595,69 +631,8 @@ def main() -> int:
                                          f"rel {rel:.3e}")
                 log(f"[kernel] prop_step_bwd {kernel}x{kernel} clip B={b}: rel {rel:.3e}")
 
-        # K4: decode_aff tail at the train step's base grid 58x76 (232x304
-        # out, trimmed to 228 rows: the trimmed rows' cotangent is zero)
-        hg, wg = 58, 76
-        x = randn(b, hg, wg, 256).relu()
-        w1, b1 = randn(256, 16, 3, 3, std=(256 * 9 / 4) ** -0.5), randn(16, std=0.1)
-        w2, b2 = randn(16, 8, 3, 3, std=(16 * 9 / 4) ** -0.5), randn(8, std=0.1)
-        _, y1 = decode_aff_tail_fwd_y1(x, w1, b1, w2, b2)
-        g = randn(b, 8, 4 * hg, 4 * wg)
-        g[:, :, REQ_H:] = 0.0
-        outs = decode_aff_tail_bwd(g, x, w1, w2, y1)
-        xn = x.permute(0, 3, 1, 2).contiguous()
-
-        def library():
-            d_y1, d_w2, d_b2 = conv_bwd(g, y1, w2, [8], [2, 2], [1, 1], [1, 1],
-                                        True, [1, 1], 1, [True, True, True])
-            d_y1 = torch.ops.aten.threshold_backward(d_y1, y1, 0.0)
-            return conv_bwd(d_y1, xn, w1, [16], [2, 2], [1, 1], [1, 1], True,
-                            [1, 1], 1, [True, True, True]) + (d_w2, d_b2)
-
-        flops = 2 * 2 * b * (taps_t2(hg) * taps_t2(wg) * 256 * 16
-                             + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * 8)
-        check_bwd("decode_aff_tail_bwd", b,
-                  lambda: decode_aff_tail_bwd(g, x, w1, w2, y1),
-                  lambda: decode_aff_tail_bwd_plain(g, x, w1, w2, y1),
-                  1e-4, library,
-                  bound(nbytes(g, x, w1, w2, y1, *outs), flops))
-
-        # K5: encode_dep front, 228x304 plane -> 57x76x256. The plane and
-        # conv0's weights are multiples of 1/64, so that conv0's sums are
-        # exact in any order: K5 recomputes conv0 as K3 does, its plain
-        # version through cuDNN, and both then take the same ReLU mask.
-        def sixty_fourths(*shape, lo, hi):
-            return (torch.randint(lo, hi + 1, shape, generator=gen) / 64).to(dev)
-
-        plane = sixty_fourths(b, REQ_H, REQ_W, lo=0, hi=64)
-        w0, b0 = sixty_fourths(16, 1, 3, 3, lo=-21, hi=21), sixty_fourths(16, lo=-6, hi=6)
-        w1, b1 = randn(256, 16, 3, 3, std=1 / 12), randn(256, std=0.1)
-        out = dep_encode_front(plane, w0, b0, w1, b1)
-        g = randn(*out.shape)
-        outs = dep_encode_front_bwd(g, plane, w0, b0, w1, out)
-        p4 = plane[:, None]
-        p0 = F.relu(F.conv2d(p4, w0, b0, 2, 1))
-        out_n = out.permute(0, 3, 1, 2).contiguous()
-        g_n = g.permute(0, 3, 1, 2).contiguous()
-
-        def library():
-            gm = torch.ops.aten.threshold_backward(g_n, out_n, 0.0)
-            d_p0, d_w1, d_b1 = conv_bwd(gm, p0, w1, [256], [2, 2], [1, 1], [1, 1],
-                                        False, [0, 0], 1, [True, True, True])
-            d_p0 = torch.ops.aten.threshold_backward(d_p0, p0, 0.0)
-            return conv_bwd(d_p0, p4, w0, [16], [2, 2], [1, 1], [1, 1], False,
-                            [0, 0], 1, [True, True, True]) + (d_w1, d_b1)
-
-        conv0_pairs = taps_s2(REQ_H) * taps_s2(REQ_W) * 16
-        conv1_pairs = (taps_s2((REQ_H + 1) // 2) * taps_s2((REQ_W + 1) // 2)
-                       * 16 * 256)
-        # dx, dW0 and the recomputed conv0; dP0 and dW1
-        flops = 2 * b * (3 * conv0_pairs + 2 * conv1_pairs)
-        check_bwd("dep_encode_front_bwd", b,
-                  lambda: dep_encode_front_bwd(g, plane, w0, b0, w1, out),
-                  lambda: dep_encode_front_bwd_plain(g, plane, w0, b0, w1, out),
-                  1e-4, library,
-                  bound(nbytes(g, plane, w0, b0, w1, out, *outs), flops))
+        check_k4(b, 58, 76, 8)
+        check_k5(b, REQ_H, REQ_W)
 
         # K8: the offset step's backward, offsets clamped to the window
         pred, off, aff, conf, dep = deform_inputs(b, REQ_H, REQ_W, 3, 1.5)
@@ -761,6 +736,19 @@ def main() -> int:
                 raise AssertionError(f"prop_loop_bwd 100 steps: rel {rel:.3e}")
             log(f"[kernel] prop_loop_bwd 100 steps B={b}: {n} launch(es), "
                 f"rel {rel:.3e}")
+
+    # K4 and K5 at the shapes their tiles make risky: K4 with K = 24 (5x5
+    # propagation), K5 on a plane whose sides are not multiples of 4, K5 at
+    # KITTI's 240x1216 and K4 on its 60x304 base grid; K4 on an odd base
+    # width (dy1's rows not 16-byte aligned), and both with C = 30 (channels
+    # not in 16-byte groups: the 4-byte copies)
+    check_k4(1, 58, 76, 24)
+    check_k5(2, 230, 306)
+    check_k5(1, KITTI_H, KITTI_W)
+    check_k4(1, KITTI_H // 4, KITTI_W // 4, 8)
+    check_k4(1, 58, 75, 8)
+    check_k4(1, 58, 76, 8, c=30)
+    check_k5(1, REQ_H, REQ_W, c=30)
 
     # ---- 5. and 6. serving ----
     fwd_wrappers = {"prop_step": prop_step, "deform_prop": deform_prop,

@@ -1,5 +1,5 @@
-// Asynchronous 4-byte copies from device memory to shared memory (cp.async,
-// sm_80 and later), for kernels that stage tiles with a halo: a thread
+// Asynchronous 4- and 16-byte copies from device memory to shared memory
+// (cp.async, sm_80 and later), for kernels that stage tiles with a halo: a thread
 // issues all of its copies without waiting on any, so their latencies
 // overlap each other (and, with two buffers, the compute on the previous
 // tile). A copy marked invalid writes a zero and reads nothing: the zero
@@ -17,6 +17,13 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
+}
+
+// The same for 16 bytes: dst and src 16-byte aligned.
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
 }
 
 // Closes the group of copies issued since the last commit.

@@ -19,16 +19,24 @@
 //
 // Bound on the card: operations. At NYU b=12 (base grid 58x76, C = 256,
 // K = 8) dx and dW1 are 3.9 GFLOP each and dY1 and dW2 0.5 each, against
-// about 120 MB of tensors. Four kernels, one launch sequence:
-//   1. dy1_kernel: per 8x8 tile of y1 positions, dY1 (written to scratch)
-//      and the tile's partial sums of dW2, db1 and db2; g's tile lives in
-//      shared memory, 8 of its channels at a time.
-//   2. dx_kernel: the k3/s2 conv of dY1 to C channels, laid out as the
-//      forward's encode_dep conv1 (dep_encode_front.cu): per block a 4x8
-//      tile of base pixels and 64 channels; dY1's patch and the channels'
-//      weights in shared memory, each thread one channel and 8 pixels.
-//   3. bwd::wgrad_s2 (bwd_common.cuh): dW1 as 64 slice partials.
-//   4. bwd::reduce_partials: the partials of 1 and 3 added in a fixed order.
+// about 120 MB of tensors: 130 us at 67 TFLOP/s. So each pass keeps
+// several sums a thread in registers, so that few shared-memory words feed
+// each FMA, and overlaps its copies with the FMAs:
+//   1. dy1_kernel: per 8x16 tile of y1 positions, g's patch (all K
+//      channels), y1 and w2 staged by asynchronous copies; dY1 (written to
+//      scratch) by threads that own 4 positions x 4 m, dW2 by other warps
+//      that own an (m, k) pair and slide a 3x3 window of g along the rows;
+//      the tile's partial sums of dW2, db1 and db2.
+//   2. bwd::transpose: w1 laid out (M 9, C), so dx_kernel copies 16 bytes
+//      at a time.
+//   3. dx_kernel: the k3/s2 conv of dY1 to C channels: per block an 8x16
+//      tile of base pixels and 64 channels; the m stream through shared
+//      memory four at a time, with their weights, into two buffers
+//      (cp_async.cuh). A thread owns 8 channels x 8 pixels of a row (64
+//      sums): per (m, ty) 17 patch words, kept in registers across the
+//      three tx, and 6 float4s of weights for 192 FMAs.
+//   4. bwd::wgrad_s2 (bwd_common.cuh): dW1 as slice partials (132 at b=12).
+//   5. bwd::reduce_partials: the partials of 1 and 4 added in a fixed order.
 // The weight gradients are summed without atomics, so the result is the
 // same bits from run to run, as the TPU kernel's sequential grid gives.
 // Plain f32 FMAs: no tensor cores.
@@ -36,191 +44,341 @@
 #include <cuda_runtime.h>
 
 #include "bwd_common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
 constexpr int M = bwd::M;
 
 // ---- 1. dY1, and partial dW2 / db1 / db2 ----
-constexpr int YT = 8;            // y1 tile rows and cols
-constexpr int NP_TILE = YT * YT; // positions per tile
-constexpr int GT = 2 * YT + 1;   // g tile rows and cols
-constexpr int KC = 8;            // g channels staged at a time
-constexpr int NT_A = 256;        // (position, group of 4 m)
+constexpr int TR = 8;              // y1 tile rows
+constexpr int TC = 16;             // y1 tile cols
+constexpr int NP_TILE = TR * TC;   // 128 positions a tile
+constexpr int GR = 2 * TR + 1;     // g patch rows / cols
+constexpr int GC = 2 * TC + 1;
+constexpr int G_K = GR * GC;       // 561 floats a g channel
+constexpr int NT_A = 256;          // 128 dY1 threads, then 128 dW2 threads
+constexpr int HALF = NT_A / 2;
+constexpr int PQ = 4;              // positions a dY1 thread, along a row
+static_assert(TR * (TC / PQ) * (M / 4) == HALF, "dY1 threads cover the tile");
 
+template <int K>
+constexpr int dy1_smem_bytes() {
+  return (K * G_K + NP_TILE * M + K * 9 * M) * (int)sizeof(float);
+}
+
+// Per tile of TR x TC y1 positions: g's patch (all K channels), y1 as
+// [position][m] and w2 as [k][tap][m] in shared memory by asynchronous
+// copies. Threads 0..127 own 4 positions of a row and 4 m (16 sums): per
+// (k, ty) 9 words of g and 3 float4s of w2 for 48 FMAs, then the ReLU mask
+// and dY1. Threads 128..255, other warps, own (m, k) pairs of dW2 (9 sums)
+// and slide a 3x3 window of g along each row of the tile: per position 1
+// word of y1 and 6 of g for 9 FMAs. Then db2 over the g pixels the tile
+// owns and db1 over its dY1, each added in a fixed order.
 template <int K>
 __global__ void __launch_bounds__(NT_A)
 dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
            const float* __restrict__ w2, float* __restrict__ dy1,
            float* __restrict__ part, int H1, int W1) {
-  static_assert(K % KC == 0, "K in chunks of KC");
-  __shared__ float gs[KC][GT][GT];
-  __shared__ float ys[M][NP_TILE + 1];
-  __shared__ float ds[M][NP_TILE + 1];
-  __shared__ __align__(16) float w2s[K * 9 * M];  // [k][tap][m]
+  extern __shared__ __align__(16) float smem[];
+  float* gs = smem;                    // [k][GR][GC]
+  float* ys = gs + K * G_K;            // [position][m]
+  float* ws = ys + NP_TILE * M;        // [k][tap][m]
+  __shared__ __align__(16) float red1[HALF][4];  // dY1 threads' sums, for db1
+  __shared__ float red2[K * 8];                  // db2's row pairs
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
-  const int R0 = blockIdx.y * YT, C0 = blockIdx.x * YT;
+  const int R0 = blockIdx.y * TR, C0 = blockIdx.x * TC;
   const int Ho = 2 * H1, Wo = 2 * W1;
   constexpr int NP = M * K * 9 + M + K;
   float* pb = part + (long)((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * NP;
 
-  for (int i = tid; i < M * K * 9; i += NT_A) {  // w2 is (M, K, 3, 3)
-    const int m = i / (K * 9), k = (i / 9) % K, tap = i % 9;
-    w2s[(k * 9 + tap) * M + m] = __ldg(w2 + i);
+  for (int e = tid; e < K * G_K; e += NT_A) {
+    const int c = e % GC, r = (e / GC) % GR, k = e / G_K;
+    const int oy = 2 * R0 - 1 + r, ox = 2 * C0 - 1 + c;
+    const bool ok = oy >= 0 && oy < Ho && ox >= 0 && ox < Wo;
+    cpa::copy4(gs + e, ok ? g + (((long)b * K + k) * Ho + oy) * Wo + ox : g, ok);
   }
-  for (int i = tid; i < M * NP_TILE; i += NT_A) {
-    const int p = i % NP_TILE, m = i / NP_TILE;
-    const int r = R0 + p / YT, c = C0 + p % YT;
-    ys[m][p] = (r < H1 && c < W1) ? __ldg(y1 + (((long)b * M + m) * H1 + r) * W1 + c) : 0.0f;
+  for (int e = tid; e < M * NP_TILE; e += NT_A) {
+    const int q = e % NP_TILE, m = e / NP_TILE;
+    const int r = R0 + q / TC, c = C0 + q % TC;
+    const bool ok = r < H1 && c < W1;
+    cpa::copy4(ys + q * M + m, ok ? y1 + (((long)b * M + m) * H1 + r) * W1 + c : y1, ok);
   }
+  for (int e = tid; e < M * K * 9; e += NT_A) {  // w2 is (M, K, 3, 3)
+    const int m = e / (K * 9), k = (e / 9) % K, tap = e % 9;
+    cpa::copy4(ws + (k * 9 + tap) * M + m, w2 + e, true);
+  }
+  cpa::commit();
+  cpa::wait<0>();
+  __syncthreads();
 
-  const int p = tid % NP_TILE, mg = tid / NP_TILE;
-  const int rl = p / YT, cl = p % YT;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int kc = 0; kc < K; kc += KC) {
-    __syncthreads();
-    for (int i = tid; i < KC * GT * GT; i += NT_A) {
-      const int gx = i % GT, gy = (i / GT) % GT, kk = i / (GT * GT);
-      const int oy = 2 * R0 - 1 + gy, ox = 2 * C0 - 1 + gx;
-      gs[kk][gy][gx] = (oy >= 0 && oy < Ho && ox >= 0 && ox < Wo)
-          ? __ldg(g + (((long)b * K + kc + kk) * Ho + oy) * Wo + ox) : 0.0f;
-    }
-    __syncthreads();
-    // dy1 at (rl, cl) for m = 4 mg .. 4 mg + 3
-#pragma unroll 2
-    for (int kk = 0; kk < KC; ++kk)
+  if (tid < HALF) {
+    const int mq = tid % 4, cg = (tid / 4) % (TC / PQ), r = tid / (4 * (TC / PQ));
+    float acc[PQ][4];
 #pragma unroll
-      for (int ty = 0; ty < 3; ++ty)
+    for (int j = 0; j < PQ; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.0f;
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int ty = 0; ty < 3; ++ty) {
+        const float* grow = gs + k * G_K + (2 * r + ty) * GC + 2 * PQ * cg;
+        float v[2 * PQ + 1];
+#pragma unroll
+        for (int q = 0; q <= 2 * PQ; ++q) v[q] = grow[q];
 #pragma unroll
         for (int tx = 0; tx < 3; ++tx) {
-          const float gv = gs[kk][2 * rl + ty][2 * cl + tx];
-          const float4 w = reinterpret_cast<const float4*>(
-              w2s + ((kc + kk) * 9 + ty * 3 + tx) * M)[mg];
-          acc[0] = fmaf(w.x, gv, acc[0]);
-          acc[1] = fmaf(w.y, gv, acc[1]);
-          acc[2] = fmaf(w.z, gv, acc[2]);
-          acc[3] = fmaf(w.w, gv, acc[3]);
+          const float4 w =
+              *reinterpret_cast<const float4*>(ws + (k * 9 + ty * 3 + tx) * M + 4 * mq);
+#pragma unroll
+          for (int j = 0; j < PQ; ++j) {
+            const float x = v[2 * j + tx];
+            acc[j][0] = fmaf(w.x, x, acc[j][0]);
+            acc[j][1] = fmaf(w.y, x, acc[j][1]);
+            acc[j][2] = fmaf(w.z, x, acc[j][2]);
+            acc[j][3] = fmaf(w.w, x, acc[j][3]);
+          }
         }
-    if (tid < M * KC) {  // dW2 for (m, kc + kk) over the tile's positions
-      const int m = tid / KC, kk = tid % KC;
+      }
+    }
+    // dY1 = [y1 > 0] dy1, and the thread's sums for db1
+    float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int rr = R0 + r;
+#pragma unroll
+    for (int j = 0; j < PQ; ++j) {
+      const int q = r * TC + PQ * cg + j, cc = C0 + PQ * cg + j;
+      const float4 y = *reinterpret_cast<const float4*>(ys + q * M + 4 * mq);
+      const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float d = yv[i] > 0.0f ? acc[j][i] : 0.0f;
+        sum[i] += d;
+        if (rr < H1 && cc < W1) dy1[(((long)b * M + 4 * mq + i) * H1 + rr) * W1 + cc] = d;
+      }
+    }
+    *reinterpret_cast<float4*>(red1[tid]) = make_float4(sum[0], sum[1], sum[2], sum[3]);
+  } else {
+    const int u = tid - HALF;
+    const int m = u % M;
+#pragma unroll 1
+    for (int k = u / M; k < K; k += HALF / M) {
       float a[9];
 #pragma unroll
       for (int t = 0; t < 9; ++t) a[t] = 0.0f;
-      for (int q = 0; q < NP_TILE; ++q) {
-        const float yv = ys[m][q];
-        const int r2 = q / YT, c2 = q % YT;
+      const float* gk = gs + k * G_K;
+#pragma unroll 1
+      for (int r = 0; r < TR; ++r) {
+        const float* grow = gk + 2 * r * GC;
+        float w0[3];  // the window's left column: g cols 2 c - 1 + {0, 1, 2}
 #pragma unroll
-        for (int ty = 0; ty < 3; ++ty)
+        for (int ty = 0; ty < 3; ++ty) w0[ty] = grow[ty * GC];
+#pragma unroll 4
+        for (int c = 0; c < TC; ++c) {
+          float w1[3], w2v[3];
 #pragma unroll
-          for (int tx = 0; tx < 3; ++tx)
-            a[ty * 3 + tx] = fmaf(yv, gs[kk][2 * r2 + ty][2 * c2 + tx], a[ty * 3 + tx]);
+          for (int ty = 0; ty < 3; ++ty) {
+            w1[ty] = grow[ty * GC + 2 * c + 1];
+            w2v[ty] = grow[ty * GC + 2 * c + 2];
+          }
+          const float yv = ys[(r * TC + c) * M + m];
+#pragma unroll
+          for (int ty = 0; ty < 3; ++ty) {
+            a[3 * ty] = fmaf(yv, w0[ty], a[3 * ty]);
+            a[3 * ty + 1] = fmaf(yv, w1[ty], a[3 * ty + 1]);
+            a[3 * ty + 2] = fmaf(yv, w2v[ty], a[3 * ty + 2]);
+          }
+#pragma unroll
+          for (int ty = 0; ty < 3; ++ty) w0[ty] = w2v[ty];
+        }
       }
 #pragma unroll
-      for (int t = 0; t < 9; ++t) pb[(m * K + kc + kk) * 9 + t] = a[t];
-    } else if (tid < M * KC + KC) {  // db2 over the g rows this tile owns
-      const int kk = tid - M * KC;
-      float s = 0.0f;
-      for (int gy = 1; gy < GT; ++gy)
-        for (int gx = 1; gx < GT; ++gx) s += gs[kk][gy][gx];
-      pb[M * K * 9 + M + kc + kk] = s;
+      for (int t = 0; t < 9; ++t) pb[(m * K + k) * 9 + t] = a[t];
     }
   }
-
-  // dY1 = [y1 > 0] dy1
-  const int r = R0 + rl, c = C0 + cl;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int m = 4 * mg + j;
-    const float d = ys[m][p] > 0.0f ? acc[j] : 0.0f;
-    ds[m][p] = d;
-    if (r < H1 && c < W1) dy1[(((long)b * M + m) * H1 + r) * W1 + c] = d;
+  // db2 over the g pixels the tile owns (patch rows and cols 1 .. 2T),
+  // two rows a thread, then the eight row pairs in order
+  if (tid < K * 8) {
+    const int k = tid / 8, pr = tid % 8;
+    const float* gk = gs + k * G_K + (1 + 2 * pr) * GC + 1;
+    float s = 0.0f;
+    for (int rr = 0; rr < 2; ++rr)
+      for (int c = 0; c < 2 * TC; ++c) s += gk[rr * GC + c];
+    red2[tid] = s;
   }
   __syncthreads();
-  if (tid < M) {
+  if (tid < K) {
     float s = 0.0f;
-    for (int q = 0; q < NP_TILE; ++q) s += ds[tid][q];
-    pb[M * K * 9 + tid] = s;
+    for (int pr = 0; pr < 8; ++pr) s += red2[tid * 8 + pr];
+    pb[M * K * 9 + M + tid] = s;
+  } else if (tid >= 32 && tid < 32 + M) {  // db1, another warp
+    const int m = tid - 32;
+    float s = 0.0f;
+    for (int t = m / 4; t < HALF; t += 4) s += red1[t][m % 4];
+    pb[M * K * 9 + m] = s;
   }
 }
 
 // ---- 2. dx = conv(dY1, w1), k3/s2/p1, 16 -> C, NHWC out ----
-constexpr int TOH = 4;           // output tile rows
-constexpr int TOW = 8;           // output tile cols
-constexpr int CG = 64;           // output channels per block
-constexpr int NT_B = CG * TOH;   // one thread per (channel, output row)
-constexpr int DR = 2 * TOH + 1;  // dY1 patch rows / cols
+constexpr int TOH = 8;            // output tile rows
+constexpr int TOW = 16;           // output tile cols
+constexpr int PXT = 8;            // output pixels per thread, along a row
+constexpr int CG = 64;            // output channels per block
+constexpr int NT_B = CG / 8 * (TOH * TOW / PXT);  // 128: (channel octet, pixel group)
+constexpr int MC = 4;             // m per staged chunk
+constexpr int DR = 2 * TOH + 1;   // dY1 patch rows / cols
 constexpr int DC = 2 * TOW + 1;
-constexpr int PITCH = CG + 1;
+constexpr int D_PITCH = DC + 3;   // 36: col X at 2 ox0 - 4 + index, so
+                                  // that a row starts 16-byte aligned
+constexpr int D_M = DR * D_PITCH; // floats per m
+static_assert(M % MC == 0, "chunks tile the m");
 
-__global__ void __launch_bounds__(NT_B)
-dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1,
+// w1t is w1 laid out (M * 9, C): the taps' rows of weights, channels last.
+__global__ void __launch_bounds__(NT_B, 3)
+dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
           float* __restrict__ dx, int Hg, int Wg, int C, int H1, int W1,
           int n_groups) {
-  __shared__ float w1s[M * 9 * PITCH];  // [m * 9 + tap][channel]
-  __shared__ float ds[M][DR][DC];
+  __shared__ __align__(16) float w1s[2][MC * 9 * CG];  // [m * 9 + tap][channel]
+  __shared__ __align__(16) float ds[2][MC * D_M];       // [m][DR][D_PITCH]
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z / n_groups;
   const int co0 = (blockIdx.z % n_groups) * CG;
   const int oy0 = blockIdx.y * TOH, ox0 = blockIdx.x * TOW;
+  const bool vec = (C & 3) == 0;
 
-  for (int i = tid; i < CG * M * 9; i += NT_B) {  // w1 is (C, M, 3, 3)
-    const int cl = i / (M * 9), s = i % (M * 9);
-    w1s[s * PITCH + cl] = co0 + cl < C ? __ldg(w1 + (long)co0 * M * 9 + i) : 0.0f;
-  }
-  for (int i = tid; i < M * DR * DC; i += NT_B) {
-    const int c = i % DC, r = (i / DC) % DR, m = i / (DC * DR);
-    const int Y = 2 * oy0 - 1 + r, X = 2 * ox0 - 1 + c;
-    ds[m][r][c] = (Y >= 0 && Y < H1 && X >= 0 && X < W1)
-        ? __ldg(dy1 + (((long)b * M + m) * H1 + Y) * W1 + X) : 0.0f;
-  }
-  __syncthreads();
-
-  const int cl = tid % CG, row = tid / CG;
-  const int co = co0 + cl;
-  float acc[TOW];
-#pragma unroll
-  for (int j = 0; j < TOW; ++j) acc[j] = 0.0f;
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int ty = 0; ty < 3; ++ty) {
-      const float* drow = &ds[m][2 * row + ty][0];
-#pragma unroll
-      for (int tx = 0; tx < 3; ++tx) {
-        const float w = w1s[(m * 9 + ty * 3 + tx) * PITCH + cl];
-#pragma unroll
-        for (int j = 0; j < TOW; ++j) acc[j] = fmaf(w, drow[2 * j + tx], acc[j]);
+  // issues the copies of chunk m0 .. m0 + MC - 1 into buffer buf
+  auto stage = [&](int m0, int buf) {
+    const float* wsrc = w1t + (long)m0 * 9 * C + co0;
+    if (vec) {
+      for (int e = tid; e < MC * 9 * CG / 4; e += NT_B) {
+        const int row = e / (CG / 4), cl = 4 * (e % (CG / 4));
+        const bool ok = co0 + cl < C;
+        cpa::copy16(&w1s[buf][row * CG + cl], ok ? wsrc + (long)row * C + cl : w1t, ok);
+      }
+    } else {
+      for (int e = tid; e < MC * 9 * CG; e += NT_B) {
+        const int row = e / CG, cl = e % CG;
+        const bool ok = co0 + cl < C;
+        cpa::copy4(&w1s[buf][e], ok ? wsrc + (long)row * C + cl : w1t, ok);
       }
     }
+    const float* dsrc = dy1 + ((long)b * M + m0) * H1 * W1;
+    if ((W1 & 3) == 0) {  // 16-byte copies, each wholly in or out of the row
+      constexpr int Q = D_PITCH / 4;
+      for (int e = tid; e < MC * DR * Q; e += NT_B) {
+        const int q = e % Q, r = (e / Q) % DR, m = e / (DR * Q);
+        const int Y = 2 * oy0 - 1 + r, X = 2 * ox0 - 4 + 4 * q;
+        const bool ok = Y >= 0 && Y < H1 && X >= 0 && X < W1;
+        cpa::copy16(&ds[buf][m * D_M + r * D_PITCH + 4 * q],
+                    ok ? dsrc + ((long)m * H1 + Y) * W1 + X : dy1, ok);
+      }
+    } else {
+      for (int e = tid; e < MC * DR * DC; e += NT_B) {
+        const int c = e % DC, r = (e / DC) % DR, m = e / (DR * DC);
+        const int Y = 2 * oy0 - 1 + r, X = 2 * ox0 - 1 + c;
+        const bool ok = Y >= 0 && Y < H1 && X >= 0 && X < W1;
+        cpa::copy4(&ds[buf][m * D_M + r * D_PITCH + c + 3],
+                   ok ? dsrc + ((long)m * H1 + Y) * W1 + X : dy1, ok);
+      }
+    }
+  };
+
+  // lane = (octet o, one of 4 pixel groups): channels 4o..4o+3 and
+  // 32+4o..32+4o+3, so a warp's float4 weight loads cover 32 consecutive
+  // words; its 4 pixel groups (2 rows x 2 halves of the tile row) read
+  // patch words in 4 distinct banks.
+  const int o = tid % 8, pg = tid / 8;
+  const int row = pg / 2, half = pg % 2;
+  float acc[PXT][8];
+#pragma unroll
+  for (int j = 0; j < PXT; ++j)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc[j][k] = 0.0f;
+
+  stage(0, 0);
+  cpa::commit();
+#pragma unroll 1
+  for (int m0 = 0, buf = 0; m0 < M; m0 += MC, buf ^= 1) {
+    if (m0 + MC < M) stage(m0 + MC, buf ^ 1);
+    cpa::commit();
+    cpa::wait<1>();
+    __syncthreads();
+#pragma unroll 1
+    for (int m = 0; m < MC; ++m) {
+#pragma unroll
+      for (int ty = 0; ty < 3; ++ty) {
+        const float* drow =
+            &ds[buf][m * D_M + (2 * row + ty) * D_PITCH + 3 + 2 * PXT * half];
+        float d[2 * PXT + 1];  // the row's 17 patch words serve all three tx
+#pragma unroll
+        for (int q = 0; q <= 2 * PXT; ++q) d[q] = drow[q];
+#pragma unroll
+        for (int tx = 0; tx < 3; ++tx) {
+          const float* wp = &w1s[buf][(m * 9 + ty * 3 + tx) * CG + 4 * o];
+          const float4 wa = *reinterpret_cast<const float4*>(wp);
+          const float4 wb = *reinterpret_cast<const float4*>(wp + 32);
+#pragma unroll
+          for (int j = 0; j < PXT; ++j) {
+            const float v = d[2 * j + tx];
+            acc[j][0] = fmaf(wa.x, v, acc[j][0]);
+            acc[j][1] = fmaf(wa.y, v, acc[j][1]);
+            acc[j][2] = fmaf(wa.z, v, acc[j][2]);
+            acc[j][3] = fmaf(wa.w, v, acc[j][3]);
+            acc[j][4] = fmaf(wb.x, v, acc[j][4]);
+            acc[j][5] = fmaf(wb.y, v, acc[j][5]);
+            acc[j][6] = fmaf(wb.z, v, acc[j][6]);
+            acc[j][7] = fmaf(wb.w, v, acc[j][7]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer is restaged two chunks on
   }
   const int oy = oy0 + row;
-  if (co >= C || oy >= Hg) return;
+  if (oy >= Hg) return;
   float* orow = dx + ((long)b * Hg + oy) * Wg * C;
 #pragma unroll
-  for (int j = 0; j < TOW; ++j) {
-    const int ox = ox0 + j;
-    if (ox < Wg) orow[(long)ox * C + co] = acc[j];
+  for (int j = 0; j < PXT; ++j) {
+    const int ox = ox0 + PXT * half + j;
+    if (ox >= Wg) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = co0 + 32 * h + 4 * o;
+      float* out = orow + (long)ox * C + c;
+      if (vec && c + 3 < C) {
+        *reinterpret_cast<float4*>(out) = make_float4(acc[j][4 * h], acc[j][4 * h + 1],
+                                                      acc[j][4 * h + 2], acc[j][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (c + k < C) out[k] = acc[j][4 * h + k];
+      }
+    }
   }
 }
 
 struct Layout {  // the scratch buffer, in floats
-  long dy1, part_a, part_w, tmp, total;
-  int blocks_a, np;
+  long dy1, part_a, w1t, part_w, tmp, total;
+  int blocks_a, np, slices;
 };
 
 Layout layout(int B, int Hg, int Wg, int C, int K) {
   Layout l;
   const int H1 = 2 * Hg, W1 = 2 * Wg;
+  const long long n = (long long)B * Hg * Wg;
   l.np = M * K * 9 + M + K;
-  l.blocks_a = ((W1 + YT - 1) / YT) * ((H1 + YT - 1) / YT) * B;
+  l.blocks_a = ((W1 + TC - 1) / TC) * ((H1 + TR - 1) / TR) * B;
+  l.slices = bwd::wgrad_s2_slices(n, C);
   l.dy1 = 0;
-  l.part_a = l.dy1 + (long)B * M * H1 * W1;
-  l.part_w = l.part_a + (long)l.blocks_a * l.np;
-  l.tmp = l.part_w + bwd::wgrad_s2_partial_floats(C, 0);
+  l.part_a = l.dy1 + bwd::align4((long)B * M * H1 * W1);
+  l.w1t = l.part_a + bwd::align4((long)l.blocks_a * l.np);
+  l.part_w = l.w1t + bwd::align4((long)C * M * 9);
+  l.tmp = l.part_w + bwd::align4(bwd::wgrad_s2_partial_floats(n, C));
   const long t1 = bwd::reduce_scratch_floats(l.blocks_a, l.np);
-  const long t2 = bwd::reduce_scratch_floats(bwd::WG_SLICES, C * M * 9);
+  const long t2 = bwd::reduce_scratch_floats(l.slices, C * M * 9);
   l.total = l.tmp + (t1 > t2 ? t1 : t2);
   return l;
 }
@@ -246,20 +404,29 @@ extern "C" int dec_aff_tail_bwd_f32(const float* x, const float* y1,
   const Layout l = layout(B, Hg, Wg, C, K);
   const int H1 = 2 * Hg, W1 = 2 * Wg;
   float* dy1 = scratch + l.dy1;
-  const dim3 grid_a((W1 + YT - 1) / YT, (H1 + YT - 1) / YT, B);
+  const dim3 grid_a((W1 + TC - 1) / TC, (H1 + TR - 1) / TR, B);
+  cudaError_t err;
   if (K == 8) {
-    dy1_kernel<8><<<grid_a, NT_A, 0, s>>>(g, y1, w2, dy1, scratch + l.part_a, H1, W1);
+    dy1_kernel<8><<<grid_a, NT_A, dy1_smem_bytes<8>(), s>>>(g, y1, w2, dy1,
+                                                            scratch + l.part_a, H1, W1);
   } else if (K == 24) {
-    dy1_kernel<24><<<grid_a, NT_A, 0, s>>>(g, y1, w2, dy1, scratch + l.part_a, H1, W1);
+    err = cudaFuncSetAttribute(dy1_kernel<24>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dy1_smem_bytes<24>());
+    if (err != cudaSuccess) return (int)err;
+    dy1_kernel<24><<<grid_a, NT_A, dy1_smem_bytes<24>(), s>>>(g, y1, w2, dy1,
+                                                              scratch + l.part_a, H1, W1);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  bwd::transpose(w1, scratch + l.w1t, 1, C, M * 9, s);  // (C, M 9) -> (M 9, C)
   const int n_groups = (C + CG - 1) / CG;
   const dim3 grid_b((Wg + TOW - 1) / TOW, (Hg + TOH - 1) / TOH, B * n_groups);
-  dx_kernel<<<grid_b, NT_B, 0, s>>>(dy1, w1, dx, Hg, Wg, C, H1, W1, n_groups);
-  bwd::wgrad_s2(x, nullptr, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, 0, s);
+  dx_kernel<<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
+                                    n_groups);
+  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1,
+                                        W1, s);
+  if (err != cudaSuccess) return (int)err;
   bwd::reduce_partials(scratch + l.part_a, l.blocks_a, l.np, dw2b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_w, bwd::WG_SLICES, C * M * 9, dw1,
-                       scratch + l.tmp, s);
+  bwd::reduce_partials(scratch + l.part_w, l.slices, C * M * 9, dw1, scratch + l.tmp, s);
   return (int)cudaGetLastError();
 }

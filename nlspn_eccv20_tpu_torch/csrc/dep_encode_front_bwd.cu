@@ -20,25 +20,39 @@
 //
 // Bound on the card: operations. At NYU b=12 (228x304 -> 57x76x256) convT
 // and dW1 are 3.8 GFLOP each, conv0's parts 0.1, against about 110 MB of
-// tensors. Four kernels, one launch sequence:
-//   1. dp0_kernel: convT(gm, w1) with the forward decode_aff tail's quad
+// tensors: 116 us at 67 TFLOP/s. So each pass keeps several sums a thread
+// in registers, overlaps its copies with the FMAs, and fills the card at
+// b=1 too:
+//   1. bwd::transpose: w1 laid out (C1, 9, M), so that a chunk's weights
+//      are one contiguous run, copied 16 bytes at a time.
+//   2. dp0_kernel: convT(gm, w1) with the forward decode_aff tail's quad
 //      scheme (dec_aff_tail.cu): one base pixel and its right and lower
 //      neighbours give a 2x2 quad of p0 positions through all nine taps.
-//      Per block an 8x8 tile of quads (16x16 positions); gm's channels stream
-//      through shared memory in chunks of 32 with their weights, each thread
-//      owns 4 quads of a row and 4 of the 16 channels, the chunk's channels
-//      are split over 4 slices of threads whose sums are added in slice
-//      order. The epilogue recomputes p0, masks, and writes dP0 and p0.
-//   2. dx0_kernel: per 16x32 tile of the plane, dx from dP0's patch in
+//      Per block an 8x8 tile of quads (16x16 positions); g, out and the
+//      weights of 32 channels at a time stream through shared memory by
+//      asynchronous copies into two buffers (cp_async.cuh). Each thread
+//      masks its own copies (gm = g [out > 0]), writes gm out for pass 5
+//      and sums it for db1; each thread owns a row of 8 quads and 2 of the
+//      16 m (64 sums: per channel 18 gm words and 9 float2s of weights for
+//      144 FMAs); the chunk's channels are split over 4 slices of threads
+//      whose sums are added in slice order. When the tiles do
+//      not fill the card (b=1: 80 tiles), the chunks are split over
+//      blocks (4 a tile at b=1), whose sums finish_dp0_kernel adds in order. The
+//      epilogue recomputes p0 from the plane's tile, staged with the first
+//      chunk, masks, and writes dP0 and p0.
+//   3. dx0_kernel: per 16x32 tile of the plane, dx from dP0's patch in
 //      shared memory, and the tile's partial sums of dW0 and db0.
-//   3. bwd::wgrad_s2 (bwd_common.cuh): dW1 and db1 as 64 slice partials.
-//   4. bwd::reduce_partials: the partials of 2 and 3 added in a fixed order.
+//   4. bwd::wgrad_s2 (bwd_common.cuh): dW1 from gm and p0 as slice
+//      partials (132 at b=12).
+//   5. bwd::reduce_partials: the partials of 2 (db1), 3 and 4 added in a
+//      fixed order.
 // No atomics: the result is the same bits from run to run. Any H and W, as
 // the forward. Plain f32 FMAs: no tensor cores.
 
 #include <cuda_runtime.h>
 
 #include "bwd_common.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -47,128 +61,237 @@ constexpr int M = bwd::M;
 // ---- 1. dP0 = [p0 > 0] convT(gm, w1), and p0 ----
 constexpr int TH = 8;            // quad rows per tile
 constexpr int TW = 8;            // quad cols per tile
-constexpr int P = 4;             // quads per thread, along a row
 constexpr int CC = 32;           // gm channels per shared-memory chunk
 constexpr int NS = 4;            // channel slices of a chunk
-constexpr int SEGS = TW / P;     // row segments of P quads
-constexpr int NI = TH * SEGS * 4;  // threads per slice (4 channel groups)
+constexpr int NI = TH * M / 2;   // threads per slice: (quad row, m pair)
 constexpr int NT_A = NS * NI;    // 256
 constexpr int XR = TH + 1;       // gm tile rows / cols (quads, plus one)
 constexpr int XC = TW + 1;
-static_assert(TW % P == 0, "row segments tile the quad row");
+constexpr int XP = XR * XC;      // staged pixels
+constexpr int GP = CC + 4;       // floats per staged pixel: float4 rows, and
+                                 // a thread's 8 pixels in distinct banks
+constexpr int Q4 = CC / 4;       // channel quads of a chunk
+constexpr int BUF_A = 2 * XP * GP + CC * 9 * M;  // g, out, w1 of a chunk
+constexpr int DP0_SMEM = 2 * BUF_A * (int)sizeof(float);
+constexpr int SPLIT_BLOCKS = 2 * bwd::CARD_SMS;  // fill the card at b=1
+constexpr int XT = 4 * TH + 1;   // plane rows / cols under a tile
+constexpr int RED_PITCH = TW * 8 + 1;  // a thread's 64 sums, and one
+static_assert(TH == TW, "the plane tile is square");
+static_assert(NS * NI * RED_PITCH <= 2 * BUF_A, "the sums fit in the buffers");
 static_assert(CC % NS == 0, "slices split a chunk evenly");
+static_assert(NT_A % Q4 == 0, "a thread keeps one channel quad");
 
-#define FMA4(A, W, X)          \
+#define FMA2(A, W, X)          \
   A[0] = fmaf((W).x, X, A[0]); \
-  A[1] = fmaf((W).y, X, A[1]); \
-  A[2] = fmaf((W).z, X, A[2]); \
-  A[3] = fmaf((W).w, X, A[3]);
+  A[1] = fmaf((W).y, X, A[1]);
 
-__global__ void __launch_bounds__(NT_A)
+// p0 at (Y, X) of plane xb for one m, as dep_encode_front.cu computes it
+__device__ __forceinline__ float conv0_at(const float* xb, const float* w9, float bias,
+                                          int Y, int X, int H, int W) {
+  float sum = bias;
+#pragma unroll
+  for (int ty = 0; ty < 3; ++ty) {
+    const int yy = 2 * Y - 1 + ty;
+    if (yy < 0 || yy >= H) continue;
+#pragma unroll
+    for (int tx = 0; tx < 3; ++tx) {
+      const int xx = 2 * X - 1 + tx;
+      if (xx < 0 || xx >= W) continue;
+      sum = fmaf(w9[ty * 3 + tx], __ldg(xb + (long)yy * W + xx), sum);
+    }
+  }
+  return fmaxf(sum, 0.0f);
+}
+
+// Grid (quad cols, quad rows, B x n_split): block z handles image
+// z / n_split and the channel chunks of split z % n_split. w1t is w1 laid
+// out (C1, 9, M). With one split the block finishes dP0 and p0 itself;
+// with more it writes its sums to part[split] and finish_dp0_kernel adds
+// the splits in order. Each block also writes gm over its own pixels and
+// channels, and their sums over its pixels to dbp[tile] (db1's partials).
+__global__ void __launch_bounds__(NT_A, 2)
 dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
            const float* __restrict__ out, const float* __restrict__ w0,
-           const float* __restrict__ b0, const float* __restrict__ w1,
+           const float* __restrict__ b0, const float* __restrict__ w1t,
            float* __restrict__ dp0, float* __restrict__ p0,
-           int H, int W, int C1) {
-  __shared__ __align__(16) float w1s[CC * 9 * M];  // [cc][tap][m]
-  __shared__ float gms[CC][XR][XC];
-  __shared__ float dps[M][2 * TH][2 * TW];
+           float* __restrict__ gm, float* __restrict__ part,
+           float* __restrict__ dbp, int B, int H, int W, int C1, int n_split) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float w0s[M * 9];
   __shared__ float b0s[M];
+  __shared__ __align__(16) float sums[NT_A / Q4][CC];  // a thread's quad's gm sums
+  __shared__ float xs[XT * XT];                          // the plane under the tile
 
   const int tid = threadIdx.x;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
   const int a0 = blockIdx.y * TH, t0 = blockIdx.x * TW;  // quad-grid origin
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
   const long gbase = (long)b * Ho * Wo * C1;
+  const int n_chunks = (C1 + CC - 1) / CC;
+  const int per_split = (n_chunks + n_split - 1) / n_split;
+  const int k_beg = split * per_split;
+  const int k_end = min(n_chunks, k_beg + per_split);
+  const long tile = ((long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const bool vec = (C1 & 3) == 0 &&
+                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out)) & 15) == 0;
 
   for (int i = tid; i < M * 9; i += NT_A) w0s[i] = __ldg(w0 + i);
   if (tid < M) b0s[tid] = __ldg(b0 + tid);
 
-  const int s = tid / NI, it = tid % NI;
-  const int grp = it & 3;
-  const int seg = (it >> 2) % SEGS;
-  const int qr = (it >> 2) / SEGS;
-  const int qc0 = seg * P;
-  float acc[P][4][4];  // [quad][position of the quad][channel]
+  // issues the copies of chunk k (g, out and w1) into buffer buf; thread
+  // tid always copies channel quad tid % Q4 of its pixels
+  auto stage = [&](int k, int buf) {
+    float* gs = smem + buf * BUF_A;
+    float* os = gs + XP * GP;
+    float* ws = os + XP * GP;
+    const int c0 = k * CC;
+    for (int e = tid; e < XP * Q4; e += NT_A) {
+      const int pix = e / Q4, cc = 4 * (e % Q4);
+      const int gy = a0 + pix / XC, gx = t0 + pix % XC, ch = c0 + cc;
+      const bool in = gy < Ho && gx < Wo;
+      const long o = in ? gbase + ((long)gy * Wo + gx) * C1 + ch : 0;
+      if (vec) {
+        cpa::copy16(gs + pix * GP + cc, g + o, in && ch < C1);
+        cpa::copy16(os + pix * GP + cc, out + o, in && ch < C1);
+      } else {
 #pragma unroll
-  for (int k = 0; k < P; ++k)
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = in && ch + q < C1;
+          cpa::copy4(gs + pix * GP + cc + q, g + (ok ? o + q : 0), ok);
+          cpa::copy4(os + pix * GP + cc + q, out + (ok ? o + q : 0), ok);
+        }
+      }
+    }
+    const float* wsrc = w1t + (long)c0 * 9 * M;
+    const int nw = min(CC, C1 - c0) * 9 * M;  // a multiple of 4
+    for (int e = 4 * tid; e < CC * 9 * M; e += 4 * NT_A)
+      cpa::copy16(ws + e, e < nw ? wsrc + e : w1t, e < nw);
+  };
+  // gm = g [out > 0] over the thread's own copies of chunk k, written out
+  // for the weight-gradient pass over the tile's own pixels, whose sums
+  // go to sums[] for db1
+  auto mask = [&](int k, int buf) {
+    float* gs = smem + buf * BUF_A;
+    const float* os = gs + XP * GP;
+    const int c0 = k * CC, cc = 4 * (tid % Q4);
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int e = tid; e < XP * Q4; e += NT_A) {
+      const int pix = e / Q4, r = pix / XC, c = pix % XC;
+      float4 v = *reinterpret_cast<float4*>(gs + pix * GP + cc);
+      const float4 u = *reinterpret_cast<const float4*>(os + pix * GP + cc);
+      v.x = u.x > 0.0f ? v.x : 0.0f;
+      v.y = u.y > 0.0f ? v.y : 0.0f;
+      v.z = u.z > 0.0f ? v.z : 0.0f;
+      v.w = u.w > 0.0f ? v.w : 0.0f;
+      *reinterpret_cast<float4*>(gs + pix * GP + cc) = v;
+      const int gy = a0 + r, gx = t0 + c, ch = c0 + cc;
+      if (r < TH && c < TW && gy < Ho && gx < Wo) {
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+        float* dst = gm + gbase + ((long)gy * Wo + gx) * C1 + ch;
+        if (vec && ch < C1) {
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (ch + q < C1) dst[q] = vs[q];
+        }
+      }
+    }
+    *reinterpret_cast<float4*>(&sums[tid / Q4][cc]) = sum;
+  };
+
+  const int s = tid / NI, it = tid % NI;
+  const int mp = it % (M / 2), qr = it / (M / 2);
+  float acc[TW][4][2];  // [quad][position of the quad][m]
+#pragma unroll
+  for (int k = 0; k < TW; ++k)
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[k][q][j] = 0.0f;
+      for (int j = 0; j < 2; ++j) acc[k][q][j] = 0.0f;
 
-  for (int c0 = 0; c0 < C1; c0 += CC) {
+  for (int e = tid; e < XT * XT; e += NT_A) {  // the plane under the tile
+    const int yy = 4 * a0 - 1 + e / XT, xx = 4 * t0 - 1 + e % XT;
+    const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+    cpa::copy4(xs + e, x + (ok ? ((long)b * H + yy) * W + xx : 0), ok);
+  }
+  if (k_beg < k_end) stage(k_beg, 0);
+  cpa::commit();
+  for (int k = k_beg, buf = 0; k < k_end; ++k, buf ^= 1) {
+    if (k + 1 < k_end) stage(k + 1, buf ^ 1);
+    cpa::commit();
+    cpa::wait<1>();
+    mask(k, buf);
     __syncthreads();
-    for (int i = tid; i < XR * XC * CC; i += NT_A) {
-      const int cc = i % CC, pix = i / CC;
-      const int r = pix / XC, c = pix % XC;
-      const int gy = a0 + r, gx = t0 + c, ch = c0 + cc;
-      float v = 0.0f;
-      if (gy < Ho && gx < Wo && ch < C1) {
-        const long o = gbase + ((long)gy * Wo + gx) * C1 + ch;
-        v = __ldg(out + o) > 0.0f ? __ldg(g + o) : 0.0f;
-      }
-      gms[cc][r][c] = v;
+    if (tid < CC && k * CC + tid < C1) {  // db1's partial: slots in order
+      float t = 0.0f;
+      for (int q = 0; q < NT_A / Q4; ++q) t += sums[q][tid];
+      dbp[tile * C1 + k * CC + tid] = t;
     }
-    for (int i = tid; i < CC * 9 * M; i += NT_A) {  // w1 is (C1, M, 3, 3)
-      const int cc = i / (9 * M), rem = i % (9 * M);
-      const int m = rem / 9, tap = rem % 9;
-      w1s[(cc * 9 + tap) * M + m] = (c0 + cc < C1) ? __ldg(w1 + (long)c0 * 9 * M + i) : 0.0f;
-    }
-    __syncthreads();
+    const float* gs = smem + buf * BUF_A;
+    const float* ws = gs + 2 * XP * GP;
 #pragma unroll 1
     for (int cc = s; cc < CC; cc += NS) {
-      const float* gc = &gms[cc][qr][qc0];
-      float ga[P + 1], gb[P + 1];  // gm rows qr and qr + 1
+      const float* gc = gs + qr * XC * GP + cc;
+      float ga[TW + 1], gb[TW + 1];  // gm rows qr and qr + 1
 #pragma unroll
-      for (int k = 0; k <= P; ++k) {
-        ga[k] = gc[k];
-        gb[k] = gc[XC + k];
+      for (int k2 = 0; k2 <= TW; ++k2) {
+        ga[k2] = gc[k2 * GP];
+        gb[k2] = gc[(XC + k2) * GP];
       }
-      const float4* w = reinterpret_cast<const float4*>(w1s + cc * 9 * M) + grp;
-      // w[tap * 4] is taps (ty, tx) = (tap / 3, tap % 3), channels 4grp..4grp+3
-      const float4 w00 = w[0], w01 = w[4], w02 = w[8], w10 = w[12],
-                   w11 = w[16], w12 = w[20], w20 = w[24], w21 = w[28],
-                   w22 = w[32];
+      const float2* w = reinterpret_cast<const float2*>(ws + cc * 9 * M) + mp;
+      // w[tap * 8] is taps (ty, tx) = (tap / 3, tap % 3), m 2mp and 2mp + 1
+      const float2 w00 = w[0], w01 = w[8], w02 = w[16], w10 = w[24],
+                   w11 = w[32], w12 = w[40], w20 = w[48], w21 = w[56],
+                   w22 = w[64];
 #pragma unroll
-      for (int k = 0; k < P; ++k) {
-        const float x00 = ga[k], x01 = ga[k + 1], x10 = gb[k], x11 = gb[k + 1];
-        FMA4(acc[k][0], w11, x00)
-        FMA4(acc[k][1], w12, x00) FMA4(acc[k][1], w10, x01)
-        FMA4(acc[k][2], w21, x00) FMA4(acc[k][2], w01, x10)
-        FMA4(acc[k][3], w22, x00) FMA4(acc[k][3], w20, x01) FMA4(acc[k][3], w02, x10)
-        FMA4(acc[k][3], w00, x11)
+      for (int k2 = 0; k2 < TW; ++k2) {
+        const float x00 = ga[k2], x01 = ga[k2 + 1], x10 = gb[k2], x11 = gb[k2 + 1];
+        FMA2(acc[k2][0], w11, x00)
+        FMA2(acc[k2][1], w12, x00) FMA2(acc[k2][1], w10, x01)
+        FMA2(acc[k2][2], w21, x00) FMA2(acc[k2][2], w01, x10)
+        FMA2(acc[k2][3], w22, x00) FMA2(acc[k2][3], w20, x01) FMA2(acc[k2][3], w02, x10)
+        FMA2(acc[k2][3], w00, x11)
       }
     }
+    __syncthreads();  // the buffer and sums[] are rewritten a chunk on
   }
-  // Add the slices' sums in slice order.
-#pragma unroll 1
-  for (int r = 0; r < NS; ++r) {
-    __syncthreads();
-    if (s != r) continue;
+  cpa::wait<0>();
+  // Each thread's 64 sums to its own row of the freed buffers (rows of 65
+  // words: a warp's stores fall in 32 banks), then the slices are added in
+  // slice order.
+  float* red = smem;  // [slice][thread of the slice][RED_PITCH]
 #pragma unroll
-    for (int k = 0; k < P; ++k)
+  for (int k = 0; k < TW; ++k)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int v = 2 * qr + (q >> 1), u = 2 * (qc0 + k) + (q & 1);
+    for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int m = 4 * grp + j;
-          dps[m][v][u] = r == 0 ? acc[k][q][j] : dps[m][v][u] + acc[k][q][j];
-        }
-      }
-  }
+      for (int j = 0; j < 2; ++j)
+        red[(s * NI + it) * RED_PITCH + (k * 4 + q) * 2 + j] = acc[k][q][j];
   __syncthreads();
 
-  // p0 recomputed as dep_encode_front.cu computes it, then the mask.
-  const float* xb = x + (long)b * H * W;
+  // One split: p0 recomputed as dep_encode_front.cu computes it, from the
+  // staged plane, then the mask. More: the raw sums, for finish_dp0_kernel.
   for (int i = tid; i < M * 4 * TH * TW; i += NT_A) {
     const int u = i % (2 * TW), v = (i / (2 * TW)) % (2 * TH), m = i / (4 * TH * TW);
     const int Y = 2 * a0 + v, X = 2 * t0 + u;
     if (Y >= H1 || X >= W1) continue;
-    float sum = b0s[m];
+    const int owner = (v >> 1) * (M / 2) + (m >> 1);
+    const int idx = ((u >> 1) * 4 + ((v & 1) << 1 | (u & 1))) * 2 + (m & 1);
+    float sum = red[owner * RED_PITCH + idx];
+#pragma unroll
+    for (int r = 1; r < NS; ++r) sum += red[(r * NI + owner) * RED_PITCH + idx];
+    const long o = (((long)b * M + m) * H1 + Y) * W1 + X;
+    if (n_split > 1) {
+      part[(long)split * B * M * H1 * W1 + o] = sum;
+      continue;
+    }
+    float pv = b0s[m];
 #pragma unroll
     for (int ty = 0; ty < 3; ++ty) {
       const int yy = 2 * Y - 1 + ty;
@@ -177,17 +300,35 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int tx = 0; tx < 3; ++tx) {
         const int xx = 2 * X - 1 + tx;
         if (xx < 0 || xx >= W) continue;
-        sum = fmaf(w0s[m * 9 + ty * 3 + tx], __ldg(xb + (long)yy * W + xx), sum);
+        pv = fmaf(w0s[m * 9 + ty * 3 + tx], xs[(2 * v + ty) * XT + 2 * u + tx], pv);
       }
     }
-    const float pv = fmaxf(sum, 0.0f);
-    const long o = (((long)b * M + m) * H1 + Y) * W1 + X;
+    pv = fmaxf(pv, 0.0f);
     p0[o] = pv;
-    dp0[o] = pv > 0.0f ? dps[m][v][u] : 0.0f;
+    dp0[o] = pv > 0.0f ? sum : 0.0f;
   }
 }
 
-#undef FMA4
+#undef FMA2
+
+// dP0 and p0 from n_split partial sums, added in split order.
+__global__ void __launch_bounds__(256)
+finish_dp0_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+                  const float* __restrict__ b0, const float* __restrict__ part,
+                  float* __restrict__ dp0, float* __restrict__ p0, int B, int H,
+                  int W, int n_split) {
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const long n = (long)B * M * H1 * W1;
+  const long o = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= n) return;
+  const int X = (int)(o % W1), Y = (int)((o / W1) % H1);
+  const int m = (int)((o / ((long)W1 * H1)) % M), b = (int)(o / ((long)W1 * H1 * M));
+  float sum = part[o];
+  for (int sp = 1; sp < n_split; ++sp) sum += part[sp * n + o];
+  const float pv = conv0_at(x + (long)b * H * W, w0 + m * 9, __ldg(b0 + m), Y, X, H, W);
+  p0[o] = pv;
+  dp0[o] = pv > 0.0f ? sum : 0.0f;
+}
 
 // ---- 2. dx = convT(dP0, w0), and partial dW0 / db0 ----
 constexpr int FY = 16;           // plane tile rows
@@ -259,22 +400,35 @@ dx0_kernel(const float* __restrict__ x, const float* __restrict__ dp0,
 }
 
 struct Layout {  // the scratch buffer, in floats
-  long dp0, p0, part_b, part_w, tmp, total;
-  int blocks_b;
+  long dp0, p0, gm, part_dp, w1t, part_db, part_b, part_w, tmp, total;
+  int blocks_b, slices, n_split, tiles;
 };
 
 Layout layout(int B, int H, int W, int C1) {
   Layout l;
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
+  const long long n = (long long)B * Ho * Wo;
+  l.tiles = ((Wo + TW - 1) / TW) * ((Ho + TH - 1) / TH) * B;
+  const int wanted = (SPLIT_BLOCKS + l.tiles - 1) / l.tiles;
+  const int n_chunks = (C1 + CC - 1) / CC;
+  l.n_split = wanted < n_chunks ? wanted : n_chunks;
   l.blocks_b = ((W + FX - 1) / FX) * ((H + FY - 1) / FY) * B;
+  l.slices = bwd::wgrad_s2_slices(n, C1);
   l.dp0 = 0;
-  l.p0 = l.dp0 + (long)B * M * H1 * W1;
-  l.part_b = l.p0 + (long)B * M * H1 * W1;
-  l.part_w = l.part_b + (long)l.blocks_b * NPB;
-  l.tmp = l.part_w + bwd::wgrad_s2_partial_floats(C1, 1);
-  const long t1 = bwd::reduce_scratch_floats(l.blocks_b, NPB);
-  const long t2 = bwd::reduce_scratch_floats(bwd::WG_SLICES, C1 * M * 9 + C1);
-  l.total = l.tmp + (t1 > t2 ? t1 : t2);
+  l.p0 = l.dp0 + bwd::align4((long)B * M * H1 * W1);
+  l.gm = l.p0 + bwd::align4((long)B * M * H1 * W1);
+  l.part_dp = l.gm + bwd::align4(n * C1);
+  l.w1t = l.part_dp + (l.n_split > 1 ? bwd::align4((long)l.n_split * B * M * H1 * W1) : 0);
+  l.part_db = l.w1t + bwd::align4((long)C1 * 9 * M);
+  l.part_b = l.part_db + bwd::align4((long)l.tiles * C1);
+  l.part_w = l.part_b + bwd::align4((long)l.blocks_b * NPB);
+  l.tmp = l.part_w + bwd::align4(bwd::wgrad_s2_partial_floats(n, C1));
+  long t = bwd::reduce_scratch_floats(l.blocks_b, NPB);
+  const long t2 = bwd::reduce_scratch_floats(l.slices, C1 * M * 9);
+  const long t3 = bwd::reduce_scratch_floats(l.tiles, C1);
+  t = t > t2 ? t : t2;
+  l.total = l.tmp + (t > t3 ? t : t3);
   return l;
 }
 
@@ -302,13 +456,28 @@ extern "C" int dep_encode_front_bwd_f32(const float* x, const float* g,
   const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
   float* dp0 = scratch + l.dp0;
   float* p0 = scratch + l.p0;
-  const dim3 grid_a((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B);
-  dp0_kernel<<<grid_a, NT_A, 0, s>>>(x, g, out, w0, b0, w1, dp0, p0, H, W, C1);
+  float* gm = scratch + l.gm;
+  bwd::transpose(w1, scratch + l.w1t, C1, M, 9, s);  // (C1, M, 9) -> (C1, 9, M)
+  cudaError_t err = cudaFuncSetAttribute(
+      dp0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DP0_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_a((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * l.n_split);
+  dp0_kernel<<<grid_a, NT_A, DP0_SMEM, s>>>(x, g, out, w0, b0, scratch + l.w1t, dp0,
+                                            p0, gm, scratch + l.part_dp,
+                                            scratch + l.part_db, B, H, W, C1,
+                                            l.n_split);
+  if (l.n_split > 1) {
+    const long n = (long)B * M * H1 * W1;
+    finish_dp0_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split);
+  }
   const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
   dx0_kernel<<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, scratch + l.part_b, H, W);
-  bwd::wgrad_s2(g, out, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, 1, s);
+  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s);
+  if (err != cudaSuccess) return (int)err;
   bwd::reduce_partials(scratch + l.part_b, l.blocks_b, NPB, dw0b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_w, bwd::WG_SLICES, C1 * M * 9 + C1, dw1b,
+  bwd::reduce_partials(scratch + l.part_w, l.slices, C1 * M * 9, dw1b, scratch + l.tmp, s);
+  bwd::reduce_partials(scratch + l.part_db, l.tiles, C1, dw1b + (long)C1 * M * 9,
                        scratch + l.tmp, s);
   return (int)cudaGetLastError();
 }

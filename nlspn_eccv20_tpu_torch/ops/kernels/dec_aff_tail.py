@@ -169,3 +169,36 @@ def decode_aff_tail(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 decode_aff_tail.launches = 0
 decode_aff_tail_bwd.launches = 0
+
+
+def decode_aff_tail_bwd_case(gen: torch.Generator, device, b: int, hg: int,
+                             wg: int, k: int, c: int = 256):
+    """Inputs on which K4 is checked and timed on the card, from ``gen``: on
+    a base grid hg x wg with C = c and K = k, ReLU'd x, the forward's y1,
+    and g, zero below row 228 of the output when the grid is NYU's 58 rows
+    (the model trims the 232 rows to 228). Returns (args of
+    ``decode_aff_tail_bwd`` and its plain version, library): the library
+    call is cuDNN's backward of the same two convs
+    (aten.convolution_backward, what autograd runs for them), a yardstick
+    that the port itself never calls."""
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen) * std).to(device)
+    m = MID_CHANNELS
+    x = randn(b, hg, wg, c).relu()
+    w1, b1 = randn(c, m, 3, 3, std=(c * 9 / 4) ** -0.5), randn(m, std=0.1)
+    w2, b2 = randn(m, k, 3, 3, std=(m * 9 / 4) ** -0.5), randn(k, std=0.1)
+    _, y1 = decode_aff_tail_fwd_y1(x, w1, b1, w2, b2)
+    g = randn(b, k, 4 * hg, 4 * wg)
+    if hg == 58:
+        g[:, :, 228:] = 0.0
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def library():
+        d_y1, d_w2, d_b2 = conv_bwd(g, y1, w2, [k], [2, 2], [1, 1], [1, 1],
+                                    True, [1, 1], 1, [True, True, True])
+        d_y1 = torch.ops.aten.threshold_backward(d_y1, y1, 0.0)
+        return conv_bwd(d_y1, xn, w1, [m], [2, 2], [1, 1], [1, 1], True,
+                        [1, 1], 1, [True, True, True]) + (d_w2, d_b2)
+
+    return (g, x, w1, w2, y1), library

@@ -161,3 +161,37 @@ def dep_encode_front(xplane: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
 
 dep_encode_front.launches = 0
 dep_encode_front_bwd.launches = 0
+
+
+def dep_encode_front_bwd_case(gen: torch.Generator, device, b: int, h: int,
+                              w: int, c: int = 256):
+    """Inputs on which K5 is checked and timed on the card, from ``gen``: an
+    h x w plane and C1 = c. The plane and conv0's weights are multiples of
+    1/64, so that conv0's sums are exact in any order: K5 recomputes conv0
+    as K3 does, its plain version through cuDNN, and both then take the
+    same ReLU mask. Returns (args of ``dep_encode_front_bwd`` and its plain
+    version, library), as ``decode_aff_tail_bwd_case``."""
+    def sixty_fourths(*shape, lo, hi):
+        return (torch.randint(lo, hi + 1, shape, generator=gen) / 64).to(device)
+    m = MID_CHANNELS
+    plane = sixty_fourths(b, h, w, lo=0, hi=64)
+    w0, b0 = sixty_fourths(m, 1, 3, 3, lo=-21, hi=21), sixty_fourths(m, lo=-6, hi=6)
+    w1 = (torch.randn((c, m, 3, 3), generator=gen) / 12).to(device)
+    b1 = (torch.randn((c,), generator=gen) * 0.1).to(device)
+    out = dep_encode_front(plane, w0, b0, w1, b1)
+    g = torch.randn(out.shape, generator=gen).to(device)
+    p4 = plane[:, None]
+    p0 = F.relu(F.conv2d(p4, w0, b0, 2, 1))
+    out_n = out.permute(0, 3, 1, 2).contiguous()
+    g_n = g.permute(0, 3, 1, 2).contiguous()
+    conv_bwd = torch.ops.aten.convolution_backward
+
+    def library():
+        gm = torch.ops.aten.threshold_backward(g_n, out_n, 0.0)
+        d_p0, d_w1, d_b1 = conv_bwd(gm, p0, w1, [c], [2, 2], [1, 1], [1, 1],
+                                    False, [0, 0], 1, [True, True, True])
+        d_p0 = torch.ops.aten.threshold_backward(d_p0, p0, 0.0)
+        return conv_bwd(d_p0, p4, w0, [m], [2, 2], [1, 1], [1, 1], False,
+                        [0, 0], 1, [True, True, True]) + (d_w1, d_b1)
+
+    return (g, plane, w0, b0, w1, out), library

@@ -32,16 +32,21 @@ from nlspn_eccv20_tpu_torch.tools.profile_serve import group_of as serve_group
 from nlspn_eccv20_tpu_torch.train import Engine
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
-# kernel-name fragments of the backward kernels: K1b, K6b, K8's two passes,
-# then K4's and K5's passes (bwd_common.cuh's two are shared by K4 and K5)
+# kernel-name fragments of the backward kernels, one line each: K1b, K6b,
+# K8's two passes, then each CUDA kernel of K4 and K5 (bwd_common.cuh's
+# three are shared by K4 and K5)
 BWD_KERNELS = {"prop_step_bwd_kernel": "K1b prop_step_bwd",
                "prop_loop_bwd_kernel": "K6b prop_loop_bwd",
                "deform_bwd_read_kernel": "K8 deform_prop_bwd (d_off, d_aff)",
                "deform_bwd_feat_kernel": "K8 deform_prop_bwd (d_feat)",
-               "dy1_kernel": "K4 decode_aff_tail_bwd", "dx_kernel": "K4 decode_aff_tail_bwd",
-               "dp0_kernel": "K5 dep_encode_front_bwd", "dx0_kernel": "K5 dep_encode_front_bwd",
-               "wgrad_s2_kernel": "K4/K5 weight gradients (bwd_common)",
-               "reduce_chunks_kernel": "K4/K5 weight gradients (bwd_common)"}
+               "dy1_kernel": "K4 decode_aff_tail_bwd: dy1 pass",
+               "dx_kernel": "K4 decode_aff_tail_bwd: dx pass",
+               "finish_dp0_kernel": "K5 dep_encode_front_bwd: dp0 split sums",
+               "dp0_kernel": "K5 dep_encode_front_bwd: dp0 pass",
+               "dx0_kernel": "K5 dep_encode_front_bwd: dx0 pass",
+               "bwd::wgrad_s2_kernel": "K4/K5 weight gradient (bwd_common)",
+               "bwd::reduce_chunks_kernel": "K4/K5 partial-sum reduction (bwd_common)",
+               "bwd::transpose_kernel": "K4/K5 weight layout (bwd_common)"}
 WARMUP, TIMED, ITERS = 3, 11, 3   # steps: warm-up, CUDA-event timed, profiled
 
 

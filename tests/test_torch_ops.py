@@ -205,6 +205,10 @@ def test_decode_aff_tail_matches_pallas(highest_precision, b, hg, wg, c, m, k):
 @pytest.mark.parametrize("b,hg,wg,c,k", [
     (2, 5, 7, 16, 8),
     (1, 4, 6, 8, 24),          # prop_kernel 5
+    (1, 3, 37, 16, 8),         # a row wider than one staged segment
+    (1, 3, 9, 40, 8),          # C not a multiple of a channel tile
+    (3, 2, 5, 8, 8),           # B=3
+    (1, 3, 6, 30, 8),          # C not a multiple of 4: the 4-byte copies
 ])
 def test_decode_aff_tail_gradients_match_pallas_bwd(highest_precision, b, hg,
                                                     wg, c, k):
@@ -269,7 +273,14 @@ def test_dep_encode_front_matches_reference_unaligned():
     close(out, ref, 1e-5)
 
 
-@pytest.mark.parametrize("shape", [(2, 16, 24, 16, 32), (1, 12, 20, 16, 8)])
+@pytest.mark.parametrize("shape", [
+    (2, 16, 24, 16, 32),
+    (1, 12, 20, 16, 8),
+    (1, 8, 136, 16, 8),        # a base-grid row wider than one staged segment
+    (1, 12, 20, 16, 40),       # C1 not a multiple of a channel tile
+    (3, 8, 12, 16, 8),         # B=3
+    (1, 12, 20, 16, 30),       # C1 not a multiple of 4: the 4-byte copies
+])
 def test_dep_encode_front_gradients_match_pallas_bwd(monkeypatch, shape):
     """K5's plain version against the TPU backward kernel (_bwd_pallas, in
     interpret mode), all five gradients; dx is the gradient into the depth
@@ -284,6 +295,34 @@ def test_dep_encode_front_gradients_match_pallas_bwd(monkeypatch, shape):
     leaves = [leaf(x), _conv_w(w0).requires_grad_(True), leaf(b0),
               _conv_w(w1).requires_grad_(True), leaf(b1)]
     out = dep_encode_front(*leaves)
+    dx, dw0, db0, dw1, db1 = torch.autograd.grad(out, leaves, t(g))
+    assert_rel("dx", dx, rx, 1e-4)
+    assert_rel("dw0", torch.from_numpy(_conv_w_inv(dw0).copy()), rw0, 1e-4)
+    assert_rel("db0", db0, rb0, 1e-4)
+    assert_rel("dw1", torch.from_numpy(_conv_w_inv(dw1).copy()), rw1, 1e-4)
+    assert_rel("db1", db1, rb1, 1e-4)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 13, 17, 16, 8),        # H, W = 1 mod 4
+    (2, 14, 22, 16, 40),       # 2 mod 4; C1 not a multiple of a channel tile
+    (3, 15, 139, 16, 8),       # 3 mod 4; B=3; a base-grid row of 35
+])
+def test_dep_encode_front_gradients_match_reference_unaligned(shape):
+    """K5's plain version where the TPU kernel refuses the plane (H, W not
+    multiples of 4), held against jax.vjp of the JAX plain reference
+    (dep_encode_front_reference), all five gradients. 1e-4: f32 sums in
+    another order."""
+    args = _front_inputs(np.random.default_rng(7), *shape)
+    out_j, vjp = jax.vjp(jax_def.dep_encode_front_reference, *map(jnp.asarray, args))
+    g = np.random.default_rng(8).standard_normal(out_j.shape).astype(np.float32)
+    rx, rw0, rb0, rw1, rb1 = vjp(jnp.asarray(g))
+
+    x, w0, b0, w1, b1 = args
+    leaves = [leaf(x), _conv_w(w0).requires_grad_(True), leaf(b0),
+              _conv_w(w1).requires_grad_(True), leaf(b1)]
+    out = dep_encode_front(*leaves)
+    assert out.shape == out_j.shape
     dx, dw0, db0, dw1, db1 = torch.autograd.grad(out, leaves, t(g))
     assert_rel("dx", dx, rx, 1e-4)
     assert_rel("dw0", torch.from_numpy(_conv_w_inv(dw0).copy()), rw0, 1e-4)
