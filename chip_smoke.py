@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no result):
      of 228x304, also 5x5, 18 steps and 100 steps (a halo past shared
      memory, split into launches) at B=1, with 12 launches of K1 on
      the same inputs as its comparison (no single PyTorch call computes the
-     loop); K6 and K7 also timed at B=1 of KITTI's 240x1216;
+     loop); K6 and K7 also timed at B=1 of KITTI's 240x1216; K3
+     (dep_encode_front) also timed at the train step's B=12 of 228x304 and
+     at B=1 of KITTI's 240x1216, and checked on a 230x306 plane and with
+     C1 = 96 (not a multiple of its 64-channel groups);
   4. each backward kernel the same way, at the train step's shapes (B=12
      and B=1, 228x304 patches), and run twice to show equal bits; K4
      (decode_aff_tail_bwd) and K5 (dep_encode_front_bwd) also at the
@@ -31,7 +34,11 @@ Phases (any failure exits non-zero and prints no result):
      library time is cuDNN's backward of the same two convs
      (aten.convolution_backward, what autograd runs for them), and for K8
      (deform_prop_bwd) aten.grid_sampler_2d_backward and the elementwise
-     rest; K8 also on offsets at their ties (zero, integers, +-R); K6b
+     rest; K8 also on offsets at their ties (zero, integers, +-R), and
+     timed where its binned gather is risky: 5x5 neighbours at R 4, R 1 and
+     R 8, a 230x306 plane (sides not multiples of its 32x8 tiles), KITTI's
+     240x1216 and converging offsets at B=12 (each neighbour of each output
+     pointed at the nearest node of a grid 2R apart: its largest bins); K6b
      (prop_loop_bwd) from K6's saved step inputs, with 12 launches of K1b
      as its comparison, on the clip's ties (an all-zero corner, with
      the pre-blend) and on 100 steps;
@@ -179,11 +186,11 @@ def main() -> int:
         decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
         decode_aff_tail_bwd_plain, decode_aff_tail_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
-        deform_prop, deform_prop_bwd, deform_prop_bwd_plain,
+        deform_prop, deform_prop_bwd, deform_prop_bwd_case, deform_prop_bwd_plain,
         deform_prop_fwd_plain, deform_prop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
         dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
-        dep_encode_front_bwd_plain, dep_encode_front_plain)
+        dep_encode_front_bwd_plain, dep_encode_front_case, dep_encode_front_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, prop_loop, prop_loop_bwd, prop_loop_bwd_plain,
         prop_loop_plain)
@@ -394,6 +401,23 @@ def main() -> int:
             log(f"[kernel] {tag}: kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms "
                 f"({bnd[1]})")
 
+    def check_k3(b, h, w, c=256):
+        """K3 (encode_dep front) against its plain version on an h x w plane
+        -> ceil(ceil(h/2)/2) x ceil(ceil(w/2)/2) x c, timed beside cuDNN's
+        two convs; the serving shapes at C1 = 256 fill the kernel line."""
+        args, library = dep_encode_front_case(gen, dev, b, h, w, c)
+        out = dep_encode_front(*args)
+        ref = dep_encode_front_plain(*args)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        flops = 2 * b * (taps_s2(h) * taps_s2(w) * 16
+                         + taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c)
+        record("dep_encode_front", b, err, rel, 1e-4,
+               time_ms(lambda: dep_encode_front(*args)),
+               time_ms(lambda: dep_encode_front_plain(*args)), time_ms(library),
+               bound(nbytes(*args, out), flops),
+               shape="" if (h, w, c) == (H, W, 256) else f" {h}x{w} C1={c}")
+
     for b in (1, 4):
         # K1: the fork default's step (3x3, conf, preserve, no clip)
         for kernel in (3, 5) if b == 1 else (3,):
@@ -458,34 +482,11 @@ def main() -> int:
                    time_ms(library),
                    bound(nbytes(x, w1, b1, w2, b2, out), flops))
 
-        # K3: encode_dep front, 256x320 plane -> 64x80x256
-        plane = rand(b, H, W)
-        w0, b0 = randn(16, 1, 3, 3, std=1 / 3), randn(16, std=0.1)
-        w1, b1 = randn(256, 16, 3, 3, std=1 / 12), randn(256, std=0.1)
-        out = dep_encode_front(plane, w0, b0, w1, b1)
-        ref = dep_encode_front_plain(plane, w0, b0, w1, b1)
-        torch.cuda.synchronize()
-        err, rel = rel_err(out, ref)
-        p4 = plane[:, None]
-
-        def library():
-            return F.relu(F.conv2d(F.relu(F.conv2d(p4, w0, b0, 2, 1)), w1, b1, 2, 1))
-
-        flops = 2 * b * (taps_s2(H) * taps_s2(W) * 16
-                         + taps_s2((H + 1) // 2) * taps_s2((W + 1) // 2) * 16 * 256)
-        record("dep_encode_front", b, err, rel, 1e-4,
-               time_ms(lambda: dep_encode_front(plane, w0, b0, w1, b1)),
-               time_ms(lambda: dep_encode_front_plain(plane, w0, b0, w1, b1)),
-               time_ms(library), bound(nbytes(plane, w0, b0, w1, b1, out), flops))
-
-        # an odd shape the TPU kernel refused: the CUDA kernel takes it
+        # K3: encode_dep front, 256x320 plane -> 64x80x256; an odd shape the
+        # TPU kernel refused: the CUDA kernel takes it
+        check_k3(b, H, W)
         if b == 1:
-            plane_odd = rand(1, 230, 306)
-            err, rel = rel_err(dep_encode_front(plane_odd, w0, b0, w1, b1),
-                               dep_encode_front_plain(plane_odd, w0, b0, w1, b1))
-            if not rel <= 1e-4:
-                raise AssertionError(f"dep_encode_front 230x306: rel {rel:.3e}")
-            log(f"[kernel] dep_encode_front 230x306: rel {rel:.3e}")
+            check_k3(1, 230, 306)
 
         # K7: the offset step as served (eval: offsets also past the window)
         for kernel in (3, 5) if b == 1 else (3,):
@@ -528,6 +529,11 @@ def main() -> int:
            bound(nbytes(pred, off, aff, conf, dep, out),
                  deform_flops(TRAIN_B, REQ_H, REQ_W, 9)))
 
+    # K3 at the train step's shape, at KITTI's width and with C1 = 96
+    check_k3(TRAIN_B, REQ_H, REQ_W)
+    check_k3(1, KITTI_H, KITTI_W)
+    check_k3(1, REQ_H, REQ_W, c=96)
+
     # K6 at the train step's shape; K6 and K7 at KITTI's width, B=1
     check_loop(TRAIN_B, REQ_H, REQ_W)
     check_loop(1, KITTI_H, KITTI_W, row=False)
@@ -545,7 +551,6 @@ def main() -> int:
 
     # ---- 4. each backward kernel against its plain version ----
     conv_bwd = torch.ops.aten.convolution_backward
-    grid_bwd = torch.ops.aten.grid_sampler_2d_backward
 
     def grads_err(got, want):
         """max_abs_err and relative error over all of a kernel's outputs."""
@@ -571,6 +576,24 @@ def main() -> int:
         record(kname, b, err, rel, tol, time_ms(fn), time_ms(plain, reps=plain_reps),
                None if lib is None else time_ms(lib), bnd, main_b=TRAIN_B, shape=shape)
         log(f"[kernel] {kname} B={b}{shape}: two runs, equal bits")
+
+    def check_k8(b, h, w, kernel=3, radius=RADIUS, converge=False):
+        """K8 (the offset step's backward) against its plain version on an
+        h x w plane, offsets clamped to the window ``radius`` (converging
+        with ``converge``); returns its inputs."""
+        args, kw, library = deform_prop_bwd_case(gen, dev, b, h, w, kernel,
+                                                 radius, converge)
+        outs = deform_prop_bwd(*args, **kw)
+        shape = ("" if (h, w, kernel, radius, converge) == (REQ_H, REQ_W, 3, RADIUS, False)
+                 else f" {h}x{w} {kernel}x{kernel} R={radius}"
+                      f"{' converging' if converge else ''}")
+        # per pixel and neighbour: up to 3x3 taps of value and two slopes,
+        # and the four corners' scatter
+        check_bwd("deform_prop_bwd", b, lambda: deform_prop_bwd(*args, **kw),
+                  lambda: deform_prop_bwd_plain(*args, **kw), 1e-5, library,
+                  bound(nbytes(*args, *outs), b * h * w * (kernel * kernel * 60 + 10)),
+                  plain_reps=2, shape=shape)
+        return args
 
     def check_k4(b, hg, wg, k, c=256):
         """K4 (decode_aff tail backward) against its plain version on a base
@@ -635,36 +658,8 @@ def main() -> int:
         check_k5(b, REQ_H, REQ_W)
 
         # K8: the offset step's backward, offsets clamped to the window
-        pred, off, aff, conf, dep = deform_inputs(b, REQ_H, REQ_W, 3, 1.5)
-        off = clamp_offsets(off, RADIUS).contiguous()
-        g = randn(b, REQ_H, REQ_W)
+        g, pred, off, aff, conf, dep = check_k8(b, REQ_H, REQ_W)
         kw = dict(kernel=3, radius=RADIUS, preserve=True, clip=False)
-        outs = deform_prop_bwd(g, pred, off, aff, conf, dep, **kw)
-        feat4, grid = (pred * conf)[:, None], sampling_grid(off, 3)
-        smp = F.grid_sample(feat4, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=True).view(b, 9, REQ_H, REQ_W)
-
-        def library():
-            """autograd's backward of deform_library, written out: the
-            sampler's backward, then the elementwise rest."""
-            ga = g * (1.0 - (dep > 0).float())
-            d_feat, d_grid = grid_bwd((ga[:, None] * aff).view(b, 1, -1, REQ_W), feat4,
-                                      grid, 0, 0, True, [True, True])
-            d_grid = d_grid.view(b, 9, REQ_H, REQ_W, 2)
-            d_off = torch.stack([d_grid[..., 1] * (2.0 / (REQ_H - 1)),
-                                 d_grid[..., 0] * (2.0 / (REQ_W - 1))], 2)
-            d_feat = d_feat[:, 0]
-            return (d_feat * conf, d_off.view(b, 18, REQ_H, REQ_W),
-                    ga[:, None] * smp, d_feat * pred)
-
-        # per pixel and neighbour: up to 3x3 taps of value and two slopes,
-        # and the four corners' scatter
-        check_bwd("deform_prop_bwd", b,
-                  lambda: deform_prop_bwd(g, pred, off, aff, conf, dep, **kw),
-                  lambda: deform_prop_bwd_plain(g, pred, off, aff, conf, dep, **kw),
-                  1e-5, library,
-                  bound(nbytes(g, pred, off, aff, conf, dep, *outs),
-                        b * REQ_H * REQ_W * (9 * 60 + 10)), plain_reps=2)
         if b == 1:  # the ties: zero, integer and +-R offsets, integers moved
             # by an ulp or two (where rounding makes |oy - u| exactly 1), and
             # the clip's zeros
@@ -749,6 +744,16 @@ def main() -> int:
     check_k4(1, 58, 75, 8)
     check_k4(1, 58, 76, 8, c=30)
     check_k5(1, REQ_H, REQ_W, c=30)
+
+    # K8 where its binned gather is risky: 5x5 neighbours, windows R 1 and
+    # 8, a plane whose sides are not multiples of its 32x8 tiles, KITTI's
+    # width, and converging offsets (its largest bins) at the train batch
+    check_k8(1, REQ_H, REQ_W, kernel=5)
+    check_k8(1, REQ_H, REQ_W, radius=1)
+    check_k8(1, REQ_H, REQ_W, radius=8)
+    check_k8(1, 230, 306)
+    check_k8(1, KITTI_H, KITTI_W)
+    check_k8(TRAIN_B, REQ_H, REQ_W, converge=True)
 
     # ---- 5. and 6. serving ----
     fwd_wrappers = {"prop_step": prop_step, "deform_prop": deform_prop,

@@ -285,3 +285,71 @@ def deform_prop_plain(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
 
 deform_prop.launches = 0
 deform_prop_bwd.launches = 0
+
+
+def deform_prop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                         kernel: int = 3, radius: int = 4, converge: bool = False):
+    """Inputs on which K8 is checked and timed on the card, from ``gen``: the
+    offset train step's backward (conf, preserve at NYU's 500 samples a
+    228x304 frame, no clip) on an h x w plane, offsets ~ N(0, 1.5^2)
+    clamped to the window, TGASS affinities. With ``converge`` every output
+    points each neighbour at the nearest node of a grid 2R apart (plus a
+    quarter pixel, within the clamp): up to (2R)^2 outputs of a neighbour
+    share one corner, the largest bins of K8's gather. Returns (args,
+    keyword arguments of ``deform_prop_bwd`` and its plain version,
+    library): ``library`` is autograd's backward of the same step through
+    ``F.grid_sample`` (zeros outside, over the stacked sampling grids),
+    written out: the sampler's backward, then the elementwise rest."""
+    from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
+
+    k2 = kernel * kernel
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen)
+
+    pred = 10.0 * rand(b, h, w)
+    off = torch.randn((b, 2 * k2, h, w), generator=gen) * 1.5
+    aff = normalize_affinity(torch.randn((b, k2 - 1, h, w), generator=gen),
+                             torch.full((1,), 0.5 * (k2 - 1)))
+    conf = rand(b, h, w)
+    keep = rand(b, h, w) < 500 / (228 * 304)
+    dep = keep * (0.5 + 9.5 * rand(b, h, w))
+    g = torch.randn((b, h, w), generator=gen)
+    if converge:
+        step = 2 * max(radius, 1)
+        ys = torch.arange(h, dtype=torch.float32).view(h, 1)
+        xs = torch.arange(w, dtype=torch.float32).view(1, w)
+        ny = torch.round(ys / step) * step + 0.25
+        nx = torch.round(xs / step) * step + 0.25
+        for k, (dy, dx) in enumerate(neighbor_shifts(kernel)):
+            off[:, 2 * k] = ny - ys - dy
+            off[:, 2 * k + 1] = nx - xs - dx
+    off = off.clamp(-radius, radius)
+    pred, off, aff, conf, dep, g = (t.to(device).contiguous()
+                                    for t in (pred, off, aff, conf, dep, g))
+    kw = dict(kernel=kernel, radius=radius, preserve=True, clip=False)
+
+    sh = torch.tensor(neighbor_shifts(kernel), device=device, dtype=torch.float32)
+    sy = (torch.arange(h, device=device, dtype=torch.float32).view(1, 1, h, 1)
+          + sh[:, 0].view(1, k2, 1, 1) + off[:, 0::2])
+    sx = (torch.arange(w, device=device, dtype=torch.float32).view(1, 1, 1, w)
+          + sh[:, 1].view(1, k2, 1, 1) + off[:, 1::2])
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0],
+                       -1).view(b, k2 * h, w, 2)
+    feat4 = (pred * conf)[:, None]
+    smp = F.grid_sample(feat4, grid, mode="bilinear", padding_mode="zeros",
+                        align_corners=True).view(b, k2, h, w)
+
+    def library():
+        ga = g * (1.0 - (dep > 0).float())
+        d_feat, d_grid = torch.ops.aten.grid_sampler_2d_backward(
+            (ga[:, None] * aff).view(b, 1, -1, w), feat4, grid, 0, 0, True,
+            [True, True])
+        d_grid = d_grid.view(b, k2, h, w, 2)
+        d_off = torch.stack([d_grid[..., 1] * (2.0 / (h - 1)),
+                             d_grid[..., 0] * (2.0 / (w - 1))], 2)
+        d_feat = d_feat[:, 0]
+        return (d_feat * conf, d_off.view(b, 2 * k2, h, w), ga[:, None] * smp,
+                d_feat * pred)
+
+    return (g, pred, off, aff, conf, dep), kw, library

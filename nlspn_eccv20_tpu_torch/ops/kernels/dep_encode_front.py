@@ -163,6 +163,25 @@ dep_encode_front.launches = 0
 dep_encode_front_bwd.launches = 0
 
 
+def dep_encode_front_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                          c: int = 256):
+    """Inputs on which K3 is checked and timed on the card, from ``gen``: an
+    h x w plane in [0, 1) and C1 = c. Returns (args of ``dep_encode_front``
+    and its plain version, library): ``library`` is the two cuDNN convs
+    with their ReLUs, NCHW out."""
+    def randn(*shape, std):
+        return (torch.randn(shape, generator=gen) * std).to(device)
+    plane = torch.rand((b, h, w), generator=gen).to(device)
+    w0, b0 = randn(MID_CHANNELS, 1, 3, 3, std=1 / 3), randn(MID_CHANNELS, std=0.1)
+    w1, b1 = randn(c, MID_CHANNELS, 3, 3, std=1 / 12), randn(c, std=0.1)
+    p4 = plane[:, None]
+
+    def library():
+        return F.relu(F.conv2d(F.relu(F.conv2d(p4, w0, b0, 2, 1)), w1, b1, 2, 1))
+
+    return (plane, w0, b0, w1, b1), library
+
+
 def dep_encode_front_bwd_case(gen: torch.Generator, device, b: int, h: int,
                               w: int, c: int = 256):
     """Inputs on which K5 is checked and timed on the card, from ``gen``: an

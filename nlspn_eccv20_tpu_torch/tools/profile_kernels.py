@@ -1,0 +1,123 @@
+"""Where the time of the redesigned kernels goes, CUDA kernel by CUDA
+kernel: the GRU refresh's backwards K4 ``decode_aff_tail_bwd`` and K5
+``dep_encode_front_bwd``, the offset step's backward K8
+``deform_prop_bwd`` (its two passes) and the encode_dep front K3
+``dep_encode_front``.
+
+For each case (the train step's shapes at b=12 and b=1 and the serving
+shapes at b=1 and b=4, then the shapes that ``chip_smoke.py`` also checks:
+K4 with K=24, on an odd base grid 58x75 and on KITTI's 60x304, K5 on an
+unaligned 230x306 plane and at KITTI's 240x1216, K8 at KITTI's 240x1216,
+with 5x5 neighbours and on converging offsets, K3 at KITTI's 240x1216 and
+with C1 = 96) it times the whole call and one PyTorch call sequence of the
+same function (cuDNN's two convs or their backward; for K8 the
+``grid_sample`` form's backward) as CUDA-graph replays
+(``devtools.measure``), and splits the call's device time into its CUDA
+kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
+inputs are the ones ``chip_smoke.py`` checks the kernels on (the
+``*_case`` functions beside the wrappers), from a seeded generator; the
+checks themselves are ``chip_smoke.py``'s. TF32 off, cuDNN in benchmark
+mode. Needs the CUDA card:
+
+    python -m nlspn_eccv20_tpu_torch.tools.profile_kernels
+
+One JSON object per case is printed, each on its own line.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+from collections import defaultdict
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from nlspn_eccv20_tpu_torch.devtools.measure import measure
+from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
+    decode_aff_tail_bwd, decode_aff_tail_bwd_case)
+from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
+    deform_prop_bwd, deform_prop_bwd_case)
+from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
+    dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
+    dep_encode_front_case)
+
+CALLS = 10       # calls in the profiled window
+# (kernel, batch, height, width, options): K4's base grid (options: K), K5's
+# and K3's plane (options: C1), K8's plane (options: kernel, converge)
+CASES = [("K4", 12, 58, 76, {"k": 8}), ("K5", 12, 228, 304, {}),
+         ("K4", 1, 58, 76, {"k": 8}), ("K5", 1, 228, 304, {}),
+         ("K8", 12, 228, 304, {}), ("K8", 1, 228, 304, {}),
+         ("K3", 12, 228, 304, {}), ("K3", 1, 256, 320, {}),
+         ("K3", 4, 256, 320, {}),
+         ("K4", 1, 58, 76, {"k": 24}), ("K5", 2, 230, 306, {}),
+         ("K5", 1, 240, 1216, {}), ("K4", 1, 60, 304, {"k": 8}),
+         ("K4", 1, 58, 75, {"k": 8}),
+         ("K8", 1, 240, 1216, {}), ("K8", 1, 228, 304, {"kernel": 5}),
+         ("K8", 12, 228, 304, {"converge": True}),
+         ("K3", 1, 240, 1216, {}), ("K3", 1, 228, 304, {"c": 96})]
+
+
+def passes_us(fn):
+    """Device time per call of each CUDA kernel that ``fn`` launches."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(CALLS):
+            fn()
+        torch.cuda.synchronize()
+    us = defaultdict(float)
+    for a in prof.key_averages():
+        if a.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(a, "self_device_time_total", 0.0) or a.self_cuda_time_total
+            name = a.key.replace("(anonymous namespace)::", "").split("(")[0]
+            us[name.split(" ")[-1].split("::")[-1]] += t / CALLS
+    return dict(sorted(us.items(), key=lambda kv: -kv[1]))
+
+
+def run_case(gen, dev, kname, b, h, w, opts):
+    if kname == "K4":
+        args, library = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"])
+        kernel = lambda: decode_aff_tail_bwd(*args)
+    elif kname == "K5":
+        args, library = dep_encode_front_bwd_case(gen, dev, b, h, w)
+        kernel = lambda: dep_encode_front_bwd(*args)
+    elif kname == "K8":
+        args, kw, library = deform_prop_bwd_case(gen, dev, b, h, w, **opts)
+        kernel = lambda: deform_prop_bwd(*args, **kw)
+    else:
+        args, library = dep_encode_front_case(gen, dev, b, h, w, **opts)
+        kernel = lambda: dep_encode_front(*args)
+    return {"name": kname, "batch": b, "shape": [h, w], **opts,
+            "ms": 1e3 * measure(kernel, calls=20, warmup=1),
+            "library_ms": 1e3 * measure(library, calls=20, warmup=1),
+            "passes_us": passes_us(kernel)}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_kernels needs the CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", 0)
+    reports = build.build_all(["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop_bwd",
+                               "dep_encode_front", "dep_encode_front_bwd"])
+    for name, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card}),
+          flush=True)
+    gen = torch.Generator().manual_seed(0)
+    for case in CASES:
+        print(json.dumps(run_case(gen, dev, *case)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

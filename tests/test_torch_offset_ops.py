@@ -11,7 +11,9 @@ numpy inputs to the port and to the JAX package:
   gather against ``propagate_deformable_exact``; all to 1e-5;
 - the plain backward (K8's) against ``jax.vjp`` of the windowed mirror, on
   offsets that are random, integers, zeros, exactly +-R after the clamp
-  and beyond it, to 1e-5 of each gradient's largest entry; with the conf
+  and beyond it, to 1e-5 of each gradient's largest entry; also at R = 4
+  (3x3 and 5x5), on a plane wider than K8's tile and its halo, on
+  converging offsets and on unclamped offsets past the window; with the conf
   weighting, the preserve blend and the clip's ties against ``jax.vjp`` of
   the JAX model's own step (``_prop_and_blend``), to rtol 2e-4, atol 2e-5
   as ``tests/test_deform_prop_pallas.py`` holds the TPU kernel;
@@ -215,6 +217,68 @@ def test_gradients_match_windowed_vjp_at_ties():
     d_off = np.asarray(ref[1])
     assert np.all(d_off[np.abs(off) > radius] == 0.0)
     assert np.any(d_off[np.abs(off) == radius] != 0.0)
+
+
+def converging_offsets(b, kernel, h, w, radius):
+    """Each output points each neighbour at the nearest node of a grid 2R
+    apart, a quarter pixel on, clamped to the window: up to (2R)^2 outputs
+    of a neighbour share one corner."""
+    step = 2 * radius
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    ny = np.round(ys / step) * step + 0.25
+    nx = np.round(xs / step) * step + 0.25
+    off = np.zeros((b, 2 * kernel * kernel, h, w), np.float32)
+    r = kernel // 2
+    for k in range(kernel * kernel):
+        off[:, 2 * k] = ny - ys - (k // kernel - r)
+        off[:, 2 * k + 1] = nx - xs - (k % kernel - r)
+    return np.clip(off, -radius, radius)
+
+
+@pytest.mark.parametrize("kernel,radius,w,offsets", [
+    (3, 4, 12, "clamped"),     # the fork's window
+    (5, 4, 12, "clamped"),     # prop_kernel 5 at the fork's window
+    (3, 1, 40, "clamped"),     # wider than 32 + 2R + 1: one 32-wide source
+                               # tile reads outputs of several
+    (3, 2, 14, "converging"),  # many outputs at one source pixel
+    (3, 2, 14, "beyond"),      # past the window, unclamped (the devtools
+                               # drop-in's backward)
+])
+def test_plain_backward_matches_windowed_vjp(kernel, radius, w, offsets):
+    """The plain backward (K8's) against jax.vjp of the window form at the
+    shapes where K8's binned gather is risky on the card, each gradient to
+    1e-5 of its largest entry. The reference is the scan over neighbours
+    (``propagate_deformable_windowed_scan``): ``_pure_windowed_planar``'s
+    math in one traced neighbour body, which XLA compiles in seconds where
+    the unrolled mirror takes 16-27 s at R = 4; the two differ only at
+    offsets an ulp off an integer (see the test below), which these are
+    not."""
+    rng = np.random.default_rng(50 + kernel + radius)
+    b, h, k2 = 1, 10, kernel * kernel
+    feat = rng.standard_normal((b, h, w)).astype(np.float32)
+    aff = (rng.standard_normal((b, k2, h, w)) / k2).astype(np.float32)
+    g = rng.standard_normal((b, h, w)).astype(np.float32)
+    if offsets == "converging":
+        off = converging_offsets(b, kernel, h, w, radius)
+    else:
+        scale = 1.5 if offsets == "clamped" else 3.0 * (radius + 1)
+        off = (rng.standard_normal((b, 2 * k2, h, w)) * scale).astype(np.float32)
+        if offsets == "clamped":
+            off = np.clip(off, -radius, radius)
+    assert (np.max(np.abs(off)) > radius + 1) == (offsets == "beyond")
+
+    def scan_form(f, o, a):
+        return propagate_deformable_windowed_scan(
+            f[..., None], jnp.moveaxis(o, 1, -1), jnp.moveaxis(a, 1, -1), kernel,
+            radius)[..., 0]
+
+    ref = jax.jit(lambda *x: jax.vjp(scan_form, *x)[1](jnp.asarray(g)))(
+        *map(jnp.asarray, (feat, off, aff)))
+    got = deform_prop_bwd_plain(t(g), t(feat), t(off), t(aff), None, None,
+                                kernel=kernel, radius=radius, preserve=False,
+                                clip=False)
+    for name, gp, gr in zip(("d_feat", "d_off", "d_aff"), got, ref):
+        assert_rel(name, gp, gr, 1e-5)
 
 
 def test_gradients_follow_the_relative_window_at_rounding_ties():

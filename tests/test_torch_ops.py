@@ -253,7 +253,13 @@ def _port_front(x, w0, b0, w1, b1):
     return dep_encode_front(t(x), _conv_w(w0), t(b0), _conv_w(w1), t(b1))
 
 
-@pytest.mark.parametrize("shape", [(2, 24, 40, 16, 32), (1, 16, 24, 16, 8)])
+@pytest.mark.parametrize("shape", [
+    (2, 24, 40, 16, 32),
+    (1, 16, 24, 16, 8),
+    (3, 16, 44, 16, 40),       # B=3, C1 = 40, Wo = 11: not whole channel
+                               # groups or 8-pixel rows of the CUDA kernel
+    (1, 16, 24, 16, 96),       # C1 = 96: one and a half 64-channel groups
+])
 def test_dep_encode_front_matches_pallas(monkeypatch, shape):
     monkeypatch.setattr(jax_def, "FORCE_PALLAS_INTERPRET", True)
     args = _front_inputs(np.random.default_rng(1), *shape)
@@ -263,13 +269,18 @@ def test_dep_encode_front_matches_pallas(monkeypatch, shape):
     close(out, ref, 1e-5)
 
 
-def test_dep_encode_front_matches_reference_unaligned():
+@pytest.mark.parametrize("shape,out_shape", [
+    ((2, 30, 42, 16, 32), (2, 8, 11, 32)),
+    ((1, 29, 83, 16, 32), (1, 8, 21, 32)),   # 1 and 3 mod 4; Wo = 21
+    ((1, 13, 70, 16, 96), (1, 4, 18, 96)),   # and C1 = 96
+])
+def test_dep_encode_front_matches_reference_unaligned(shape, out_shape):
     """H, W not multiples of 4: the TPU kernel refuses them, the port's
     kernel takes them; held against the JAX plain reference."""
-    args = _front_inputs(np.random.default_rng(2), 2, 30, 42, 16, 32)
+    args = _front_inputs(np.random.default_rng(2), *shape)
     ref = jax_def.dep_encode_front_reference(*map(jnp.asarray, args))
     out = _port_front(*args)
-    assert out.shape == (2, 8, 11, 32) == ref.shape
+    assert out.shape == out_shape == ref.shape
     close(out, ref, 1e-5)
 
 
