@@ -24,7 +24,13 @@ Phases (any failure exits non-zero and prints no result):
      loop); K6 and K7 also timed at B=1 of KITTI's 240x1216; K3
      (dep_encode_front) also timed at the train step's B=12 of 228x304 and
      at B=1 of KITTI's 240x1216, and checked on a 230x306 plane and with
-     C1 = 96 (not a multiple of its 64-channel groups);
+     C1 = 96 (not a multiple of its 64-channel groups); K2
+     (decode_aff_tail) also timed at the train step's B=12 (base grid 58x76,
+     where its intermediate y1, which training saves for K4, is held
+     against its plain version too) and at KITTI's 60x304, and checked at
+     B=2, on an odd and ragged 57x75 grid and with C = 40 and 30, every
+     shape's output and y1 run twice for equal bits: every cluster size the
+     wrapper picks (8, 4, 2, 1) is run;
   4. each backward kernel the same way, at the train step's shapes (B=12
      and B=1, 228x304 patches), and run twice to show equal bits; K4
      (decode_aff_tail_bwd) and K5 (dep_encode_front_bwd) also at the
@@ -40,8 +46,12 @@ Phases (any failure exits non-zero and prints no result):
      240x1216 and converging offsets at B=12 (each neighbour of each output
      pointed at the nearest node of a grid 2R apart: its largest bins); K6b
      (prop_loop_bwd) from K6's saved step inputs, with 12 launches of K1b
-     as its comparison, on the clip's ties (an all-zero corner, with
-     the pre-blend) and on 100 steps;
+     as its comparison, on the clip's ties at 3x3 and 5x5 (an all-zero
+     corner, with the pre-blend), on 18 and 100 steps (launches of fewer
+     steps, each adding to the sums), and at B=12 on a 230x306 plane and
+     with 18 steps, and on the ties with every combination of preserve,
+     clip, pre_blend and conf at 12 and 30 steps, each run twice for equal
+     bits;
   5. serving: a Predictor on the default Config, every parameter random
      from a seeded generator, answers 4 single requests and one batch of 4;
      the launch counters are set to 0 just before and read just after; the
@@ -137,6 +147,7 @@ the two microbenchmark main()s' for K11a-d.
 """
 
 import copy
+import itertools
 import json
 import subprocess
 import sys
@@ -183,8 +194,9 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
     from nlspn_eccv20_tpu_torch.ops.kernels import build
     from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
-        decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
-        decode_aff_tail_bwd_plain, decode_aff_tail_plain)
+        SPLITS, decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
+        decode_aff_tail_bwd_plain, decode_aff_tail_case, decode_aff_tail_fwd_y1,
+        decode_aff_tail_plain, decode_aff_tail_plain_y1, tail_plan)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
         deform_prop, deform_prop_bwd, deform_prop_bwd_case, deform_prop_bwd_plain,
         deform_prop_fwd_plain, deform_prop_plain)
@@ -192,8 +204,8 @@ def main() -> int:
         dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
         dep_encode_front_bwd_plain, dep_encode_front_case, dep_encode_front_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
-        launch_fwd as launch_loop, prop_loop, prop_loop_bwd, prop_loop_bwd_plain,
-        prop_loop_plain)
+        launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
+        prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
         prop_step, prop_step_bwd, prop_step_bwd_plain, prop_step_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
@@ -401,6 +413,52 @@ def main() -> int:
             log(f"[kernel] {tag}: kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms "
                 f"({bnd[1]})")
 
+    def same_bits(fn):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    k2_splits = set()
+
+    def check_k2(b, hg, wg, k=8, c=256, timed=False):
+        """K2 (decode_aff tail) against its plain version on a base grid
+        hg x wg x c with K = k output channels: its output and the
+        intermediate y1 that training reads, each run twice for equal bits;
+        with ``timed`` its time beside cuDNN's two transposed convs and its
+        bound (the kernel line keeps the serving grid's)."""
+        args, library = decode_aff_tail_case(gen, dev, b, hg, wg, k, c)
+        out, y1 = decode_aff_tail_fwd_y1(*args)
+        ref, y1_ref = decode_aff_tail_plain_y1(*args)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        _, rel_y1 = rel_err(y1, y1_ref)
+        split = tail_plan(b, hg, wg, c, sms)[2]
+        k2_splits.add(split)
+        shape = "" if (hg, wg, k, c) == (H // 4, W // 4, 8, 256) else f" {hg}x{wg} K={k} C={c}"
+        tag = f"decode_aff_tail B={b}{shape}"
+        if not rel_y1 <= 1e-4:
+            raise AssertionError(f"{tag}: y1 relative error {rel_y1:.3e} > 1e-4")
+        if not (same_bits(lambda: decode_aff_tail_fwd_y1(*args))
+                and same_bits(lambda: (decode_aff_tail(*args),))):
+            raise AssertionError(f"{tag}: two runs gave other bits")
+        log(f"[kernel] {tag}: cluster of {split}, y1 rel {rel_y1:.3e}, out and y1 "
+            f"equal bits in two runs")
+        if not timed:
+            if not rel <= 1e-4:
+                raise AssertionError(f"{tag}: relative error {rel:.3e} > 1e-4")
+            log(f"[kernel] {tag}: rel {rel:.3e}")
+            return
+        flops = 2 * b * (taps_t2(hg) * taps_t2(wg) * c * 16
+                         + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
+        record("decode_aff_tail", b, err, rel, 1e-4,
+               time_ms(lambda: decode_aff_tail(*args)),
+               time_ms(lambda: decode_aff_tail_plain(*args)), time_ms(library),
+               bound(nbytes(*args, out), flops), shape=shape)
+        if b == TRAIN_B:
+            log(f"[kernel] {tag}: with y1 written, as in training, "
+                f"{time_ms(lambda: decode_aff_tail_fwd_y1(*args)):.4f} ms")
+
     def check_k3(b, h, w, c=256):
         """K3 (encode_dep front) against its plain version on an h x w plane
         -> ceil(ceil(h/2)/2) x ceil(ceil(w/2)/2) x c, timed beside cuDNN's
@@ -454,33 +512,9 @@ def main() -> int:
             check_loop(b, H, W, steps=100, timed=False)
 
         # K2: decode_aff tail, base grid 64x80, 256 -> 16 -> K
-        hg, wg = H // 4, W // 4
-        for k in (8, 24) if b == 1 else (8,):
-            x = randn(b, hg, wg, 256).relu()
-            w1, b1 = randn(256, 16, 3, 3, std=(256 * 9 / 4) ** -0.5), randn(16, std=0.1)
-            w2, b2 = randn(16, k, 3, 3, std=(16 * 9 / 4) ** -0.5), randn(k, std=0.1)
-            out = decode_aff_tail(x, w1, b1, w2, b2)
-            ref = decode_aff_tail_plain(x, w1, b1, w2, b2)
-            torch.cuda.synchronize()
-            err, rel = rel_err(out, ref)
-            if k != 8:
-                if not rel <= 1e-4:
-                    raise AssertionError(f"decode_aff_tail K={k}: rel {rel:.3e}")
-                log(f"[kernel] decode_aff_tail K={k} B={b}: rel {rel:.3e}")
-                continue
-            xn = x.permute(0, 3, 1, 2).contiguous()
-
-            def library():
-                y = F.relu(F.conv_transpose2d(xn, w1, b1, 2, 1, 1))
-                return F.conv_transpose2d(y, w2, b2, 2, 1, 1)
-
-            flops = 2 * b * (taps_t2(hg) * taps_t2(wg) * 256 * 16
-                             + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
-            record("decode_aff_tail", b, err, rel, 1e-4,
-                   time_ms(lambda: decode_aff_tail(x, w1, b1, w2, b2)),
-                   time_ms(lambda: decode_aff_tail_plain(x, w1, b1, w2, b2)),
-                   time_ms(library),
-                   bound(nbytes(x, w1, b1, w2, b2, out), flops))
+        check_k2(b, H // 4, W // 4, timed=True)
+        if b == 1:
+            check_k2(b, H // 4, W // 4, k=24)
 
         # K3: encode_dep front, 256x320 plane -> 64x80x256; an odd shape the
         # TPU kernel refused: the CUDA kernel takes it
@@ -529,6 +563,21 @@ def main() -> int:
            bound(nbytes(pred, off, aff, conf, dep, out),
                  deform_flops(TRAIN_B, REQ_H, REQ_W, 9)))
 
+    # K2 at the train step's base grid (232 rows of the 228-row patch: y1
+    # is held against its plain version there), at KITTI's, on an odd and
+    # ragged one, with C = 40 and 30 (channels not in whole stages, nor in
+    # 16-byte groups) and at b=2 (a cluster of 4): every cluster size the
+    # wrapper picks
+    check_k2(TRAIN_B, 58, 76, timed=True)
+    check_k2(1, KITTI_H // 4, KITTI_W // 4, timed=True)
+    check_k2(2, H // 4, W // 4)
+    check_k2(1, 57, 75)
+    check_k2(1, H // 4, W // 4, c=40)
+    check_k2(1, 58, 76, c=30)
+    if k2_splits != set(SPLITS):
+        raise AssertionError(f"decode_aff_tail: cluster sizes {sorted(k2_splits)} "
+                             f"checked, the wrapper picks {SPLITS}")
+
     # K3 at the train step's shape, at KITTI's width and with C1 = 96
     check_k3(TRAIN_B, REQ_H, REQ_W)
     check_k3(1, KITTI_H, KITTI_W)
@@ -553,14 +602,10 @@ def main() -> int:
     conv_bwd = torch.ops.aten.convolution_backward
 
     def grads_err(got, want):
-        """max_abs_err and relative error over all of a kernel's outputs."""
-        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        """max_abs_err and relative error over all of a kernel's outputs
+        (an output absent from both, as d_conf without conf, is skipped)."""
+        errs = [rel_err(a, b) for a, b in zip(got, want) if b is not None]
         return max(e for e, _ in errs), max(r for _, r in errs)
-
-    def same_bits(fn):
-        a, b = fn(), fn()
-        torch.cuda.synchronize()
-        return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
     def check_bwd(kname, b, fn, plain, tol, lib, bnd, plain_reps=20, ref=None,
                   shape=""):
@@ -594,6 +639,40 @@ def main() -> int:
                   bound(nbytes(*args, *outs), b * h * w * (kernel * kernel * 60 + 10)),
                   plain_reps=2, shape=shape)
         return args
+
+    def check_k6b(b, h, w, kernel=3, steps=12, ties=False):
+        """K6b (the constant-affinity loop's backward) against its plain
+        version on ``prop_loop_bwd_case``'s inputs, run twice for equal
+        bits; as the model calls it (3x3, 12 steps, no ties) on the train
+        step's plane it is timed beside 12 launches of K1b."""
+        args, kw, library = prop_loop_bwd_case(gen, dev, b, h, w, kernel, steps, ties)
+        g, pred, aff, conf, dep, saved = args
+        n0 = prop_loop_bwd.launches
+        outs = prop_loop_bwd(*args, **kw)
+        n = prop_loop_bwd.launches - n0
+        fn = lambda: prop_loop_bwd(*args, **kw)
+        plain = lambda: prop_loop_bwd_plain(g, pred, aff, conf, dep, **kw)
+        tile, chunks = loop_plan(steps, kernel, (b, h, w), sms, backward=True,
+                                 clip=kw["clip"])
+        if n != len(chunks):
+            raise AssertionError(f"prop_loop_bwd: {n} launches, the plan has {len(chunks)}")
+        if (h, w, kernel, steps, ties) == (REQ_H, REQ_W, 3, 12, False):
+            log(f"[kernel] prop_loop_bwd B={b}: 12 x K1b prop_step_bwd on the same "
+                f"inputs {time_ms(library):.4f} ms")
+            # per step and pixel: d_aff 3 and d_p 2 a tap, 5 more
+            check_bwd("prop_loop_bwd", b, fn, plain, 1e-5, None,
+                      bound(nbytes(g, aff, conf, dep, saved, *outs),
+                            b * h * w * steps * (5 * kernel * kernel + 5)))
+            return
+        _, rel = grads_err(outs, plain())
+        tag = (f"prop_loop_bwd {kernel}x{kernel} {steps} steps B={b} {h}x{w}"
+               f"{' clip ties, pre-blend' if ties else ''}")
+        if not rel <= 1e-5 or not same_bits(fn):
+            raise AssertionError(f"{tag}: rel {rel:.3e} or other bits")
+        zeros = (f", {int((prop_loop_plain(pred, aff, conf, dep, **kw) == 0).sum())} "
+                 f"zero outputs" if ties else "")
+        log(f"[kernel] {tag}: {n} launch(es) of {tile}x{tile} tiles{zeros}, "
+            f"rel {rel:.3e}, equal bits in two runs")
 
     def check_k4(b, hg, wg, k, c=256):
         """K4 (decode_aff tail backward) against its plain version on a base
@@ -682,55 +761,37 @@ def main() -> int:
 
         # K6b: the loop's backward as the model calls it, from K6's saved
         # step inputs; beside it 12 launches of K1b on the same inputs
-        pred, aff, conf, dep = loop_inputs(b, REQ_H, REQ_W, 3)
-        g = randn(b, REQ_H, REQ_W)
-        kw = dict(steps=12, kernel=3, preserve=True, clip=False, pre_blend=False)
-        _, saved = launch_loop(pred, aff, conf, dep, save=True, **kw)
-        outs = prop_loop_bwd(g, pred, aff, conf, dep, saved, **kw)
-        ks = dict(kernel=3, preserve=True, clip=False)
-
-        def per_step_bwd():
-            d = g
-            for k in range(11, -1, -1):
-                d = prop_step_bwd(d, saved[k], aff, conf, dep, **ks)[0]
-            return d
-
-        log(f"[kernel] prop_loop_bwd B={b}: 12 x K1b prop_step_bwd on the same "
-            f"inputs {time_ms(per_step_bwd):.4f} ms")
-        # per step and pixel: d_aff 3 and d_p 2 a tap, 5 more
-        check_bwd("prop_loop_bwd", b,
-                  lambda: prop_loop_bwd(g, pred, aff, conf, dep, saved, **kw),
-                  lambda: prop_loop_bwd_plain(g, pred, aff, conf, dep, **kw),
-                  1e-5, None,
-                  bound(nbytes(g, aff, conf, dep, saved, *outs),
-                        b * REQ_H * REQ_W * 12 * (5 * 9 + 5)))
+        check_k6b(b, REQ_H, REQ_W)
         if b == 1:  # the clip's ties (an all-zero corner), with the pre-blend; 5x5
-            pred[:, :64, :64] = 0.0
-            dep[:, :64, :64] = 0.0
-            for kernel in (3, 5):
-                a = loop_inputs(b, REQ_H, REQ_W, kernel)[1]
-                kwc = dict(steps=12, kernel=kernel, preserve=True, clip=True,
-                           pre_blend=True)
-                out, sv = launch_loop(pred, a, conf, dep, save=True, **kwc)
-                fn = lambda: prop_loop_bwd(g, pred, a, conf, dep, sv, **kwc)
-                _, rel = grads_err(fn(), prop_loop_bwd_plain(g, pred, a, conf, dep, **kwc))
-                if not rel <= 1e-5 or not same_bits(fn):
-                    raise AssertionError(f"prop_loop_bwd {kernel}x{kernel} ties: "
-                                         f"rel {rel:.3e} or other bits")
-                log(f"[kernel] prop_loop_bwd {kernel}x{kernel} clip ties B={b}: "
-                    f"{int((out == 0).sum())} zero outputs, rel {rel:.3e}, equal "
-                    f"bits in two runs")
-            # 100 steps: launches of fewer steps, each adding to the sums
-            kwl = dict(kw, steps=100)
-            _, sv = launch_loop(pred, aff, conf, dep, save=True, **kwl)
-            n0 = prop_loop_bwd.launches
-            got = prop_loop_bwd(g, pred, aff, conf, dep, sv, **kwl)
-            n = prop_loop_bwd.launches - n0
-            _, rel = grads_err(got, prop_loop_bwd_plain(g, pred, aff, conf, dep, **kwl))
-            if not rel <= 1e-5:
-                raise AssertionError(f"prop_loop_bwd 100 steps: rel {rel:.3e}")
-            log(f"[kernel] prop_loop_bwd 100 steps B={b}: {n} launch(es), "
-                f"rel {rel:.3e}")
+            check_k6b(b, REQ_H, REQ_W, ties=True)
+            check_k6b(b, REQ_H, REQ_W, kernel=5, ties=True)
+            # 18 steps (one launch at b=1) and 100 (launches of fewer
+            # steps, each adding to the sums)
+            check_k6b(b, REQ_H, REQ_W, steps=18)
+            check_k6b(b, REQ_H, REQ_W, steps=100)
+
+    # K6b on a plane whose sides are not multiples of its tiles, and 18
+    # steps at the train batch (two launches of 32x32 tiles)
+    check_k6b(TRAIN_B, 230, 306)
+    check_k6b(TRAIN_B, REQ_H, REQ_W, steps=18)
+
+    # K6b's every branch: each combination of preserve, clip, pre_blend and
+    # conf (dep is read with preserve or pre_blend), on the clip's ties, at
+    # 12 steps (one launch) and 30 (three, each adding to the sums)
+    (g, pred, aff, conf, dep, _), _, _ = prop_loop_bwd_case(gen, dev, 1, REQ_H, REQ_W,
+                                                            ties=True)
+    for preserve, clip, pre_blend, c, steps in itertools.product(
+            (False, True), (False, True), (False, True), (conf, None), (12, 30)):
+        kw = dict(steps=steps, kernel=3, preserve=preserve, clip=clip, pre_blend=pre_blend)
+        sv = launch_loop(pred, aff, c, dep, save=True, **kw)[1]
+        fn = lambda: prop_loop_bwd(g, pred, aff, c, dep, sv, **kw)
+        _, rel = grads_err(fn(), prop_loop_bwd_plain(g, pred, aff, c, dep, **kw))
+        if not rel <= 1e-5 or not same_bits(fn):
+            raise AssertionError(f"prop_loop_bwd {kw} conf={c is not None}: rel "
+                                 f"{rel:.3e} or other bits")
+    log("[kernel] prop_loop_bwd: all 32 combinations of preserve, clip, pre_blend, "
+        "conf and 12 or 30 steps within 1e-5 of the plain version, equal bits in "
+        "two runs")
 
     # K4 and K5 at the shapes their tiles make risky: K4 with K = 24 (5x5
     # propagation), K5 on a plane whose sides are not multiples of 4, K5 at

@@ -25,8 +25,10 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
 from nlspn_eccv20_tpu_torch.ops.kernels import build
-from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import blend_and_clip, prop_step_plain
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
+    blend_and_clip, prop_step_bwd, prop_step_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"prop_loop_f32": [_P] * 6 + [_I] * 9 + [_P]}
@@ -37,29 +39,53 @@ SMEM_BYTES = 232448       # shared memory a block may opt in to on Hopper
 
 
 def plan(steps: int, kernel: int, shape: Tuple[int, int, int], sms: int,
-         backward: bool = False) -> Tuple[int, List[Tuple[int, int]]]:
+         backward: bool = False, clip: bool = False) -> Tuple[int, List[Tuple[int, int]]]:
     """The tile side and the (first, last + 1) steps of each launch, for
-    planes of ``shape`` (B, H, W) on a card with ``sms`` SMs. Tiles are
-    32x32, or 16x16 where a grid of 32x32 ones would leave SMs without a
-    block (b=1 at NYU size); the backward halves them further while its
-    (K2 + 1) sums a pixel would take more than half a block's shared
-    memory. A launch takes as many steps as its two halo buffers (and the
-    sums) fit in a block's shared memory."""
+    planes of ``shape`` (B, H, W) on a card with ``sms`` SMs. The forward's
+    tiles are 32x32, or 16x16 where a grid of 32x32 ones would leave SMs
+    without a block (b=1 at NYU size); a launch takes as many steps as its
+    two halo buffers fit in a block's shared memory. The backward's launch
+    holds the loop's constants, three step inputs and two G buffers over
+    the tile grown by steps r, one r more with the clip (``_bwd_floats``);
+    its tiles are 32x32, halved while that leaves fewer than min(steps, 4)
+    steps a launch (at b=1 of 228x304 its 80 blocks of 32x32 beat 285 of
+    16x16: the halo is the larger cost)."""
     b, h, w = shape
-    r, k2 = kernel // 2, kernel * kernel
-    tile = TILE if b * -(-h // TILE) * -(-w // TILE) >= sms else TILE // 2
-    while backward and tile > 8 and (k2 + 1) * tile * tile * 4 > SMEM_BYTES // 2:
-        tile //= 2
-    sums = (k2 + 1) * tile * tile * 4 if backward else 0
-    per_launch = steps
-    if r:
-        side = math.isqrt((SMEM_BYTES - sums) // 8)
-        per_launch = min(steps, (side - tile) // (2 * r))
+    r = kernel // 2
+
+    def most(t):  # the backward's steps a launch with tiles of side t
+        n = 0
+        while n < steps and 4 * _bwd_floats(t, n + 1, kernel, clip) <= SMEM_BYTES:
+            n += 1
+        return n
+
+    if backward:
+        tile = TILE
+        while tile > 8 and most(tile) < min(steps, 4):
+            tile //= 2
+        per_launch = most(tile)
+    else:
+        tile = TILE if b * -(-h // TILE) * -(-w // TILE) >= sms else TILE // 2
+        per_launch = steps
+        if r:
+            side = math.isqrt(SMEM_BYTES // 8)
+            per_launch = min(steps, (side - tile) // (2 * r))
     if per_launch < 1:
         raise ValueError(f"a {kernel}x{kernel} loop does not fit in shared memory")
     n = -(-steps // per_launch)
     bounds = [steps * i // n for i in range(n + 1)]
     return tile, list(zip(bounds[:-1], bounds[1:]))
+
+
+def _bwd_floats(tile: int, steps: int, kernel: int, clip: bool) -> int:
+    """Shared-memory floats of a K6b launch of ``steps`` steps, with conf
+    and dep: 5 planes (three step inputs, G and the next G), conf, dep and,
+    up to 5x5, the affinities, over the tile grown by steps r (one r more
+    with the clip); two tile^2 planes of d_p, and the d_aff sums above 5x5
+    (up to 5x5 they stay in registers)."""
+    r, k2 = kernel // 2, kernel * kernel
+    side = tile + 2 * (steps + int(clip)) * r
+    return side * side * (7 + (k2 if r <= 2 else 0)) + tile * tile * (2 + (k2 if r > 2 else 0))
 
 
 def _sms(device: torch.device) -> int:
@@ -164,7 +190,8 @@ def prop_loop_bwd(g: torch.Tensor, pred: torch.Tensor, aff: torch.Tensor,
     _check_inputs(pred, aff, conf, dep, kernel, preserve, pre_blend)
     build.check_tensor(g, "prop_loop_bwd g", (b, h, w), pred.device)
     build.check_tensor(saved, "prop_loop_bwd saved", (steps, b, h, w), pred.device)
-    tile, chunks = plan(steps, kernel, (b, h, w), _sms(pred.device), backward=True)
+    tile, chunks = plan(steps, kernel, (b, h, w), _sms(pred.device), backward=True,
+                        clip=clip)
     d_pred = torch.empty_like(pred)
     d_aff = torch.empty_like(aff)
     d_conf = torch.empty_like(pred) if conf is not None else None
@@ -237,3 +264,41 @@ def prop_loop(pred: torch.Tensor, aff: torch.Tensor,
 
 prop_loop.launches = 0
 prop_loop_bwd.launches = 0
+
+
+def prop_loop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                       kernel: int = 3, steps: int = 12, ties: bool = False):
+    """Inputs on which K6b is checked and timed on the card, from ``gen``:
+    pred in [0, 10), TGASS-normalised affinities, conf in [0, 1), sparse
+    depth at NYU's density (500 samples of 228x304) and g ~ N(0, 1), with
+    the model's options (conf, preserve, no clip, no pre-blend); with
+    ``ties`` the clip and the pre-blend on, pred and dep zero over a 64x64
+    corner (the clip's exact ties). ``saved`` is what K6 writes on a CUDA
+    tensor, None on a CPU one (``prop_loop_bwd`` does not read it there).
+    Returns (args of ``prop_loop_bwd``, its options, library): the library
+    call is ``steps`` launches of K1b on the same inputs, the per-step
+    route (no single PyTorch call computes the loop's backward)."""
+    k2 = kernel * kernel
+    aff = normalize_affinity(torch.randn((b, k2 - 1, h, w), generator=gen),
+                             torch.full((1,), 0.5 * (k2 - 1))).contiguous()
+    pred = 10.0 * torch.rand((b, h, w), generator=gen)
+    conf = torch.rand((b, h, w), generator=gen)
+    keep = torch.rand((b, h, w), generator=gen) < 500 / (228 * 304)
+    dep = keep * (0.5 + 9.5 * torch.rand((b, h, w), generator=gen))
+    g = torch.randn((b, h, w), generator=gen)
+    if ties:
+        pred[:, :64, :64] = 0.0
+        dep[:, :64, :64] = 0.0
+    g, pred, aff, conf, dep = (t.to(device) for t in (g, pred, aff, conf, dep))
+    kw = dict(steps=steps, kernel=kernel, preserve=True, clip=ties, pre_blend=ties)
+    saved = (launch_fwd(pred, aff, conf, dep, save=True, **kw)[1]
+             if pred.is_cuda else None)
+
+    def library():
+        d = g
+        for s in range(steps - 1, -1, -1):
+            d = prop_step_bwd(d, saved[s], aff, conf, dep, kernel=kernel,
+                              preserve=True, clip=ties)[0]
+        return d
+
+    return (g, pred, aff, conf, dep, saved), kw, library

@@ -1,17 +1,21 @@
 """Where the time of the redesigned kernels goes, CUDA kernel by CUDA
-kernel: the GRU refresh's backwards K4 ``decode_aff_tail_bwd`` and K5
-``dep_encode_front_bwd``, the offset step's backward K8
-``deform_prop_bwd`` (its two passes) and the encode_dep front K3
-``dep_encode_front``.
+kernel: the decode_aff tail K2 ``decode_aff_tail``, the GRU refresh's
+backwards K4 ``decode_aff_tail_bwd`` and K5 ``dep_encode_front_bwd``, the
+offset step's backward K8 ``deform_prop_bwd`` (its two passes), the
+encode_dep front K3 ``dep_encode_front`` and the constant-affinity loop's
+backward K6b ``prop_loop_bwd``.
 
 For each case (the train step's shapes at b=12 and b=1 and the serving
 shapes at b=1 and b=4, then the shapes that ``chip_smoke.py`` also checks:
-K4 with K=24, on an odd base grid 58x75 and on KITTI's 60x304, K5 on an
-unaligned 230x306 plane and at KITTI's 240x1216, K8 at KITTI's 240x1216,
-with 5x5 neighbours and on converging offsets, K3 at KITTI's 240x1216 and
-with C1 = 96) it times the whole call and one PyTorch call sequence of the
-same function (cuDNN's two convs or their backward; for K8 the
-``grid_sample`` form's backward) as CUDA-graph replays
+K2 at KITTI's 60x304 base grid, with K=24, on an odd 57x75 one and with
+C=40, K4 with K=24, on an odd base grid 58x75 and on KITTI's 60x304, K5
+on an unaligned 230x306 plane and at KITTI's 240x1216, K8 at KITTI's
+240x1216, with 5x5 neighbours and on converging offsets, K3 at KITTI's
+240x1216 and with C1 = 96, K6b with 5x5 neighbours and on a 230x306
+plane) it times the whole call and one PyTorch call sequence of the same
+function (cuDNN's two convs or their backward; for K8 the ``grid_sample``
+form's backward; for K6b, which no PyTorch call computes, 12 launches of
+K1b, the per-step route) as CUDA-graph replays
 (``devtools.measure``), and splits the call's device time into its CUDA
 kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
 inputs are the ones ``chip_smoke.py`` checks the kernels on (the
@@ -36,17 +40,23 @@ from torch.profiler import ProfilerActivity, profile
 from nlspn_eccv20_tpu_torch.devtools.measure import measure
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
-    decode_aff_tail_bwd, decode_aff_tail_bwd_case)
+    decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
+    decode_aff_tail_case, decode_aff_tail_fwd_y1)
 from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
     deform_prop_bwd, deform_prop_bwd_case)
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
     dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
     dep_encode_front_case)
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import prop_loop_bwd, prop_loop_bwd_case
 
 CALLS = 10       # calls in the profiled window
-# (kernel, batch, height, width, options): K4's base grid (options: K), K5's
-# and K3's plane (options: C1), K8's plane (options: kernel, converge)
-CASES = [("K4", 12, 58, 76, {"k": 8}), ("K5", 12, 228, 304, {}),
+# (kernel, batch, height, width, options): K2's and K4's base grid (options:
+# K, C; K2's y1: the intermediate written, as in training), K5's and K3's
+# plane (options: C1), K8's and K6b's plane (options: kernel, converge)
+CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
+         ("K2", 1, 64, 80, {"k": 8}), ("K2", 4, 64, 80, {"k": 8}),
+         ("K6b", 12, 228, 304, {}), ("K6b", 1, 228, 304, {}),
+         ("K4", 12, 58, 76, {"k": 8}), ("K5", 12, 228, 304, {}),
          ("K4", 1, 58, 76, {"k": 8}), ("K5", 1, 228, 304, {}),
          ("K8", 12, 228, 304, {}), ("K8", 1, 228, 304, {}),
          ("K3", 12, 228, 304, {}), ("K3", 1, 256, 320, {}),
@@ -56,7 +66,10 @@ CASES = [("K4", 12, 58, 76, {"k": 8}), ("K5", 12, 228, 304, {}),
          ("K4", 1, 58, 75, {"k": 8}),
          ("K8", 1, 240, 1216, {}), ("K8", 1, 228, 304, {"kernel": 5}),
          ("K8", 12, 228, 304, {"converge": True}),
-         ("K3", 1, 240, 1216, {}), ("K3", 1, 228, 304, {"c": 96})]
+         ("K3", 1, 240, 1216, {}), ("K3", 1, 228, 304, {"c": 96}),
+         ("K2", 1, 60, 304, {"k": 8}), ("K2", 1, 64, 80, {"k": 24}),
+         ("K2", 1, 57, 75, {"k": 8}), ("K2", 1, 64, 80, {"k": 8, "c": 40}),
+         ("K6b", 1, 228, 304, {"kernel": 5}), ("K6b", 12, 230, 306, {})]
 
 
 def passes_us(fn):
@@ -72,12 +85,20 @@ def passes_us(fn):
         if a.device_type == torch.autograd.DeviceType.CUDA:
             t = getattr(a, "self_device_time_total", 0.0) or a.self_cuda_time_total
             name = a.key.replace("(anonymous namespace)::", "").split("(")[0]
-            us[name.split(" ")[-1].split("::")[-1]] += t / CALLS
+            us[name.removeprefix("void ").split("::")[-1]] += t / CALLS
     return dict(sorted(us.items(), key=lambda kv: -kv[1]))
 
 
 def run_case(gen, dev, kname, b, h, w, opts):
-    if kname == "K4":
+    if kname == "K2":
+        args, library = decode_aff_tail_case(gen, dev, b, h, w, opts["k"],
+                                             opts.get("c", 256))
+        fwd = decode_aff_tail_fwd_y1 if opts.get("y1") else decode_aff_tail
+        kernel = lambda: fwd(*args)
+    elif kname == "K6b":
+        args, kw, library = prop_loop_bwd_case(gen, dev, b, h, w, **opts)
+        kernel = lambda: prop_loop_bwd(*args, **kw)
+    elif kname == "K4":
         args, library = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"])
         kernel = lambda: decode_aff_tail_bwd(*args)
     elif kname == "K5":
@@ -103,7 +124,8 @@ def main() -> int:
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     reports = build.build_all(["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop_bwd",
-                               "dep_encode_front", "dep_encode_front_bwd"])
+                               "dep_encode_front", "dep_encode_front_bwd",
+                               "prop_loop", "prop_loop_bwd", "prop_step_bwd"])
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:

@@ -18,6 +18,7 @@ import torch
 
 from nlspn_eccv20_tpu.ops.pallas.local_prop import propagate_loop_pallas_planar
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
+    _bwd_floats,
     plan,
     prop_loop,
     prop_loop_bwd,
@@ -147,21 +148,21 @@ def test_loop_is_steps_of_the_step():
     (12, 3, (12, 228, 304), True, 32, 1),
     (12, 3, (1, 256, 320), False, 16, 1),     # 80 tiles of 32 < 132 SMs
     (12, 3, (1, 240, 1216), True, 32, 1),
-    (12, 5, (4, 256, 320), True, 32, 1),
+    (12, 5, (4, 256, 320), True, 16, 2),      # 5x5's staged affinities: smaller tiles, split
     (18, 5, (4, 256, 320), False, 32, 1),
     (200, 3, (4, 256, 320), False, 32, 3),    # halos past shared memory: split
-    (12, 13, (4, 256, 320), True, 8, 1),      # 169 sums a pixel: a smaller tile
+    (12, 13, (4, 256, 320), True, 8, 2),      # 169 sums a pixel: a smaller tile
 ])
 def test_plan_fits_shared_memory(steps, kernel, shape, backward, tile, launches):
     got_tile, chunks = plan(steps, kernel, shape, 132, backward)
     assert (got_tile, len(chunks)) == (tile, launches)
     assert chunks[0][0] == 0 and chunks[-1][1] == steps
     assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
-    r, k2 = kernel // 2, kernel * kernel
+    r = kernel // 2
     for k0, k1 in chunks:
         side = tile + 2 * (k1 - k0) * r
-        sums = (k2 + 1) * tile * tile if backward else 0
-        assert (2 * side * side + sums) * 4 <= 232448
+        floats = _bwd_floats(tile, k1 - k0, kernel, False) if backward else 2 * side * side
+        assert floats * 4 <= 232448
 
 
 def test_prop_loop_checks_its_arguments():
