@@ -39,21 +39,56 @@ op through the plain versions on any device (forward and backward), which
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from nlspn_eccv20_tpu_torch.ops.kernels import build
-from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import blend_and_clip
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import blend_and_clip, step_inputs
 from nlspn_eccv20_tpu_torch.ops.propagate import (
     neighbor_shifts,
     propagate_deformable_exact_planar,
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"deform_prop_f32": [_P] * 6 + [_I] * 6 + [_P]}
+_SIGNATURES = {"deform_prop_f32": [_P] * 6 + [_I] * 8 + [_P]}
 _BWD_SIGNATURES = {"deform_prop_bwd_f32": [_P] * 11 + [_I] * 7 + [_P]}
+FWD_TILE_COLS = 32            # K7's tile width: a warp of threads
+FWD_THREAD_ROWS = 8           # its thread rows
+FWD_PIXELS = (4, 2, 1)        # pixels a thread, down its column
+# R_s for offsets that are not clamped (served): the default training
+# clamp's 4, which a trained model's offsets should mostly keep to; taps past
+# it are read from device memory
+STAGE_RADIUS = 4
+STAGE_RADIUS_CAP = 8          # the largest R_s staged
+
+
+def fwd_plan(b: int, h: int, w: int, kernel: int, radius: Optional[int],
+             sms: int) -> Tuple[int, int, int]:
+    """K7's tile (rows, cols) and staging margin M on a card with ``sms``
+    SMs. A tile is 32 columns and 8 n rows, n the most of 4, 2, 1 pixels a
+    thread that still gives every SM two blocks. p is staged over the tile
+    grown by M = kernel // 2 + R_s + 1, which holds every tap of an offset
+    in [-R_s, R_s]: R_s is ``radius`` (the training clamp's), or
+    ``STAGE_RADIUS`` for offsets that are not clamped, at most 8."""
+    cols = -(-w // FWD_TILE_COLS)
+    for n in FWD_PIXELS:
+        if b * -(-h // (FWD_THREAD_ROWS * n)) * cols >= 2 * sms:
+            break
+    r_s = min(STAGE_RADIUS if radius is None else radius, STAGE_RADIUS_CAP)
+    return FWD_THREAD_ROWS * n, FWD_TILE_COLS, kernel // 2 + r_s + 1
+
+
+def fwd_blocks(h: int, w: int, rows: int, cols: int,
+               margin: int) -> Iterator[Tuple[int, int, bool]]:
+    """(y0, x0, interior) of each block of K7 on an h x w plane, as
+    ``csrc/deform_prop.cu`` classifies them: interior when the tile grown by
+    ``margin`` lies inside the plane (its staging needs no bounds check)."""
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, cols):
+            yield y0, x0, (y0 - margin >= 0 and y0 + rows + margin <= h
+                           and x0 - margin >= 0 and x0 + cols + margin <= w)
 
 
 def deform_prop_fwd_plain(pred: torch.Tensor, off: torch.Tensor,
@@ -163,10 +198,12 @@ def _check_inputs(pred, off, aff, conf, dep, kernel, preserve):
             build.check_tensor(t, f"deform_prop {name}", (b, h, w), pred.device)
 
 
-def _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip):
+def _launch_fwd(pred, off, aff, conf, dep, kernel, radius, preserve, clip):
     b, h, w = pred.shape
     _check_inputs(pred, off, aff, conf, dep, kernel, preserve)
     out = torch.empty_like(pred)
+    rows, _, margin = fwd_plan(b, h, w, kernel, radius, torch.cuda.get_device_properties(
+        pred.device).multi_processor_count)
     with torch.cuda.device(pred.device):
         lib = build.load("deform_prop", _SIGNATURES)
         err = lib.deform_prop_f32(
@@ -174,6 +211,7 @@ def _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip):
             conf.data_ptr() if conf is not None else None,
             dep.data_ptr() if preserve else None, out.data_ptr(),
             b, h, w, kernel // 2, int(preserve), int(clip),
+            rows // FWD_THREAD_ROWS, margin,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "deform_prop")
     deform_prop.launches += 1
@@ -225,7 +263,7 @@ class DeformPropFunction(torch.autograd.Function):
         ctx.save_for_backward(pred, off, aff, conf, dep)
         if plain or pred.device.type == "cpu":
             return deform_prop_fwd_plain(pred, off, aff, conf, dep, **ctx.opts)
-        return _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip)
+        return _launch_fwd(pred, off, aff, conf, dep, kernel, radius, preserve, clip)
 
     @staticmethod
     def backward(ctx, g):
@@ -253,7 +291,7 @@ def _deform(pred, off, aff, conf, dep, kernel, radius, preserve, clip, plain):
     if plain or pred.device.type == "cpu":
         return deform_prop_fwd_plain(pred, off, aff, conf, dep, kernel=kernel,
                                      preserve=preserve, clip=clip)
-    return _launch_fwd(pred, off, aff, conf, dep, kernel, preserve, clip)
+    return _launch_fwd(pred, off, aff, conf, dep, kernel, radius, preserve, clip)
 
 
 def deform_prop(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
@@ -285,6 +323,53 @@ def deform_prop_plain(pred: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
 
 deform_prop.launches = 0
 deform_prop_bwd.launches = 0
+
+
+def sampling_grid(off: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """(B, 2 K2, H, W) offsets -> the (B, K2 H, W, 2) grid of
+    ``F.grid_sample`` (align_corners=True) that samples neighbour k at its
+    kernel shift ``shifts[k]`` plus its offset. ``shifts``: the (K2, 2)
+    ``neighbor_shifts`` as a float tensor on the offsets' device (made
+    before a graph capture: no host copy here)."""
+    b, _, h, w = off.shape
+    k2 = shifts.shape[0]
+    sy = (torch.arange(h, device=off.device, dtype=off.dtype).view(1, 1, h, 1)
+          + shifts[:, 0].view(1, k2, 1, 1) + off[:, 0::2])
+    sx = (torch.arange(w, device=off.device, dtype=off.dtype).view(1, 1, 1, w)
+          + shifts[:, 1].view(1, k2, 1, 1) + off[:, 1::2])
+    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0], -1)
+    return grid.view(b, k2 * h, w, 2)
+
+
+def deform_prop_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                     kernel: int = 3, radius: Optional[int] = None,
+                     off_std: float = 1.5):
+    """Inputs on which K7 is checked and timed on the card, from ``gen``:
+    pred in [0, 10), offsets ~ N(0, off_std^2) (clamped to [-radius,
+    radius] with a ``radius``, as training clamps them; unclamped without
+    one, as served), TGASS affinities, conf in [0, 1) and sparse depth at
+    NYU's density, with the model's options (conf, preserve, no clip).
+    Returns (args of ``deform_prop``, its options, library): the library
+    call is the same step through ``F.grid_sample`` (zeros outside) over the
+    stacked sampling grids, the weighted sum and the blend, which the port
+    never calls."""
+    k2 = kernel * kernel
+    pred, aff, conf, dep = step_inputs(gen, b, h, w, kernel, False)
+    off = torch.randn((b, 2 * k2, h, w), generator=gen) * off_std
+    if radius is not None:
+        off = off.clamp(-radius, radius)
+    args = tuple(t.to(device).contiguous() for t in (pred, off, aff, conf, dep))
+    pred, off, aff, conf, dep = args
+    kw = dict(kernel=kernel, radius=radius, preserve=True, clip=False)
+    sh = torch.tensor(neighbor_shifts(kernel), device=device, dtype=torch.float32)
+
+    def library():   # the sampling grid from the offsets, then the sampler
+        smp = F.grid_sample((pred * conf)[:, None], sampling_grid(off, sh),
+                            mode="bilinear", padding_mode="zeros", align_corners=True)
+        acc = (smp.view(b, k2, h, w) * aff).sum(1)
+        return blend_and_clip(acc, dep, preserve=True, clip=False)
+
+    return args, kw, library
 
 
 def deform_prop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
@@ -330,12 +415,7 @@ def deform_prop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
     kw = dict(kernel=kernel, radius=radius, preserve=True, clip=False)
 
     sh = torch.tensor(neighbor_shifts(kernel), device=device, dtype=torch.float32)
-    sy = (torch.arange(h, device=device, dtype=torch.float32).view(1, 1, h, 1)
-          + sh[:, 0].view(1, k2, 1, 1) + off[:, 0::2])
-    sx = (torch.arange(w, device=device, dtype=torch.float32).view(1, 1, 1, w)
-          + sh[:, 1].view(1, k2, 1, 1) + off[:, 1::2])
-    grid = torch.stack([sx * (2.0 / (w - 1)) - 1.0, sy * (2.0 / (h - 1)) - 1.0],
-                       -1).view(b, k2 * h, w, 2)
+    grid = sampling_grid(off, sh)
     feat4 = (pred * conf)[:, None]
     smp = F.grid_sample(feat4, grid, mode="bilinear", padding_mode="zeros",
                         align_corners=True).view(b, k2, h, w)

@@ -9,6 +9,10 @@ prediction back to its request's size.
 Usage:
     p = Predictor(cfg, state_dict=torch.load(path))   # on the CUDA card
     depth = p.predict(rgb, sparse_depth)   # (H, W, 3) uint8/float, (H, W)
+
+It needs weights, as the JAX package's does. A tool that wants random ones
+asks for them: ``model = randomize_(get_model(cfg, dev), gen)``, then
+``Predictor(cfg, state_dict=model.state_dict(), device=dev)``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,9 @@ class Predictor:
 
     ``predict_batch`` runs the model in cuDNN's benchmark mode without
     changing the process-wide ``torch.backends.cudnn.benchmark``; a caller
-    that runs ``self.model`` directly sets that flag itself."""
+    that runs ``self.model`` directly sets that flag itself. Without a
+    ``state_dict`` it raises ``ValueError`` (after building the model, so
+    that a missing card is reported first, as the JAX package orders it)."""
 
     def __init__(self, cfg: Config,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
@@ -45,8 +51,9 @@ class Predictor:
         self.bucket = bucket
         self.model = get_model(cfg, device)
         self.device = self.model.aff_scale_const.device
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
+        if state_dict is None:
+            raise ValueError("need `state_dict`")
+        self.model.load_state_dict(state_dict)
 
     def _prepare(self, rgb: np.ndarray, dep: np.ndarray):
         """Normalize + pad one (H, W, 3)/(H, W[, 1]) pair to its bucket."""

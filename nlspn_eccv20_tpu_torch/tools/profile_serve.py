@@ -31,6 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nlspn_eccv20_tpu_torch.config import Config
+from nlspn_eccv20_tpu_torch.models import get_model
 from nlspn_eccv20_tpu_torch.serve import Predictor
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
@@ -73,8 +74,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = not args.cudnn_heuristics
     cfg = config_of(args)
-    predictor = Predictor(cfg)                  # the CUDA card or raise
-    randomize_(predictor.model, torch.Generator().manual_seed(1))
+    model = randomize_(get_model(cfg), torch.Generator().manual_seed(1))
+    predictor = Predictor(cfg, state_dict=model.state_dict())  # the card or raise
+    del model
     rng = np.random.default_rng(2)
     tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
     if args.offset or args.loop:
