@@ -12,20 +12,27 @@ Phases (any failure exits non-zero and prints no result):
      serving path's shapes for B=1 and B=4 (NYU 228x304 requests, bucketed
      to 256x320); with each kernel's time, its plain version's time, one
      PyTorch library call's time where one computes the same function, and
-     the least time the card could take (its bound). K1 (prop_step) also
-     timed at the train step's B=12 of 228x304, its library call replicate
-     pad, F.unfold, the weighted sum and the blend. K7 (deform_prop) also
+     the least time the card could take (its bound). K1 (prop_step), equal
+     bits to its plain version at every shape, also at B=1 with 5x5
+     neighbours, at the train step's B=12 of 228x304, at B=12 on a 230x306
+     plane (its scalar form) and at B=1 of KITTI's 240x1216, each timed
+     beside its library call: replicate pad, F.unfold, the weighted sum and
+     the blend. K7 (deform_prop) also
      at the train step's B=12 of 228x304 with offsets clamped to the
      window, on a 230x306 plane, with offsets far past its staged region
      (unclamped, N(0, 12^2)), and 5x5, every shape run twice for equal
      bits; at serving shapes its offsets reach past the window (eval has
      none); its library call is F.grid_sample over all K2 sampling grids
      stacked, then the affinity-weighted sum. K6 (prop_loop,
-     the whole constant-affinity loop) at B=1 and B=4 of 256x320 and B=12
-     of 228x304, also 5x5, 18 steps and 100 steps (a halo past shared
-     memory, split into launches) at B=1, with 12 launches of K1 on
-     the same inputs as its comparison (no single PyTorch call computes the
-     loop); K6 and K7 also timed at B=1 of KITTI's 240x1216; K3
+     the whole constant-affinity loop, on prop_loop_case's inputs, its
+     launches held against its plan) at B=1 and B=4 of 256x320 and B=12
+     of 228x304, also 5x5, 18 steps and 100 steps (regions past its
+     threads' registers, split into launches) at B=1, with 12 (18)
+     launches of K1 on the same inputs as its comparison (no single
+     PyTorch call computes the loop); its training form (save=True) at
+     B=12 and with 18 steps at B=1, every saved step input equal bits to
+     the plain loop's, timed at both beside its bound; K6 and K7 also
+     timed at B=1 of KITTI's 240x1216; K3
      (dep_encode_front) also timed at the train step's B=12 of 228x304 and
      at B=1 of KITTI's 240x1216, and checked on a 230x306 plane and with
      C1 = 96 (not a multiple of its 64-channel groups); K2
@@ -220,7 +227,7 @@ def main() -> int:
         dep_encode_front_bwd_plain, dep_encode_front_case, dep_encode_front_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
-        prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_plain)
+        prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_case, prop_loop_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
         prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_bwd_plain, prop_step_case,
         prop_step_plain)
@@ -288,10 +295,6 @@ def main() -> int:
     def rand(*shape, lo=0.0, hi=1.0):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(dev)
 
-    def sparse_depth(b, h, w, frac):
-        keep = torch.rand((b, h, w), generator=gen) < frac
-        return (keep * (0.5 + 9.5 * torch.rand((b, h, w), generator=gen))).to(dev)
-
     def time_ms(fn, reps=20):
         """Device time of one call: CUDA-graph replay of `reps` back-to-back
         calls between two CUDA events (no host launch cost), median of 5,
@@ -325,15 +328,6 @@ def main() -> int:
         # fractions and weights, 2 for the affinity; the blend
         return b * h * w * (26 * k2 + 5)
 
-    def loop_inputs(b, h, w, kernel):
-        """pred, TGASS-normalised affinities, conf and NYU-density sparse
-        depth for the constant-affinity loop."""
-        k2 = kernel * kernel
-        aff = normalize_affinity(randn(b, k2 - 1, h, w),
-                                        torch.full((1,), 0.5 * (k2 - 1), device=dev))
-        return (rand(b, h, w, hi=10.0), aff.contiguous(), rand(b, h, w),
-                sparse_depth(b, h, w, 500 / (REQ_H * REQ_W)))
-
     # ---- 3. each forward kernel against its plain version ----
     rows = {}
 
@@ -355,44 +349,64 @@ def main() -> int:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                      bound_ms=bnd[0], bound_by=bnd[1])
 
-    def check_loop(b, h, w, kernel=3, steps=12, timed=True, row=True):
-        """K6 against its plain version as the model calls it (conf,
-        preserve, no clip, no pre-blend); if ``timed``, its time, its bound
-        and those of ``steps`` launches of K1 on the same inputs (the
-        per-step route), kept in the kernel line's row if ``row``."""
-        pred, aff, conf, dep = loop_inputs(b, h, w, kernel)
-        kw = dict(steps=steps, kernel=kernel, preserve=True, clip=False,
-                  pre_blend=False)
+    def check_loop(b, h, w, kernel=3, steps=12, timed=True, row=True, save=False):
+        """K6 against its plain version on prop_loop_case's inputs (the
+        model's options: conf, preserve, no clip, no pre-blend), its
+        launches against its plan; with ``save`` also its training form,
+        every one of the ``steps`` step inputs it saves held against the
+        plain loop's, equal bits; if ``timed``, its times and bounds (the
+        training form's too) and those of ``steps`` launches of K1 on the
+        same inputs (the per-step route), kept in the kernel line's row if
+        ``row``."""
+        args, kw, per_step = prop_loop_case(gen, dev, b, h, w, kernel, steps)
+        opts = {k: v for k, v in kw.items() if k != "save"}
+        pred, aff, conf, dep = args
         n0 = prop_loop.launches
-        out = prop_loop(pred, aff, conf, dep, **kw)
+        out = prop_loop(*args, **opts)
         n = prop_loop.launches - n0
-        ref = prop_loop_plain(pred, aff, conf, dep, **kw)
+        ref = prop_loop_plain(*args, **opts)
         torch.cuda.synchronize()
         err, rel = rel_err(out, ref)
         tag = f"prop_loop {kernel}x{kernel} {steps} steps B={b} {h}x{w}"
+        tile, chunks = loop_plan(steps, kernel, (b, h, w), sms)
+        if n != len(chunks):
+            raise AssertionError(f"{tag}: {n} launches, the plan has {len(chunks)}")
         if not rel <= 1e-5:
             raise AssertionError(f"{tag}: relative error {rel:.3e} > 1e-5")
-        log(f"[kernel] {tag}: {n} launch(es), rel {rel:.3e}, equal bits "
-            f"{torch.equal(out, ref)}")
+        log(f"[kernel] {tag}: {n} launch(es) of {tile}x{tile} tiles, rel {rel:.3e}, "
+            f"equal bits {torch.equal(out, ref)}")
+        # per step and pixel: 2 a tap, the blend's 4, conf's 1
+        flops = b * h * w * steps * (2 * kernel * kernel + 5)
+        if save:
+            out_s, saved = launch_loop(*args, save=True, **opts)
+            cur, other = pred, []
+            for s in range(steps):
+                if not torch.equal(saved[s], cur):
+                    other.append(s)
+                cur = prop_step_plain(cur, aff, conf, dep, kernel=kernel, preserve=True,
+                                      clip=False)
+            if other or not torch.equal(out_s, out):
+                raise AssertionError(f"{tag}: the training form's saved step inputs "
+                                     f"{other} (or its output) differ from the plain "
+                                     f"loop's")
+            log(f"[kernel] {tag}: training form: all {steps} saved step inputs equal "
+                f"bits to the plain loop's")
+            if timed:
+                # reads pred, conf, dep, the K2 planes; writes out and the steps
+                # saved planes
+                bnd_s = bound(nbytes(*args, out, saved), flops)
+                log(f"[kernel] {tag}: training form (save=True) kernel "
+                    f"{time_ms(lambda: launch_loop(*args, save=True, **opts)):.4f} ms, "
+                    f"bound {bnd_s[0]:.4f} ms ({bnd_s[1]})")
         if not timed:
             return
-        ks = dict(kernel=kernel, preserve=True, clip=False)
-
-        def per_step():
-            p = pred
-            for _ in range(steps):
-                p = prop_step(p, aff, conf, dep, **ks)
-            return p
-
         log(f"[kernel] {tag}: {steps} x K1 prop_step on the same inputs "
             f"{time_ms(per_step):.4f} ms")
-        ms = time_ms(lambda: prop_loop(pred, aff, conf, dep, **kw))
-        bnd = bound(nbytes(pred, aff, conf, dep, out),
-                    b * h * w * steps * (2 * kernel * kernel + 5))
+        ms = time_ms(lambda: prop_loop(*args, **opts))
+        bnd = bound(nbytes(*args, out), flops)
         if row:
             record("prop_loop", b, err, rel, 1e-5, ms,
-                   time_ms(lambda: prop_loop_plain(pred, aff, conf, dep, **kw)),
-                   None, bnd)
+                   time_ms(lambda: prop_loop_plain(*args, **opts)), None, bnd)
         else:
             log(f"[kernel] {tag}: kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms "
                 f"({bnd[1]})")
@@ -402,15 +416,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
 
-    def check_k1(b, h, w, err, rel, out, args, kw, library):
-        """K1's times on prop_step_case's inputs: the kernel line keeps the
-        serving shape's; its yardstick is replicate pad, F.unfold, the
-        weighted sum and the blend."""
-        k2 = kw["kernel"] ** 2
+    def check_k1(b, h, w, kernel=3):
+        """K1 against its plain version on prop_step_case's inputs, equal
+        bits, and its times beside its yardstick (replicate pad, F.unfold,
+        the weighted sum and the blend); the kernel line keeps the serving
+        shape's."""
+        args, kw, library = prop_step_case(gen, dev, b, h, w, kernel)
+        out = prop_step(*args, **kw)
+        ref = prop_step_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, rel = rel_err(out, ref)
+        shape = "" if (h, w, kernel) == (H, W, 3) else f" {h}x{w} {kernel}x{kernel}"
+        if not torch.equal(out, ref):
+            raise AssertionError(f"prop_step B={b}{shape}: not the plain version's bits "
+                                 f"(rel {rel:.3e})")
+        log(f"[kernel] prop_step B={b}{shape}: equal bits to the plain version")
+        k2 = kernel ** 2
         record("prop_step", b, err, rel, 1e-5, time_ms(lambda: prop_step(*args, **kw)),
                time_ms(lambda: prop_step_plain(*args, **kw)), time_ms(library),
-               bound(nbytes(*args, out), b * h * w * (2 * k2 + 5)),
-               shape="" if (h, w) == (H, W) else f" {h}x{w}")
+               bound(nbytes(*args, out), b * h * w * (2 * k2 + 5)), shape=shape)
 
     def check_k7(b, h, w, kernel=3, radius=None, off_std=1.5):
         """K7 against its plain version on deform_prop_case's inputs (offsets
@@ -506,27 +530,18 @@ def main() -> int:
                shape="" if (h, w, c) == (H, W, 256) else f" {h}x{w} C1={c}")
 
     for b in (1, 4):
-        # K1: the fork default's step (3x3, conf, preserve, no clip)
-        for kernel in (3, 5) if b == 1 else (3,):
-            (pred, aff, conf, dep), kw, library = prop_step_case(gen, dev, b, H, W, kernel)
-            out = prop_step(pred, aff, conf, dep, **kw)
-            ref = prop_step_plain(pred, aff, conf, dep, **kw)
-            torch.cuda.synchronize()
-            err, rel = rel_err(out, ref)
-            if kernel == 3:
-                check_k1(b, H, W, err, rel, out, (pred, aff, conf, dep), kw, library)
-            elif not rel <= 1e-5:
-                raise AssertionError(f"prop_step 5x5: relative error {rel:.3e}")
-            else:
-                log(f"[kernel] prop_step 5x5 B={b}: rel {rel:.3e}")
+        # K1: the fork default's step (3x3, conf, preserve, no clip); 5x5
+        check_k1(b, H, W)
+        if b == 1:
+            check_k1(b, H, W, kernel=5)
 
-        # K6: the constant-affinity loop as the model calls it; also 5x5,
-        # 18 steps, and 100 steps (a halo past shared memory: launches of
-        # fewer steps)
+        # K6: the constant-affinity loop as the model calls it; also 5x5
+        # (launches of 2 steps), 18 steps (two launches, with the training
+        # form's saved step inputs) and 100 (launches of 11 or 12)
         check_loop(b, H, W)
         if b == 1:
-            check_loop(b, H, W, kernel=5, timed=False)
-            check_loop(b, H, W, steps=18, timed=False)
+            check_loop(b, H, W, kernel=5, row=False)
+            check_loop(b, H, W, steps=18, save=True, row=False)
             check_loop(b, H, W, steps=100, timed=False)
 
         # K2: decode_aff tail, base grid 64x80, 256 -> 16 -> K
@@ -553,10 +568,11 @@ def main() -> int:
     # read device memory); K1 at the train step's shape (12 launches a step)
     check_k7(TRAIN_B, 230, 306, radius=RADIUS)
     check_k7(TRAIN_B, REQ_H, REQ_W, off_std=12.0)
-    args, kw, library = prop_step_case(gen, dev, TRAIN_B, REQ_H, REQ_W)
-    out = prop_step(*args, **kw)
-    check_k1(TRAIN_B, REQ_H, REQ_W, *rel_err(out, prop_step_plain(*args, **kw)), out,
-             args, kw, library)
+    check_k1(TRAIN_B, REQ_H, REQ_W)
+    # K1 on a plane whose width is no multiple of 4 (its scalar form) and
+    # at KITTI's width
+    check_k1(TRAIN_B, 230, 306)
+    check_k1(1, KITTI_H, KITTI_W)
 
     # K2 at the train step's base grid (232 rows of the 228-row patch: y1
     # is held against its plain version there), at KITTI's, on an odd and
@@ -578,8 +594,9 @@ def main() -> int:
     check_k3(1, KITTI_H, KITTI_W)
     check_k3(1, REQ_H, REQ_W, c=96)
 
-    # K6 at the train step's shape; K6 and K7 at KITTI's width, B=1
-    check_loop(TRAIN_B, REQ_H, REQ_W)
+    # K6 at the train step's shape, with its training form's saved step
+    # inputs; K6 and K7 at KITTI's width, B=1
+    check_loop(TRAIN_B, REQ_H, REQ_W, save=True)
     check_loop(1, KITTI_H, KITTI_W, row=False)
     check_k7(1, KITTI_H, KITTI_W)
 

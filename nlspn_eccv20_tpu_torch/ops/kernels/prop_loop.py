@@ -20,7 +20,6 @@ a CPU tensor. The clip passes half the gradient at an exact tie, as
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -28,7 +27,7 @@ import torch
 from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
-    blend_and_clip, prop_step_bwd, prop_step_plain)
+    blend_and_clip, prop_step, prop_step_bwd, prop_step_plain, step_inputs)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"prop_loop_f32": [_P] * 6 + [_I] * 9 + [_P]}
@@ -36,42 +35,94 @@ _BWD_SIGNATURES = {"prop_loop_bwd_f32": [_P] * 9 + [_I] * 10 + [_P]}
 
 TILE = 32                 # output tile side of a block
 SMEM_BYTES = 232448       # shared memory a block may opt in to on Hopper
+# the most threads a K6 block takes, by radius: its 65536 registers over
+# them (``csrc/prop_loop.cu`` max_threads); any other radius reads its
+# affinities from L2 at each step and takes 1024
+LOOP_THREADS = {1: 768, 2: 384}
+OTHER_THREADS = 1024
+REGISTERS = 65536         # an SM's
+
+
+def loop_max_threads(kernel: int) -> int:
+    return LOOP_THREADS.get(kernel // 2, OTHER_THREADS)
+
+
+def strip_registers(kernel: int) -> int:
+    """The registers a K6 thread's constants take: its strip's 4 cells'
+    K2 affinities (at radius 1 and 2), conf and m * dep."""
+    k2 = kernel * kernel if kernel // 2 in LOOP_THREADS else 0
+    return 4 * (k2 + 2)
+
+
+def _round4(v: int) -> int:
+    return (v + 3) // 4 * 4
+
+
+def loop_threads(tile: int, steps: int, kernel: int) -> int:
+    """The threads of a K6 block running ``steps`` steps on tiles of side
+    ``tile``: a strip of 4 cells each over its first step's region, the
+    tile grown by e = (steps - 1) r rows and round4(e) columns a side, in
+    whole warps."""
+    e = (steps - 1) * (kernel // 2)
+    strips = (tile + 2 * e) * ((tile + 2 * _round4(e)) // 4)
+    return -(-strips // 32) * 32
+
+
+def loop_smem_bytes(tile: int, steps: int, kernel: int) -> int:
+    """K6's two p buffers: the tile grown by steps r rows and by
+    round4((steps - 1) r) + round4(r) columns a side."""
+    r = kernel // 2
+    bw = tile + 2 * (_round4((steps - 1) * r) + _round4(r))
+    return 4 * 2 * (tile + 2 * steps * r) * bw
+
+
+def loop_strips(tile: int, steps: int, kernel: int):
+    """K6's strips of one block, as its threads hold them: a list of
+    (thread, y, x, last), the strip's cells (y, x .. x + 3) relative to the
+    tile's origin, ``last`` the last step that computes them (the strip's
+    nearest cell within (steps - s) r of the tile)."""
+    r = kernel // 2
+    e = (steps - 1) * r
+    ex = _round4(e)
+    cols = (tile + 2 * ex) // 4
+    strips = []
+    for t in range((tile + 2 * e) * cols):
+        y, x = -e + t // cols, -ex + 4 * (t % cols)
+        d = max(-y, y - tile + 1, -(x + 3), x - tile + 1, 0)
+        strips.append((t, y, x, steps - (d + r - 1) // r if d else steps))
+    return strips
 
 
 def plan(steps: int, kernel: int, shape: Tuple[int, int, int], sms: int,
          backward: bool = False, clip: bool = False) -> Tuple[int, List[Tuple[int, int]]]:
     """The tile side and the (first, last + 1) steps of each launch, for
-    planes of ``shape`` (B, H, W) on a card with ``sms`` SMs. The forward's
-    tiles are 32x32, or 16x16 where a grid of 32x32 ones would leave SMs
-    without a block (b=1 at NYU size); a launch takes as many steps as its
-    two halo buffers fit in a block's shared memory. The backward's launch
-    holds the loop's constants, three step inputs and two G buffers over
-    the tile grown by steps r, one r more with the clip (``_bwd_floats``);
-    its tiles are 32x32, halved while that leaves fewer than min(steps, 4)
-    steps a launch (at b=1 of 228x304 its 80 blocks of 32x32 beat 285 of
-    16x16: the halo is the larger cost)."""
-    b, h, w = shape
-    r = kernel // 2
-
-    def most(t):  # the backward's steps a launch with tiles of side t
+    planes of ``shape`` (B, H, W) on a card with ``sms`` SMs (neither
+    changes the plan at present: it follows the kernel and steps). The forward's
+    launch holds its first step's region in its threads' registers, a
+    strip of 4 cells a thread of at most ``loop_max_threads``, and its two
+    p buffers in shared memory; its tiles are 32x32, halved while that
+    leaves fewer than min(steps, 2) steps a launch (3x3: 32x32 tiles, 12
+    steps a launch, the model's loop one launch at every batch; 5x5: 32x32,
+    2). The backward's launch holds the loop's constants, three step inputs
+    and two G buffers over the tile grown by steps r, one r more with the
+    clip (``_bwd_floats``); its tiles are 32x32, halved while that leaves
+    fewer than min(steps, 4) steps a launch (at b=1 of 228x304 its 80
+    blocks of 32x32 beat 285 of 16x16: the halo is the larger cost)."""
+    def most(t):  # the steps a launch takes with tiles of side t
         n = 0
-        while n < steps and 4 * _bwd_floats(t, n + 1, kernel, clip) <= SMEM_BYTES:
+        while n < steps and (
+                4 * _bwd_floats(t, n + 1, kernel, clip) <= SMEM_BYTES if backward else
+                loop_threads(t, n + 1, kernel) <= loop_max_threads(kernel)
+                and loop_smem_bytes(t, n + 1, kernel) <= SMEM_BYTES):
             n += 1
         return n
 
-    if backward:
-        tile = TILE
-        while tile > 8 and most(tile) < min(steps, 4):
-            tile //= 2
-        per_launch = most(tile)
-    else:
-        tile = TILE if b * -(-h // TILE) * -(-w // TILE) >= sms else TILE // 2
-        per_launch = steps
-        if r:
-            side = math.isqrt(SMEM_BYTES // 8)
-            per_launch = min(steps, (side - tile) // (2 * r))
+    tile = TILE
+    while tile > 8 and most(tile) < min(steps, 4 if backward else 2):
+        tile //= 2
+    per_launch = most(tile)
     if per_launch < 1:
-        raise ValueError(f"a {kernel}x{kernel} loop does not fit in shared memory")
+        raise ValueError(f"a {kernel}x{kernel} loop does not fit in a block")
     n = -(-steps // per_launch)
     bounds = [steps * i // n for i in range(n + 1)]
     return tile, list(zip(bounds[:-1], bounds[1:]))
@@ -264,6 +315,30 @@ def prop_loop(pred: torch.Tensor, aff: torch.Tensor,
 
 prop_loop.launches = 0
 prop_loop_bwd.launches = 0
+
+
+def prop_loop_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                   kernel: int = 3, steps: int = 12, save: bool = False):
+    """Inputs on which K6 is checked and timed on the card, from ``gen``:
+    ``prop_step.step_inputs``' pred in [0, 10), TGASS-normalised
+    affinities, conf in [0, 1) and sparse depth at NYU's density, with the
+    model's options (conf, preserve, no clip, no pre-blend). Returns (args,
+    kw, library): ``launch_fwd(*args, **kw)`` is the kernel's call (with
+    ``save`` the training form, which also writes the step inputs) and
+    ``prop_loop_plain(*args, **kw)`` without ``save`` its plain version;
+    the library call is ``steps`` launches of K1 on the same inputs, the
+    per-step route (no single PyTorch call computes the loop)."""
+    pred, aff, conf, dep = (t.to(device) for t in step_inputs(gen, b, h, w, kernel, False))
+    kw = dict(steps=steps, kernel=kernel, preserve=True, clip=False, pre_blend=False,
+              save=save)
+
+    def library():
+        p = pred
+        for _ in range(steps):
+            p = prop_step(p, aff, conf, dep, kernel=kernel, preserve=True, clip=False)
+        return p
+
+    return (pred, aff, conf, dep), kw, library
 
 
 def prop_loop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,

@@ -4,7 +4,8 @@ and its backward K1b.
 K1 replaces the TPU kernel ``local_prop._step_kernel``
 (``nlspn_eccv20_tpu/ops/pallas/local_prop.py``) and the elementwise work
 around it. CUDA source: ``csrc/prop_step.cu``, whose header says what bounds
-it on the card (memory: (K2 + 4) planes per step) and how it is laid out.
+it on the card (memory: (K2 + 4) planes per step) and how it is laid out;
+``step_rows``, ``step_blocks`` and ``step_vector`` mirror its tiling.
 K1b replaces the JAX package's custom VJP of that step (``_stencil_bwd``, a
 pure-JAX VJP there); CUDA source ``csrc/prop_step_bwd.cu``.
 
@@ -29,6 +30,44 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"prop_step_f32": [_P] * 5 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"prop_step_bwd_f32": [_P] * 9 + [_I] * 6 + [_P]}
 BWD_TILE = (8, 32)            # K1b's tile, rows x cols: a thread a pixel
+STEP_COLS = 64                 # K1's tile columns: 16 threads of 4 pixels
+STEP_ROWS = (8, 16)            # K1's tile rows, by the grid's size
+
+
+def step_rows(b: int, h: int, w: int, sms: int) -> int:
+    """K1's tile rows on a card with ``sms`` SMs, as ``csrc/prop_step.cu``
+    picks them: 16 where a grid of 16-row tiles gives every SM four blocks,
+    else 8 (at b=1 of 256x320: 160 blocks of 64x8)."""
+    big = STEP_ROWS[1]
+    return big if b * -(-h // big) * -(-w // STEP_COLS) >= 4 * sms else STEP_ROWS[0]
+
+
+def step_pad(kernel: int) -> int:
+    """The columns K1 stages on each side of its tile: r rounded up to 4,
+    so that its 16-byte copies stay aligned."""
+    return (kernel // 2 + 3) // 4 * 4
+
+
+def step_vector(w: int) -> bool:
+    """Whether K1 takes its float4 form on planes of width ``w`` (for
+    16-byte aligned tensors, as ``torch.empty`` makes them): 4 adjacent
+    pixels a thread, their loads and store 16 bytes each. Otherwise the
+    scalar form: 4 pixels 16 columns apart."""
+    return w % 4 == 0
+
+
+def step_blocks(h: int, w: int, kernel: int, rows: int) -> Iterator[Tuple[int, int, bool]]:
+    """(y0, x0, interior) of each block of K1 on an h x w plane with tiles
+    of ``rows`` x ``STEP_COLS``, as ``csrc/prop_step.cu`` tiles and
+    classifies them. A block stages pred and conf over its tile grown by r
+    rows and ``step_pad`` columns on each side; it is interior when that
+    region lies inside the plane (every copy unclamped, 16 bytes in the
+    float4 form); a border block clamps each staged row and column."""
+    r, pad = kernel // 2, step_pad(kernel)
+    for y0 in range(0, h, rows):
+        for x0 in range(0, w, STEP_COLS):
+            yield y0, x0, (y0 - r >= 0 and y0 + rows + r <= h
+                           and x0 - pad >= 0 and x0 + STEP_COLS + pad <= w)
 
 
 def bwd_blocks(h: int, w: int, kernel: int) -> Iterator[Tuple[int, int, bool]]:

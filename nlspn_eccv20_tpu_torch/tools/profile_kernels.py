@@ -4,8 +4,8 @@ backwards K4 ``decode_aff_tail_bwd`` and K5 ``dep_encode_front_bwd``, the
 offset step's backward K8 ``deform_prop_bwd`` (its two passes), the
 encode_dep front K3 ``dep_encode_front``, the constant-affinity loop's
 backward K6b ``prop_loop_bwd``, the local step's backward K1b
-``prop_step_bwd``, the offset step K7 ``deform_prop``, and the local step
-K1 ``prop_step`` (the other candidate for the next redesign).
+``prop_step_bwd``, the offset step K7 ``deform_prop``, the local step K1
+``prop_step`` and the constant-affinity loop K6 ``prop_loop``.
 
 For each case (the train step's shapes at b=12 and b=1 and the serving
 shapes at b=1 and b=4, then the shapes that ``chip_smoke.py`` also checks:
@@ -18,12 +18,17 @@ plane, K1b with the clip on (its ties), on a 230x306 plane, at KITTI's
 240x1216 and with 5x5 neighbours, K7 at the serving shapes with eval
 offsets past the window, at b=12 clamped to R=4 and with offsets far past
 it, at KITTI's 240x1216, with 5x5 neighbours and on a 230x306 plane, K1 at
-b=12 of 228x304, the train step's 12 launches) it times the whole call and
-one PyTorch call sequence of the same function (cuDNN's two convs or their
+b=12 of 228x304, the train step's 12 launches, at the serving shapes, at
+KITTI's 240x1216, with 5x5 neighbours and on a 230x306 plane, and K6
+``prop_loop``, the constant-affinity loop, at the serving shapes, at b=12
+of 228x304, at KITTI's 240x1216, with 5x5 neighbours, with 18 steps, and
+in its training form at b=12, which also writes the 12 step inputs) it
+times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
 that form's autograd backward written out; for K6b, which no PyTorch call
-computes, 12 launches of K1b, the per-step route) as CUDA-graph replays
+computes, 12 launches of K1b, the per-step route; for K6 likewise 12
+launches of K1) as CUDA-graph replays
 (``devtools.measure``), and splits the call's device time into its CUDA
 kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
 inputs are the ones ``chip_smoke.py`` checks the kernels on (the
@@ -31,13 +36,15 @@ inputs are the ones ``chip_smoke.py`` checks the kernels on (the
 checks themselves are ``chip_smoke.py``'s. TF32 off, cuDNN in benchmark
 mode. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_kernels
+    python -m nlspn_eccv20_tpu_torch.tools.profile_kernels [K1 K6 ...]
 
-One JSON object per case is printed, each on its own line.
+(the names given restrict it to those kernels' cases). One JSON object per
+case is printed, each on its own line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 from collections import defaultdict
@@ -55,7 +62,8 @@ from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
     dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
     dep_encode_front_case)
-from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import prop_loop_bwd, prop_loop_bwd_case
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
+    launch_fwd as prop_loop_fwd, prop_loop_bwd, prop_loop_bwd_case, prop_loop_case)
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
     prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_case)
 
@@ -87,7 +95,12 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K7", 12, 228, 304, {"radius": 4}), ("K7", 1, 240, 1216, {}),
          ("K7", 1, 256, 320, {"kernel": 5}), ("K7", 12, 230, 306, {"radius": 4}),
          ("K7", 12, 228, 304, {"off_std": 12.0}),
-         ("K1", 12, 228, 304, {}), ("K1", 1, 256, 320, {})]
+         ("K1", 12, 228, 304, {}), ("K1", 1, 256, 320, {}), ("K1", 4, 256, 320, {}),
+         ("K1", 1, 240, 1216, {}), ("K1", 1, 256, 320, {"kernel": 5}),
+         ("K1", 12, 230, 306, {}),
+         ("K6", 1, 256, 320, {}), ("K6", 4, 256, 320, {}), ("K6", 12, 228, 304, {}),
+         ("K6", 1, 240, 1216, {}), ("K6", 1, 256, 320, {"kernel": 5}),
+         ("K6", 1, 256, 320, {"steps": 18}), ("K6", 12, 228, 304, {"save": True})]
 
 
 def passes_us(fn):
@@ -119,6 +132,9 @@ def run_case(gen, dev, kname, b, h, w, opts):
                                              opts.get("c", 256))
         fwd = decode_aff_tail_fwd_y1 if opts.get("y1") else decode_aff_tail
         kernel = lambda: fwd(*args)
+    elif kname == "K6":
+        args, kw, library = prop_loop_case(gen, dev, b, h, w, **opts)
+        kernel = lambda: prop_loop_fwd(*args, **kw)
     elif kname == "K6b":
         args, kw, library = prop_loop_bwd_case(gen, dev, b, h, w, **opts)
         kernel = lambda: prop_loop_bwd(*args, **kw)
@@ -140,7 +156,11 @@ def run_case(gen, dev, kname, b, h, w, opts):
             "passes_us": passes_us(kernel)}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("kernels", nargs="*",
+                        help="run only these kernels' cases (e.g. K1 K6); all by default")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_kernels needs the CUDA card")
     torch.backends.cudnn.allow_tf32 = False
@@ -162,6 +182,8 @@ def main() -> int:
           flush=True)
     gen = torch.Generator().manual_seed(0)
     for case in CASES:
+        if args.kernels and case[0] not in args.kernels:
+            continue
         print(json.dumps(run_case(gen, dev, *case)), flush=True)
     return 0
 

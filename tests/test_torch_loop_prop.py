@@ -144,13 +144,13 @@ def test_loop_is_steps_of_the_step():
 
 
 @pytest.mark.parametrize("steps,kernel,shape,backward,tile,launches", [
-    (12, 3, (12, 228, 304), False, 32, 1),    # the train step's loop
+    (12, 3, (12, 228, 304), False, 32, 1),    # the train step's loop: one launch
     (12, 3, (12, 228, 304), True, 32, 1),
-    (12, 3, (1, 256, 320), False, 16, 1),     # 80 tiles of 32 < 132 SMs
+    (12, 3, (1, 256, 320), False, 32, 1),     # 54 rows of 14 strips: 768 threads
     (12, 3, (1, 240, 1216), True, 32, 1),
     (12, 5, (4, 256, 320), True, 16, 2),      # 5x5's staged affinities: smaller tiles, split
-    (18, 5, (4, 256, 320), False, 32, 1),
-    (200, 3, (4, 256, 320), False, 32, 3),    # halos past shared memory: split
+    (18, 5, (4, 256, 320), False, 32, 9),     # 25 affinities a cell: 2 steps a launch
+    (200, 3, (4, 256, 320), False, 32, 17),   # regions past the threads' registers: split
     (12, 13, (4, 256, 320), True, 8, 2),      # 169 sums a pixel: a smaller tile
 ])
 def test_plan_fits_shared_memory(steps, kernel, shape, backward, tile, launches):

@@ -1,12 +1,17 @@
-"""The launch plans of the local step's backward (K1b) and of the offset
-step (K7), the input cases on which the card checks and times them, their
-PyTorch yardsticks, and the Predictor's weights.
+"""The launch plans of the local step (K1), its backward (K1b) and the
+offset step (K7), the input cases on which the card checks and times
+them, their PyTorch yardsticks, and the Predictor's weights.
 
 The plans are plain Python that the CUDA wrappers follow, so they are held
 here at NYU's 228x304 (and a 230x306 plane whose sides are no multiple of
 the tiles), the serving bucket 256x320, KITTI's 240x1216 and a 5x3 plane
-smaller than one tile: K1b's tiles cover every pixel once, everything a
-block reads lies in its staged region, and a block is interior (no clamp,
+smaller than one tile: K1's tiles cover every pixel once, a block is
+interior exactly when its staged region (the tile grown by r rows and r
+rounded up to 4 columns) lies inside the plane, that region holds every
+clamped tap of its pixels, the float4 form is taken exactly on planes whose
+width is a multiple of 4, and a b=1 serving plane gives every SM a block;
+K1b's tiles cover every pixel once, everything a block reads lies in its
+staged region, and a block is interior (no clamp,
 no edge test) exactly when every tap and every source of its pixels lies
 inside the plane; K7's tiles cover every pixel once, a
 block is interior exactly when its staged region lies inside the plane,
@@ -25,8 +30,9 @@ from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
     FWD_PIXELS, FWD_THREAD_ROWS, STAGE_RADIUS, deform_prop, deform_prop_case,
     deform_prop_fwd_plain, fwd_blocks, fwd_plan)
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
-    BWD_TILE, bwd_blocks, prop_step, prop_step_bwd,
-    prop_step_bwd_case, prop_step_bwd_plain, prop_step_case, prop_step_plain)
+    BWD_TILE, STEP_COLS, STEP_ROWS, bwd_blocks, prop_step, prop_step_bwd,
+    prop_step_bwd_case, prop_step_bwd_plain, prop_step_case, prop_step_plain, step_blocks,
+    step_pad, step_rows, step_vector)
 from nlspn_eccv20_tpu_torch.serve import Predictor
 from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
@@ -80,6 +86,73 @@ def test_step_bwd_blocks_cover_once_stage_and_classify(h, w, kernel):
 ])
 def test_step_bwd_interior_blocks(h, w, interior):
     assert sum(i for *_, i in bwd_blocks(h, w, 3)) == interior
+
+
+STEP_SHAPES = SHAPES + [(57, 75)]
+
+
+@pytest.mark.parametrize("rows", STEP_ROWS)
+@pytest.mark.parametrize("kernel", [3, 5])
+@pytest.mark.parametrize("h,w", STEP_SHAPES)
+def test_step_blocks_cover_once_stage_and_classify(h, w, kernel, rows):
+    r, pad = kernel // 2, step_pad(kernel)
+    assert pad >= r and pad % 4 == 0
+    cover = np.zeros((h, w), np.int64)
+    for y0, x0, interior in step_blocks(h, w, kernel, rows):
+        cover[y0:y0 + rows, x0:x0 + STEP_COLS] += 1
+        sy0, sy1 = y0 - r, y0 + rows - 1 + r            # staged rows
+        sx0, sx1 = x0 - pad, x0 + STEP_COLS - 1 + pad    # staged columns
+        assert interior == (_in(sy0, sy1, h) and _in(sx0, sx1, w))
+        if interior:   # every store of the tile lands in the plane
+            assert y0 + rows <= h and x0 + STEP_COLS <= w
+        # the clamped taps of the block's pixels lie in its staged region
+        # (a staged cell holds the clamped position's value)
+        for lo, n, size, s0, s1 in ((y0, min(rows, h - y0), h, sy0, sy1),
+                                    (x0, min(STEP_COLS, w - x0), w, sx0, sx1)):
+            pix = np.arange(lo, lo + n)
+            taps = pix[:, None] + np.arange(-r, r + 1)
+            assert taps.min() >= s0 and taps.max() <= s1
+            assert np.clip(taps, 0, size - 1).min() >= max(s0, 0)
+        # the float4 form's 4-column chunks of the staged rows start on a
+        # multiple of 4: 16-byte copies where the chunk lies in the plane
+        assert (sx0 % 4, (sx1 + 1) % 4) == (0, 0)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("w,vector", [(304, True), (320, True), (1216, True),
+                                      (306, False), (75, False), (3, False)])
+def test_step_takes_the_float4_form_on_aligned_rows(w, vector):
+    assert step_vector(w) == vector
+    if vector:   # a thread's 4 pixels are all in the row or all past it
+        xs = np.arange(0, -(-w // STEP_COLS) * STEP_COLS, 4)
+        assert ((xs < w) == (xs + 3 < w)).all()
+
+
+@pytest.mark.parametrize("b,h,w,rows,blocks", [
+    (1, 256, 320, 8, 160),      # serving b=1: every one of 132 SMs a block
+    (4, 256, 320, 8, 640),
+    (12, 228, 304, 16, 900),    # the default train step
+    (1, 240, 1216, 8, 570),     # KITTI
+    (12, 230, 306, 16, 900),
+    (1, 5, 3, 8, 1),
+])
+def test_step_rows_keep_every_sm_busy(b, h, w, rows, blocks):
+    assert step_rows(b, h, w, H100_SMS) == rows
+    assert b * len(list(step_blocks(h, w, 3, rows))) == blocks
+    if (h, w) == (256, 320):
+        assert blocks >= H100_SMS
+
+
+@pytest.mark.parametrize("h,w,kernel,rows,interior", [
+    (228, 304, 3, 16, 39),      # the train step: 13 of 15 rows x 3 of 5 columns
+    (256, 320, 3, 8, 90),
+    (240, 1216, 3, 8, 476),
+    (230, 306, 3, 16, 39),
+    (256, 320, 5, 8, 90),
+    (5, 3, 3, 8, 0),
+])
+def test_step_interior_blocks(h, w, kernel, rows, interior):
+    assert sum(i for *_, i in step_blocks(h, w, kernel, rows)) == interior
 
 
 @pytest.mark.parametrize("radius", [0, 1, 4, None])

@@ -1,11 +1,14 @@
-"""The launch plans of the decode_aff tail (K2) and of the constant-affinity
-loop's backward (K6b), and the input cases on which the card checks and
-times them.
+"""The launch plans of the decode_aff tail (K2), of the constant-affinity
+loop (K6) and of its backward (K6b), and the input cases on which the card
+checks and times them.
 
 The plans are plain Python that the CUDA wrappers follow, so they are held
 here: K2's 8x16 tiles and its cluster's channel stages cover every cell of
 the base grid and every channel exactly once, and the wrapper picks each
-cluster size at the shapes ``chip_smoke.py`` checks; K6b's launches fit a
+cluster size at the shapes ``chip_smoke.py`` checks; K6's strips of 4
+cells give every cell of every step's region exactly one owner thread, live
+at that step, whose taps lie in the block's buffer, and its launches fit the
+registers, threads and shared memory they state; K6b's launches fit a
 block's shared memory, keep the model's loop (3x3, 12 steps) to one launch
 and split 5x5 and long loops. K2's plain version, which the card holds the
 kernel against, is held against the JAX package's TPU kernel
@@ -24,7 +27,9 @@ from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     SPLITS, STAGE, TILE, decode_aff_tail_case, decode_aff_tail_fwd_y1,
     decode_aff_tail_plain, tail_plan, tail_stages)
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
-    SMEM_BYTES, _bwd_floats, plan, prop_loop_bwd, prop_loop_bwd_case)
+    REGISTERS, SMEM_BYTES, _bwd_floats, loop_max_threads, loop_smem_bytes, loop_strips,
+    loop_threads, plan, prop_loop_bwd, prop_loop_bwd_case, prop_loop_case, prop_loop_plain,
+    strip_registers)
 from nlspn_eccv20_tpu_torch.utils.weights import _convt_w
 
 H100_SMS = 132
@@ -77,6 +82,81 @@ def test_loop_bwd_plan_fits_the_new_budget(steps, kernel, shape, clip, tile, lau
     assert (got_tile, len(chunks)) == (tile, launches)
     for k0, k1 in chunks:
         assert 4 * _bwd_floats(tile, k1 - k0, kernel, clip) <= SMEM_BYTES
+
+
+# (tile, steps, kernel) of the K6 launches the plan makes at the shapes
+# chip_smoke.py checks (3x3: 12 steps, 9 of 18, 11 and 12 of 100; 5x5: 2),
+# at a kernel of 1 and 7, and on smaller tiles and other lengths
+LOOP_LAUNCHES = [(32, 12, 3), (32, 4, 3), (32, 9, 3), (32, 11, 3), (32, 2, 5),
+                 (32, 1, 3), (8, 4, 3), (16, 6, 5), (32, 12, 1), (32, 6, 7)]
+
+
+@pytest.mark.parametrize("tile,steps,kernel", LOOP_LAUNCHES)
+def test_loop_strips_own_every_cell_of_every_step_once(tile, steps, kernel):
+    r = kernel // 2
+    threads = loop_threads(tile, steps, kernel)
+    strips = loop_strips(tile, steps, kernel)
+    assert threads <= loop_max_threads(kernel) and threads % 32 == 0
+    assert len(strips) <= threads and len({t for t, *_ in strips}) == len(strips)
+    assert all(x % 4 == 0 for _, _, x, _ in strips)   # float4-aligned in the buffer
+    # the buffer: the tile grown by steps r rows, round4((steps-1) r) +
+    # round4(r) columns
+    hy = steps * r
+    hx = -(-((steps - 1) * r) // 4) * 4 + -(-r // 4) * 4
+    for s in range(1, steps + 1):
+        e = (steps - s) * r          # step s's region: the tile grown by e
+        live = [(y, x) for _, y, x, last in strips if last >= s]
+        cells = [(y, x + c) for y, x in live for c in range(4)]
+        want = {(y, x) for y in range(-e, tile + e) for x in range(-e, tile + e)}
+        assert len(set(cells)) == len(cells) and want <= set(cells)
+        # a live strip's taps lie in the buffer
+        assert all(-hy <= y - r and y + r < tile + hy and -hx <= x - r
+                   and x + 3 + r < tile + hx for y, x in live)
+        # its cells past the region are garbage that no region cell of a
+        # later step reads: the strip reaches the region
+        assert all(max(-y, y - tile + 1, -(x + 3), x - tile + 1, 0) <= e for y, x in live)
+
+
+@pytest.mark.parametrize("steps,kernel,shape,tile,launches", [
+    (12, 3, (1, 256, 320), 32, 1),       # serving b=1: 80 blocks of 768 threads
+    (12, 3, (12, 228, 304), 32, 1),      # the loop's train step: one launch
+    (12, 3, (4, 256, 320), 32, 1),
+    (12, 3, (1, 240, 1216), 32, 1),      # KITTI
+    (12, 5, (1, 256, 320), 32, 6),       # 25 affinities a cell: 2 steps a launch
+    (18, 3, (1, 256, 320), 32, 2),
+    (100, 3, (1, 256, 320), 32, 9),
+    (12, 7, (1, 256, 320), 32, 2),       # the affinities read from L2
+    (12, 1, (1, 256, 320), 32, 1),
+])
+def test_loop_plan_fits_registers_threads_and_shared_memory(steps, kernel, shape, tile,
+                                                             launches):
+    got_tile, chunks = plan(steps, kernel, shape, H100_SMS)
+    assert (got_tile, len(chunks)) == (tile, launches)
+    for k0, k1 in chunks:
+        threads = loop_threads(tile, k1 - k0, kernel)
+        assert threads <= loop_max_threads(kernel)
+        assert loop_smem_bytes(tile, k1 - k0, kernel) <= SMEM_BYTES
+        # the strip's constants and 32 registers for the step fit a thread's
+        # share of the SM's registers
+        assert strip_registers(kernel) + 32 <= REGISTERS // loop_max_threads(kernel)
+
+
+@pytest.mark.parametrize("kernel,steps,save", [(3, 12, False), (5, 4, True)])
+def test_prop_loop_case_is_seeded(kernel, steps, save):
+    h, w = 30, 41
+    args, kw, library = prop_loop_case(torch.Generator().manual_seed(7), "cpu", 2, h, w,
+                                       kernel, steps, save)
+    again, kw2, _ = prop_loop_case(torch.Generator().manual_seed(7), "cpu", 2, h, w,
+                                   kernel, steps, save)
+    assert kw == kw2 == dict(steps=steps, kernel=kernel, preserve=True, clip=False,
+                             pre_blend=False, save=save)
+    assert all(torch.equal(u, v) for u, v in zip(args, again))
+    pred, aff, conf, dep = args
+    assert aff.shape == (2, kernel * kernel, h, w)
+    # the yardstick, steps launches of K1 (their plain version on the
+    # CPU), is the plain loop bit for bit
+    opts = {k: v for k, v in kw.items() if k != "save"}
+    assert torch.equal(library(), prop_loop_plain(*args, **opts))
 
 
 @pytest.fixture
