@@ -130,8 +130,12 @@ Phases (any failure exits non-zero and prints no result):
      equal bits to their plain versions at b=12 of (12, 128, 64, 128)
      phases whose padding is random, so a read outside the 58x76 window
      shows; K11a, K11b and K11d also equal bits to the interleave, K11c (a
-     probe, not an interleave) to its own formula only; K11d with a random
-     E against its plain version; the library time of K11a, K11b and K11d
+     probe, not an interleave) to its own formula only; K11b and K11d also
+     at b=1 and at b=12 of unaligned (59, 77) padded planes (their scalar
+     forms), equal bits there too; K11d with a random E against its plain
+     version, its error printed with the number of bf16 passes; K11d's
+     bound that of its design (6 bf16 passes on the tensor cores), its f32
+     FMA bound printed beside it; the library time of K11a, K11b and K11d
      the .contiguous() copy of the permuted window, of K11c one
      advanced-indexing gather; then, with the counters at 0, the two
      microbenchmarks' main()s (deconv0's NCHW and channels-last outputs
@@ -153,8 +157,9 @@ another order; small_conv3x3(_bwd), the heads identity and spaceconv are
 held against their plain versions run in float64, since cuDNN's own f32
 backward of that conv is 1.4e-4 off), the DCN modules (card against CPU)
 <= 1e-4, K11a-c and K11d with the one-hot E equal bits (copies; one
-product not zero in each sum), K11d with a random E <= 1e-5 (sums of 304
-products in another order), deconv0 channels-last against NCHW <= 1e-4,
+product not zero in each sum, whose three exact bf16 pieces K11d sums
+exactly), K11d with a random E <= 1e-5 (sums of 304 products in another
+order, and its split drops products below 2^-21 of each), deconv0 channels-last against NCHW <= 1e-4,
 whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
 <= 5e-3 (PARITY.md's gradient bar).
@@ -175,9 +180,10 @@ import sys
 import time
 
 # Peak rates of the card (NVIDIA data sheets, dense, no sparsity), by part:
-# float32 outside the tensor cores and HBM bandwidth.
-PEAKS = {"SXM": {"f32_tflops": 67.0, "hbm_tbps": 3.35},
-         "PCIe": {"f32_tflops": 51.0, "hbm_tbps": 2.0}}
+# float32 outside the tensor cores, bf16 on the tensor cores (K11d's
+# design) and HBM bandwidth.
+PEAKS = {"SXM": {"f32_tflops": 67.0, "bf16_tflops": 989.0, "hbm_tbps": 3.35},
+         "PCIe": {"f32_tflops": 51.0, "bf16_tflops": 756.0, "hbm_tbps": 2.0}}
 
 H, W = 256, 320            # NYU 228x304 requests in the 32-pixel bucket
 REQ_H, REQ_W = 228, 304
@@ -245,8 +251,8 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.devtools import microbench_asm, microbench_interleave
     from nlspn_eccv20_tpu_torch.devtools.measure import measure
     from nlspn_eccv20_tpu_torch.devtools.microbench_asm import (
-        E_SHAPE, interleave_onehot, interleave_onehot_plain, interleave_strided,
-        interleave_strided_plain, onehot_expansion, tile_repeat_probe,
+        E_SHAPE, ONEHOT_PASSES, interleave_onehot, interleave_onehot_plain,
+        interleave_strided, interleave_strided_plain, onehot_expansion, tile_repeat_probe,
         tile_repeat_probe_plain)
     from nlspn_eccv20_tpu_torch.devtools.microbench_interleave import (
         PADDED, PHASES, interleave_asm, interleave_asm_plain, interleave_window)
@@ -1479,9 +1485,9 @@ def main() -> int:
 
     def micro_kernels():
         """K11a-d against their plain versions at b=12, timed beside the
-        library calls, on phases whose padding is random."""
+        library calls, on phases whose padding is random; K11b and K11d also
+        at b=1 and on unaligned (59, 77) planes (their scalar forms)."""
         ph = randn(TRAIN_B, PHASES, *PADDED)
-        win_bytes = ph[:, :, :58, :76].numel() * 4
         e1, er = onehot_expansion(dev), randn(*E_SHAPE)
         ref = interleave_window(ph)
         # K11c's gather indices, made here: no host copy in a captured graph
@@ -1489,17 +1495,26 @@ def main() -> int:
         xx = torch.arange(304, device=dev).view(1, 304)
         ch = ((yy % 4) * 4 + xx % 4) * 8 + torch.arange(8, device=dev).view(8, 1, 1)
         iy, ix = yy % 58, xx % 76
-        gemm_flops = 2 * TRAIN_B * 4 * (8 * 58) * 304 * 304
-        for kname, fn, plain, lib, flops, extra in (
+
+        def k11d_bound(b, out):
+            """K11d's bound for its design, the larger of its bytes' and of
+            its bf16 passes' on the tensor cores; and its f32 FMA bound."""
+            flops = 2 * b * 4 * (8 * 58) * 304 * 304
+            nb = b * PHASES * 58 * 76 * 4 + nbytes(e1) + nbytes(out)
+            t_tc = len(ONEHOT_PASSES) * flops / (peak["bf16_tflops"] * 1e12) * 1e3
+            t_bytes = bound(nb, 0)[0]
+            tc = (t_tc, "operations") if t_tc >= t_bytes else (t_bytes, "bytes")
+            return tc, bound(nb, flops)
+
+        for kname, fn, plain, lib in (
                 ("interleave_asm", lambda: interleave_asm(ph),
-                 lambda: interleave_asm_plain(ph), lambda: interleave_window(ph), 0, 0),
+                 lambda: interleave_asm_plain(ph), lambda: interleave_window(ph)),
                 ("interleave_strided", lambda: interleave_strided(ph),
-                 lambda: interleave_strided_plain(ph), lambda: interleave_window(ph), 0, 0),
+                 lambda: interleave_strided_plain(ph), lambda: interleave_window(ph)),
                 ("tile_repeat_probe", lambda: tile_repeat_probe(ph),
-                 lambda: tile_repeat_probe_plain(ph), lambda: ph[:, ch, iy, ix], 0, 0),
+                 lambda: tile_repeat_probe_plain(ph), lambda: ph[:, ch, iy, ix]),
                 ("interleave_onehot", lambda: interleave_onehot(ph, e1),
-                 lambda: interleave_onehot_plain(ph, e1), lambda: interleave_window(ph),
-                 gemm_flops, nbytes(e1))):
+                 lambda: interleave_onehot_plain(ph, e1), lambda: interleave_window(ph))):
             out, want = fn(), plain()
             torch.cuda.synchronize()
             if not torch.equal(out, want):
@@ -1512,14 +1527,49 @@ def main() -> int:
             log(f"[micro] {kname} B={TRAIN_B}: equal bits to its plain version"
                 + (", a probe, not the interleave" if kname == "tile_repeat_probe"
                    else " and to the interleave"))
+            if kname == "interleave_onehot":
+                bnd, fma = k11d_bound(TRAIN_B, out)
+                log(f"[micro] interleave_onehot B={TRAIN_B}: bound {bnd[0]:.4f} ms "
+                    f"({len(ONEHOT_PASSES)} bf16 passes on the tensor cores, "
+                    f"{peak['bf16_tflops']:.0f} TFLOP/s), f32 FMA bound {fma[0]:.4f} ms")
+            else:
+                bnd = bound(ph[:, :, :58, :76].numel() * 4 + nbytes(out), 0)
             record(kname, TRAIN_B, 0.0, 0.0, 0.0, time_ms(fn), time_ms(plain), time_ms(lib),
-                   bound(win_bytes + extra + nbytes(out), flops), main_b=TRAIN_B)
+                   bnd, main_b=TRAIN_B)
         err, rel = rel_err(interleave_onehot(ph, er), interleave_onehot_plain(ph, er))
         if not rel <= 1e-5:
             raise AssertionError(f"interleave_onehot, random E: rel {rel:.3e} > 1e-05")
         rows["interleave_onehot"]["max_abs_err"] = err
         log(f"[micro] interleave_onehot B={TRAIN_B}, random E: max_abs_err {err:.3e} "
-            f"rel {rel:.3e} (tol 1e-05)")
+            f"rel {rel:.3e} (tol 1e-05), {len(ONEHOT_PASSES)} bf16 passes")
+        # K11b and K11d at b=1, and on planes of odd width: their scalar forms
+        for b, hp, wp in ((1, *PADDED), (TRAIN_B, 59, 77)):
+            php = randn(b, PHASES, hp, wp)
+            refp = interleave_window(php)
+            shape = "" if (hp, wp) == PADDED else f" {hp}x{wp} planes"
+            for kname, fn, plain in (
+                    ("interleave_strided", lambda: interleave_strided(php),
+                     lambda: interleave_strided_plain(php)),
+                    ("interleave_onehot", lambda: interleave_onehot(php, e1),
+                     lambda: interleave_onehot_plain(php, e1))):
+                out, want = fn(), plain()
+                torch.cuda.synchronize()
+                if not (torch.equal(out, want) and torch.equal(out, refp)):
+                    raise AssertionError(f"{kname} B={b}{shape}: other bits than its "
+                                         "plain version or the interleave")
+                log(f"[micro] {kname} B={b}{shape}: equal bits to its plain version and "
+                    "to the interleave")
+                bnd = (k11d_bound(b, out)[0] if kname == "interleave_onehot"
+                       else bound(b * PHASES * 58 * 76 * 4 + nbytes(out), 0))
+                record(kname, b, 0.0, 0.0, 0.0, time_ms(fn), time_ms(plain),
+                       time_ms(lambda: interleave_window(php)), bnd, main_b=TRAIN_B,
+                       shape=shape)
+            err, rel = rel_err(interleave_onehot(php, er), interleave_onehot_plain(php, er))
+            if not rel <= 1e-5:
+                raise AssertionError(f"interleave_onehot B={b}{shape}, random E: rel "
+                                     f"{rel:.3e} > 1e-05")
+            log(f"[micro] interleave_onehot B={b}{shape}, random E: max_abs_err {err:.3e} "
+                f"rel {rel:.3e} (tol 1e-05), {len(ONEHOT_PASSES)} bf16 passes")
 
     def micro_path():
         """The two microbenchmarks' main()s with the counters at 0.

@@ -41,11 +41,13 @@ from __future__ import annotations
 import ctypes
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from nlspn_eccv20_tpu_torch.ops.kernels import build
-from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import blend_and_clip, step_inputs
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
+    blend_and_clip, case_rng, step_inputs, tgass_affinity)
 from nlspn_eccv20_tpu_torch.ops.propagate import (
     neighbor_shifts,
     propagate_deformable_exact_planar,
@@ -385,21 +387,22 @@ def deform_prop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
     library): ``library`` is autograd's backward of the same step through
     ``F.grid_sample`` (zeros outside, over the stacked sampling grids),
     written out: the sampler's backward, then the elementwise rest."""
-    from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
-
     k2 = kernel * kernel
+    rng = case_rng(gen)
 
     def rand(*shape):
-        return torch.rand(shape, generator=gen)
+        return torch.from_numpy(rng.random(shape, dtype=np.float32))
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
 
     pred = 10.0 * rand(b, h, w)
-    off = torch.randn((b, 2 * k2, h, w), generator=gen) * 1.5
-    aff = normalize_affinity(torch.randn((b, k2 - 1, h, w), generator=gen),
-                             torch.full((1,), 0.5 * (k2 - 1)))
+    off = randn(b, 2 * k2, h, w) * 1.5
+    aff = tgass_affinity(rng, b, kernel, h, w)
     conf = rand(b, h, w)
     keep = rand(b, h, w) < 500 / (228 * 304)
     dep = keep * (0.5 + 9.5 * rand(b, h, w))
-    g = torch.randn((b, h, w), generator=gen)
+    g = randn(b, h, w)
     if converge:
         step = 2 * max(radius, 1)
         ys = torch.arange(h, dtype=torch.float32).view(h, 1)

@@ -22,12 +22,13 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
-    blend_and_clip, prop_step, prop_step_bwd, prop_step_plain, step_inputs)
+    blend_and_clip, case_rng, prop_step, prop_step_bwd, prop_step_plain, step_inputs,
+    tgass_affinity)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"prop_loop_f32": [_P] * 6 + [_I] * 9 + [_P]}
@@ -343,8 +344,8 @@ def prop_loop_case(gen: torch.Generator, device, b: int, h: int, w: int,
 
 def prop_loop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
                        kernel: int = 3, steps: int = 12, ties: bool = False):
-    """Inputs on which K6b is checked and timed on the card, from ``gen``:
-    pred in [0, 10), TGASS-normalised affinities, conf in [0, 1), sparse
+    """Inputs on which K6b is checked and timed on the card, from ``gen``
+    (through ``prop_step.case_rng``): pred in [0, 10), TGASS-normalised affinities, conf in [0, 1), sparse
     depth at NYU's density (500 samples of 228x304) and g ~ N(0, 1), with
     the model's options (conf, preserve, no clip, no pre-blend); with
     ``ties`` the clip and the pre-blend on, pred and dep zero over a 64x64
@@ -353,14 +354,17 @@ def prop_loop_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
     Returns (args of ``prop_loop_bwd``, its options, library): the library
     call is ``steps`` launches of K1b on the same inputs, the per-step
     route (no single PyTorch call computes the loop's backward)."""
-    k2 = kernel * kernel
-    aff = normalize_affinity(torch.randn((b, k2 - 1, h, w), generator=gen),
-                             torch.full((1,), 0.5 * (k2 - 1))).contiguous()
-    pred = 10.0 * torch.rand((b, h, w), generator=gen)
-    conf = torch.rand((b, h, w), generator=gen)
-    keep = torch.rand((b, h, w), generator=gen) < 500 / (228 * 304)
-    dep = keep * (0.5 + 9.5 * torch.rand((b, h, w), generator=gen))
-    g = torch.randn((b, h, w), generator=gen)
+    rng = case_rng(gen)
+
+    def rand():
+        return torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+
+    aff = tgass_affinity(rng, b, kernel, h, w)
+    pred = 10.0 * rand()
+    conf = rand()
+    keep = rand() < 500 / (228 * 304)
+    dep = keep * (0.5 + 9.5 * rand())
+    g = torch.from_numpy(rng.standard_normal((b, h, w), dtype=np.float32))
     if ties:
         pred[:, :64, :64] = 0.0
         dep[:, :64, :64] = 0.0

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 from typing import Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -239,21 +240,47 @@ def _unfolded(feat: torch.Tensor, kernel: int) -> torch.Tensor:
     return F.unfold(padded, kernel).view(b, kernel * kernel, h, w)
 
 
+def case_rng(gen: torch.Generator) -> np.random.Generator:
+    """A numpy generator seeded from ``gen``. The case builders draw their
+    values from it and normalise their affinities with numpy, in one
+    thread: no value of a seeded builder passes through PyTorch's threaded
+    CPU ops, whose per-thread chunks once gave one chunk of the affinities
+    other values in a loaded process."""
+    return np.random.default_rng(int(torch.randint(0, 2 ** 62, (1,), generator=gen)))
+
+
+def tgass_affinity(rng: np.random.Generator, b: int, kernel: int, h: int,
+                   w: int) -> torch.Tensor:
+    """(b, kernel^2, h, w) float32 affinities from N(0, 1) raw values of
+    ``rng``, TGASS-normalised as ``normalize_affinity(raw, (kernel^2 - 1) /
+    2)`` normalises them (tanh / gamma, the abs-sum + 1e-4 clamped to 1,
+    the centre 1 - sum at kernel^2 // 2), in float64 with numpy."""
+    k2 = kernel * kernel
+    raw = rng.standard_normal((b, k2 - 1, h, w), dtype=np.float32).astype(np.float64)
+    aff = np.tanh(raw) / (0.5 * (k2 - 1) + 1e-8)
+    aff /= np.maximum(np.abs(aff).sum(axis=1, keepdims=True) + 1e-4, 1.0)
+    centre = 1.0 - aff.sum(axis=1, keepdims=True)
+    idx = (k2 - 1) // 2
+    return torch.from_numpy(np.concatenate([aff[:, :idx], centre, aff[:, idx:]], axis=1)
+                            .astype(np.float32))
+
+
 def step_inputs(gen: torch.Generator, b: int, h: int, w: int, kernel: int,
                 ties: bool):
-    """(pred, aff, conf, dep) of one step on the CPU, from ``gen``: pred in
-    [0, 10), TGASS-normalised affinities, conf in [0, 1), sparse depth at
-    NYU's density (500 samples of 228x304); with ``ties`` pred and dep zero
-    over a 64x64 corner."""
-    from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
+    """(pred, aff, conf, dep) of one step on the CPU, from ``gen`` (through
+    ``case_rng``): pred in [0, 10), TGASS-normalised affinities, conf in
+    [0, 1), sparse depth at NYU's density (500 samples of 228x304); with
+    ``ties`` pred and dep zero over a 64x64 corner."""
+    rng = case_rng(gen)
 
-    k2 = kernel * kernel
-    pred = 10.0 * torch.rand((b, h, w), generator=gen)
-    aff = normalize_affinity(torch.randn((b, k2 - 1, h, w), generator=gen),
-                             torch.full((1,), 0.5 * (k2 - 1))).contiguous()
-    conf = torch.rand((b, h, w), generator=gen)
-    keep = torch.rand((b, h, w), generator=gen) < 500 / (228 * 304)
-    dep = keep * (0.5 + 9.5 * torch.rand((b, h, w), generator=gen))
+    def rand():
+        return torch.from_numpy(rng.random((b, h, w), dtype=np.float32))
+
+    pred = 10.0 * rand()
+    aff = tgass_affinity(rng, b, kernel, h, w)
+    conf = rand()
+    keep = rand() < 500 / (228 * 304)
+    dep = keep * (0.5 + 9.5 * rand())
     if ties:   # the clip's exact ties: an all-zero corner
         pred[:, :64, :64] = 0.0
         dep[:, :64, :64] = 0.0
@@ -291,7 +318,7 @@ def prop_step_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
     written out from what that forward saves (the unfolded neighbours):
     ``F.fold`` of aff * ga, the replicate pad's backward, the products."""
     pred, aff, conf, dep = step_inputs(gen, b, h, w, kernel, clip)
-    g = torch.randn((b, h, w), generator=gen)
+    g = torch.from_numpy(case_rng(gen).standard_normal((b, h, w), dtype=np.float32))
     g, pred, aff, conf, dep = (t.to(device) for t in (g, pred, aff, conf, dep))
     kw = dict(kernel=kernel, preserve=True, clip=clip)
     if clip:

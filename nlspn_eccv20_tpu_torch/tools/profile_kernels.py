@@ -22,13 +22,19 @@ b=12 of 228x304, the train step's 12 launches, at the serving shapes, at
 KITTI's 240x1216, with 5x5 neighbours and on a 230x306 plane, and K6
 ``prop_loop``, the constant-affinity loop, at the serving shapes, at b=12
 of 228x304, at KITTI's 240x1216, with 5x5 neighbours, with 18 steps, and
-in its training form at b=12, which also writes the 12 step inputs) it
+in its training form at b=12, which also writes the 12 step inputs; the
+interleave microbenchmark's K11a ``interleave_asm``, K11b
+``interleave_strided`` and K11d ``interleave_onehot`` at b=12 and b=1 of
+the TPU's (64, 128) padded phases and at b=12 of unaligned (59, 77) ones,
+which take the kernels' scalar forms) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
 that form's autograd backward written out; for K6b, which no PyTorch call
 computes, 12 launches of K1b, the per-step route; for K6 likewise 12
-launches of K1) as CUDA-graph replays
+launches of K1; for K11a, K11b and K11d the ``.contiguous()`` copy of the
+permuted window, and for K11d also, as ``matmul_ms``, ``torch.matmul`` of
+the same 4B GEMMs on operands laid out for it beforehand) as CUDA-graph replays
 (``devtools.measure``), and splits the call's device time into its CUDA
 kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
 inputs are the ones ``chip_smoke.py`` checks the kernels on (the
@@ -53,6 +59,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nlspn_eccv20_tpu_torch.devtools.measure import measure
+from nlspn_eccv20_tpu_torch.devtools.microbench_asm import (
+    interleave_case, interleave_onehot, interleave_strided, onehot_operands)
+from nlspn_eccv20_tpu_torch.devtools.microbench_interleave import interleave_asm
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
@@ -68,6 +77,13 @@ from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
     prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_case)
 
 CALLS = 10       # calls in the profiled window
+# the sources each kernel's case launches (its yardstick's too)
+SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["dec_aff_tail"],
+           "K3": ["dep_encode_front"], "K4": ["dec_aff_tail_bwd"],
+           "K5": ["dep_encode_front_bwd"], "K6": ["prop_loop", "prop_step"],
+           "K6b": ["prop_loop", "prop_loop_bwd", "prop_step_bwd"], "K7": ["deform_prop"],
+           "K8": ["deform_prop_bwd"], "K11a": ["interleave_asm"],
+           "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
 # K, C; K2's y1: the intermediate written, as in training), K5's and K3's
 # plane (options: C1), K8's and K6b's plane (options: kernel, converge)
@@ -100,7 +116,17 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K1", 12, 230, 306, {}),
          ("K6", 1, 256, 320, {}), ("K6", 4, 256, 320, {}), ("K6", 12, 228, 304, {}),
          ("K6", 1, 240, 1216, {}), ("K6", 1, 256, 320, {"kernel": 5}),
-         ("K6", 1, 256, 320, {"steps": 18}), ("K6", 12, 228, 304, {"save": True})]
+         ("K6", 1, 256, 320, {"steps": 18}), ("K6", 12, 228, 304, {"save": True}),
+         *((k, b, hp, wp, {}) for k in ("K11a", "K11b", "K11d")
+           for b, hp, wp in ((12, 64, 128), (1, 64, 128), (12, 59, 77)))]
+# (K11's height and width are those of the padded phase planes)
+
+
+def onehot_matmul(ph, e):
+    """K11d's 4B GEMMs as one ``torch.matmul`` on operands laid out for it
+    beforehand (``onehot_operands``, made contiguous)."""
+    a, e2 = (t.contiguous() for t in onehot_operands(ph, e))
+    return lambda: torch.matmul(a, e2)
 
 
 def passes_us(fn):
@@ -147,18 +173,24 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K8":
         args, kw, library = deform_prop_bwd_case(gen, dev, b, h, w, **opts)
         kernel = lambda: deform_prop_bwd(*args, **kw)
+    elif kname in ("K11a", "K11b", "K11d"):
+        (ph, e), library = interleave_case(gen, dev, b, h, w)
+        kernel = {"K11a": lambda: interleave_asm(ph), "K11b": lambda: interleave_strided(ph),
+                  "K11d": lambda: interleave_onehot(ph, e)}[kname]
     else:
         args, library = dep_encode_front_case(gen, dev, b, h, w, **opts)
         kernel = lambda: dep_encode_front(*args)
-    return {"name": kname, "batch": b, "shape": [h, w], **opts,
-            "ms": 1e3 * measure(kernel, calls=20, warmup=1),
-            "library_ms": 1e3 * measure(library, calls=20, warmup=1),
-            "passes_us": passes_us(kernel)}
+    row = {"name": kname, "batch": b, "shape": [h, w], **opts,
+           "ms": 1e3 * measure(kernel, calls=20, warmup=1),
+           "library_ms": 1e3 * measure(library, calls=20, warmup=1)}
+    if kname == "K11d":
+        row["matmul_ms"] = 1e3 * measure(onehot_matmul(ph, e), calls=20, warmup=1)
+    return {**row, "passes_us": passes_us(kernel)}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("kernels", nargs="*",
+    parser.add_argument("kernels", nargs="*", choices=sorted(SOURCES), metavar="KERNEL",
                         help="run only these kernels' cases (e.g. K1 K6); all by default")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -167,10 +199,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
-    reports = build.build_all(["dec_aff_tail", "dec_aff_tail_bwd", "deform_prop_bwd",
-                               "dep_encode_front", "dep_encode_front_bwd",
-                               "prop_loop", "prop_loop_bwd", "prop_step_bwd",
-                               "prop_step", "deform_prop"])
+    names = args.kernels or list(SOURCES)
+    reports = build.build_all(sorted({src for k in names for src in SOURCES[k]}))
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:

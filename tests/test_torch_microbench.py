@@ -14,7 +14,8 @@ TPU kernels run in interpret mode through the scripts' own wrappers.
   the interleave (``pltpu.repeat`` tiles blockwise).
 - K11d (``interleave_onehot``): equal bits to ``k_matmul`` with the one-hot
   E, within 1e-5 of max |ref| with a random E (sums of 304 products in
-  another order).
+  another order); so is the emulation of the card kernel's bf16 split
+  (``interleave_onehot_split_plain``).
 - The layout changes equal bits to the script's closures; deconv0 in NCHW
   and channels-last within 1e-4 of max |ref| of its NHWC output (cuDNN's
   and XLA's conv sum 1,152 products in other orders).
@@ -168,6 +169,20 @@ def test_k11d_plain_matches_the_tpu_kernel_in_interpret_mode(which):
         assert_same_bits("interleave_onehot", out, il.interleave_window(t(padded_phases(1, 2))))
     else:
         assert_rel("interleave_onehot, random E", out, ref, 1e-5)
+
+
+@pytest.mark.parametrize("which", ["onehot", "random"])
+def test_k11d_split_arithmetic_matches_the_tpu_kernel_in_interpret_mode(which):
+    """The card kernel's arithmetic (the bf16 split, six passes), emulated:
+    equal bits to ``k_matmul`` with the one-hot E, within 1e-5 with a random
+    one."""
+    e = onehot_e() if which == "onehot" else random_e()
+    out = asm.interleave_onehot_split_plain(t(padded_phases(1, 2)), t(e))
+    ref = asm_kernel_out(jax_asm.k_matmul, e)
+    if which == "onehot":
+        assert_same_bits("interleave_onehot split", out, ref)
+    else:
+        assert_rel("interleave_onehot split, random E", out, ref, 1e-5)
 
 
 # ---- the plain layout changes and deconv0 ----------------------------------
