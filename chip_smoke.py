@@ -100,8 +100,11 @@ Phases (any failure exits non-zero and prints no result):
      its plain version (F.conv2d over the concat; the library time is the
      same call) at B=1 and B=4 of 256x320 and B=12 of 228x304 (Ca 192, Cb
      64, K 10) and B=2 of 57x75 with K 26; K9b small_conv3x3_bwd at B=12
-     and B=1 of 228x304, twice for equal bits, its library time cuDNN's
-     backward of the concat conv; then the op-library path with the
+     and B=1 of 228x304, at B=2 of 57x75 with K 26 and at B=1 with K 1,
+     each twice for equal bits and against its plain version in float64,
+     its library time cuDNN's backward of the concat conv, its bound that of
+     its design (bytes, or 3 TF32 passes on the tensor cores) with its f32
+     FMA bound printed beside it; then the op-library path with the
      counters at 0: the heads identity (K9 with the fused stage-2 weights
      on the default model's and the offset model's stage-1 outputs and fe1
      equals their three *_dec0 convs, K 10 and 26), one autograd step
@@ -130,10 +133,11 @@ Phases (any failure exits non-zero and prints no result):
      equal bits to their plain versions at b=12 of (12, 128, 64, 128)
      phases whose padding is random, so a read outside the 58x76 window
      shows; K11a, K11b and K11d also equal bits to the interleave, K11c (a
-     probe, not an interleave) to its own formula only; K11b and K11d also
-     at b=1 and at b=12 of unaligned (59, 77) padded planes (their scalar
-     forms), equal bits there too; K11d with a random E against its plain
-     version, its error printed with the number of bf16 passes; K11d's
+     probe, not an interleave) to its own formula only; K11a, K11b and K11d
+     also at b=1 and at b=12 of unaligned (59, 77) padded planes (the
+     scalar forms of K11b and K11d), equal bits there too; K11d with a
+     random E against its plain version, its error printed with the
+     number of bf16 passes; K11d's
      bound that of its design (6 bf16 passes on the tensor cores), its f32
      FMA bound printed beside it; the library time of K11a, K11b and K11d
      the .contiguous() copy of the permuted window, of K11c one
@@ -180,10 +184,12 @@ import sys
 import time
 
 # Peak rates of the card (NVIDIA data sheets, dense, no sparsity), by part:
-# float32 outside the tensor cores, bf16 on the tensor cores (K11d's
-# design) and HBM bandwidth.
-PEAKS = {"SXM": {"f32_tflops": 67.0, "bf16_tflops": 989.0, "hbm_tbps": 3.35},
-         "PCIe": {"f32_tflops": 51.0, "bf16_tflops": 756.0, "hbm_tbps": 2.0}}
+# float32 outside the tensor cores, bf16 and TF32 on the tensor cores
+# (K11d's and K9b's designs) and HBM bandwidth.
+PEAKS = {"SXM": {"f32_tflops": 67.0, "bf16_tflops": 989.0, "tf32_tflops": 494.7,
+                 "hbm_tbps": 3.35},
+         "PCIe": {"f32_tflops": 51.0, "bf16_tflops": 756.0, "tf32_tflops": 378.0,
+                  "hbm_tbps": 2.0}}
 
 H, W = 256, 320            # NYU 228x304 requests in the 32-pixel bucket
 REQ_H, REQ_W = 228, 304
@@ -1179,17 +1185,28 @@ def main() -> int:
         # the library call is the plain version itself: F.conv2d over the concat
         record("small_conv3x3", b, err, rel, 1e-4, ms, plain_ms, plain_ms, bnd)
 
-    for b in (TRAIN_B, 1):
-        xa, xb = randn(b, CA, REQ_H, REQ_W), randn(b, CB, REQ_H, REQ_W)
-        wk = randn(10, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5)
-        g = randn(b, 10, REQ_H, REQ_W)
+    def k9b_bound(nb, flops):
+        """K9b's bound for its design, the larger of its bytes' and of its
+        three TF32 passes' on the tensor cores; and its f32 FMA bound."""
+        t_tc = 3 * flops / (peak["tf32_tflops"] * 1e12) * 1e3
+        t_bytes = bound(nb, 0)[0]
+        return ((t_tc, "operations") if t_tc >= t_bytes else (t_bytes, "bytes"),
+                bound(nb, flops))
+
+    # the train step's plane at B=12 and B=1 (K 10, the kernel line's), then
+    # B=2 of an odd 57x75 plane with the offset heads' K 26 and K 1
+    for b, h, w, k in ((TRAIN_B, REQ_H, REQ_W, 10), (1, REQ_H, REQ_W, 10), (2, 57, 75, 26),
+                       (1, REQ_H, REQ_W, 1)):
+        xa, xb = randn(b, CA, h, w), randn(b, CB, h, w)
+        wk = randn(k, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5)
+        g = randn(b, k, h, w)
         outs = small_conv3x3_bwd(g, xa, xb, wk)
         xcat = torch.cat([xa, xb], 1)
 
         def library():
             """cuDNN's backward of the concat conv (autograd's, whose cat
             backward is two views)."""
-            dx, dw, db = conv_bwd(g, xcat, wk, [10], [1, 1], [1, 1], [1, 1], False,
+            dx, dw, db = conv_bwd(g, xcat, wk, [k], [1, 1], [1, 1], [1, 1], False,
                                   [0, 0], 1, [True, True, True])
             return dx[:, :CA], dx[:, CA:], dw, db
 
@@ -1197,15 +1214,18 @@ def main() -> int:
             return [t.float() for t in small_conv3x3_bwd_plain(
                 *(t.double() for t in (g, xa, xb, wk)))]
 
+        shape = "" if (h, w, k) == (REQ_H, REQ_W, 10) else f" {h}x{w} K={k}"
         _, rel32 = grads_err(small_conv3x3_bwd_plain(g, xa, xb, wk), plain64())
-        log(f"[kernel] small_conv3x3_bwd B={b}: plain f32 vs float64 rel {rel32:.3e}")
+        log(f"[kernel] small_conv3x3_bwd B={b}{shape}: plain f32 vs float64 rel {rel32:.3e}")
+        bnd, fma = k9b_bound(nbytes(g, xa, xb, wk, *outs),
+                             2 * conv_flops(b, h, w, CA + CB, k) + b * h * w * k)
+        log(f"[kernel] small_conv3x3_bwd B={b}{shape}: bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"3 TF32 passes on the tensor cores, {peak['tf32_tflops']} TFLOP/s), "
+            f"f32 FMA bound {fma[0]:.4f} ms")
         check_bwd("small_conv3x3_bwd", b,
                   lambda: small_conv3x3_bwd(g, xa, xb, wk),
                   lambda: small_conv3x3_bwd_plain(g, xa, xb, wk),
-                  1e-4, library,
-                  bound(nbytes(g, xa, xb, wk, *outs),
-                        2 * conv_flops(b, REQ_H, REQ_W, CA + CB, 10)
-                        + b * REQ_H * REQ_W * 10), ref=plain64)
+                  1e-4, library, bnd, ref=plain64, shape=shape)
         del xa, xb, xcat, outs
     torch.cuda.empty_cache()
 
@@ -1486,7 +1506,8 @@ def main() -> int:
     def micro_kernels():
         """K11a-d against their plain versions at b=12, timed beside the
         library calls, on phases whose padding is random; K11b and K11d also
-        at b=1 and on unaligned (59, 77) planes (their scalar forms)."""
+        at b=1 and on unaligned (59, 77) planes (their scalar forms), and
+        K11a there too."""
         ph = randn(TRAIN_B, PHASES, *PADDED)
         e1, er = onehot_expansion(dev), randn(*E_SHAPE)
         ref = interleave_window(ph)
@@ -1542,12 +1563,15 @@ def main() -> int:
         rows["interleave_onehot"]["max_abs_err"] = err
         log(f"[micro] interleave_onehot B={TRAIN_B}, random E: max_abs_err {err:.3e} "
             f"rel {rel:.3e} (tol 1e-05), {len(ONEHOT_PASSES)} bf16 passes")
-        # K11b and K11d at b=1, and on planes of odd width: their scalar forms
+        # K11a, K11b and K11d at b=1, and on planes of odd width (the
+        # scalar forms of K11b and K11d)
         for b, hp, wp in ((1, *PADDED), (TRAIN_B, 59, 77)):
             php = randn(b, PHASES, hp, wp)
             refp = interleave_window(php)
             shape = "" if (hp, wp) == PADDED else f" {hp}x{wp} planes"
             for kname, fn, plain in (
+                    ("interleave_asm", lambda: interleave_asm(php),
+                     lambda: interleave_asm_plain(php)),
                     ("interleave_strided", lambda: interleave_strided(php),
                      lambda: interleave_strided_plain(php)),
                     ("interleave_onehot", lambda: interleave_onehot(php, e1),

@@ -10,37 +10,54 @@
 // padding is never read.
 //
 // Bound on the card: memory, the 58x76 window in and the output out, 8 B
-// an output element. Design: one thread per output element, as the TPU
-// kernel assembles whole output planes. The writes are coalesced; the 32
-// threads of a warp read 8 consecutive floats from each of 4 phase planes.
+// an output element. Design: output-driven, as the TPU kernel assembles
+// whole output planes: a thread owns the 4 output columns 4j .. 4j + 3 of
+// one row y of one (n, c), which are the four phases b of window element
+// (y / 4, j). It makes 4 scalar loads, one from each phase plane, where a
+// warp's 32 threads read 128 contiguous bytes of each plane row (any wp:
+// the loads need no alignment), and one float4 store, where a warp writes
+// 512 contiguous bytes of output row y (304 floats a row: every row
+// 16-byte aligned). A block is 8 output rows of one (n, c), 608 threads =
+// 19 whole warps; the grid is (29 row groups, 8 B). Index arithmetic is
+// 32-bit, with divisions by constants only.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kC = 8, kI = 58, kJ = 76, kH = 4 * kI, kW = 4 * kJ;
+constexpr int kRows = 8;                  // output rows a block
+constexpr int kThreads = kRows * kJ;      // 608: 19 warps
 
-__global__ void interleave_asm_kernel(const float* __restrict__ ph, float* __restrict__ out,
-                                      int batch, int hp, int wp) {
-  const long o = (long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= (long)batch * kC * kH * kW) return;
-  const int x = (int)(o % kW), y = (int)(o / kW % kH), c = (int)(o / ((long)kW * kH) % kC);
-  const long n = o / ((long)kW * kH * kC);
-  const int plane = ((y % 4) * 4 + x % 4) * kC + c;
-  out[o] = __ldg(ph + ((n * 16 * kC + plane) * hp + y / 4) * wp + x / 4);
+__global__ void __launch_bounds__(kThreads)
+interleave_asm_kernel(const float* __restrict__ ph, float* __restrict__ out, int hp, int wp) {
+  const int t = threadIdx.x;
+  const int r = t / kJ, j = t - r * kJ;           // row of the block, window column
+  const int y = blockIdx.x * kRows + r;           // output row: 4i + a
+  const int nc = blockIdx.y, n = nc / kC, c = nc - n * kC;
+  const int a = y & 3, i = y >> 2;
+  const long plane = (long)hp * wp;
+  // phase (a, b) of channel c: plane (4a + b) * 8 + c; b steps 8 planes
+  const float* src = ph + ((long)n * 16 * kC + (4 * a) * kC + c) * plane + (long)i * wp + j;
+  float4 v;
+  v.x = __ldg(src);
+  v.y = __ldg(src + kC * plane);
+  v.z = __ldg(src + 2 * kC * plane);
+  v.w = __ldg(src + 3 * kC * plane);
+  reinterpret_cast<float4*>(out + ((long)nc * kH + y) * kW)[j] = v;
 }
 
 }  // namespace
 
 // ph: (batch, 128, hp, wp) f32 contiguous, hp >= 58, wp >= 76;
-// out: (batch, 8, 232, 304) f32 contiguous. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for an empty batch or planes smaller than 58x76.
+// out: (batch, 8, 232, 304) f32 contiguous, 16-byte aligned. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an empty batch, a batch
+// past the grid's 65535 (n, c) pairs or planes smaller than 58x76.
 extern "C" int interleave_asm_f32(const float* ph, float* out, int batch, int hp, int wp,
                                   void* stream) {
-  if (batch <= 0 || hp < kI || wp < kJ) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long n = (long)batch * kC * kH * kW;
-  interleave_asm_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                          (cudaStream_t)stream>>>(ph, out, batch, hp, wp);
+  if (batch <= 0 || batch * kC > 65535 || hp < kI || wp < kJ)
+    return (int)cudaErrorInvalidValue;
+  interleave_asm_kernel<<<dim3(kH / kRows, batch * kC), kThreads, 0, (cudaStream_t)stream>>>(
+      ph, out, hp, wp);
   return (int)cudaGetLastError();
 }

@@ -105,6 +105,37 @@ def interleave_asm_plain(ph: torch.Tensor) -> torch.Tensor:
     return select_phases(ph, lambda p: p.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3))
 
 
+ASM_ROWS = 8   # K11a's output rows a block: 8 x 76 threads, 19 warps
+
+
+def asm_plan(batch: int):
+    """K11a's launch as ``csrc/interleave_asm.cu`` makes it: (grid, threads
+    a block). A block holds 8 output rows of one (n, c); a thread, 4
+    adjacent output columns of one row."""
+    return (H_OUT // ASM_ROWS, batch * C), ASM_ROWS * J
+
+
+def asm_map(batch: int, hp: int, wp: int):
+    """K11a's thread map, as ``csrc/interleave_asm.cu`` computes it:
+    (src, dst), int64 arrays (threads, 4): the thread copies the padded
+    phases' flat element src[t, b] (phase b of row y's row phase a, window
+    element (y // 4, j)) to the output's flat element dst[t, b] (column
+    4j + b of row y), the four stored as one float4."""
+    (gx, gy), threads = asm_plan(batch)
+    blk_x, nc, t = np.meshgrid(np.arange(gx), np.arange(gy), np.arange(threads),
+                               indexing="ij")
+    r, j = t // J, t % J
+    y = blk_x * ASM_ROWS + r
+    n, c = nc // C, nc % C
+    a, i = y % 4, y // 4
+    b = np.arange(4).reshape(1, 4)
+    plane = (n.reshape(-1, 1) * PHASES + 4 * a.reshape(-1, 1) * C + c.reshape(-1, 1)
+             + b * C)
+    src = (plane * hp + i.reshape(-1, 1)) * wp + j.reshape(-1, 1)
+    dst = (nc.reshape(-1, 1) * H_OUT + y.reshape(-1, 1)) * W_OUT + 4 * j.reshape(-1, 1) + b
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
 def interleave_asm(ph: torch.Tensor) -> torch.Tensor:
     """K11a: padded phases (B, 128, Hp, Wp) -> (B, 8, 232, 304). On a CPU
     tensor it runs the plain version; on a CUDA tensor it launches the

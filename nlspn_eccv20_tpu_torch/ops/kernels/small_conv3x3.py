@@ -18,6 +18,11 @@ Neither model routes through it; it is an op-library primitive, and
 ``SmallConv3x3Function``, whose backward is K9b on a CUDA tensor and
 ``small_conv3x3_bwd_plain`` on a CPU tensor. float32 only: bf16 is ROADMAP
 §A's bf16 item, for every kernel at once.
+
+For the CPU tests, ``bwd_plan`` mirrors K9b's launches and
+``small_conv3x3_bwd_split_plain`` its arithmetic (the TF32 split, in the
+kernel's order); ``small_conv3x3_case`` and ``small_conv3x3_bwd_case``
+build the inputs on which the card times both kernels.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import case_rng
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -184,3 +190,202 @@ def small_conv3x3_planar(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
 
 small_conv3x3_planar.launches = 0
 small_conv3x3_bwd.launches = 0
+
+HEADS_CA, HEADS_CB = 192, 64   # the heads' stage 2: three 64-wide heads, fe1
+
+# ---- K9b's design, mirrored for the CPU tests ----
+# (csrc/small_conv3x3_bwd.cu: dx_kernel's and wgrad_kernel's tiles and
+# launches, and the reduction's slices)
+CARD_SMS = 132                  # H100 SXM
+CARD_SMEM = 233472              # shared memory of an SM
+BLOCK_SMEM_MAX = 232448         # that a block may use
+BWD_THREADS, BWD_MIN_BLOCKS = 256, 2   # both passes: two warpgroups, two blocks an SM
+DX_TILE, DX_PS = (8, 16), 184   # dx's pixel tile; floats a staged g plane
+WG_TILE, WG_MR, WG_NC = (4, 16), 128, 64   # dW's tile; (tap, k) rows and channels a block
+WG_STAGES, WG_PS = 3, 164       # dW's tiles in flight; floats a staged g plane
+RED_CHUNK = 64                  # bwd_common.cuh: slices one reduce pass adds
+
+
+def _tiles(b, h, w, tile):
+    return b * -(-h // tile[0]) * -(-w // tile[1])
+
+
+def _dx_smem(nc, k, nks):
+    return 2 * nks * 8 * nc * 4 + 2 * k * DX_PS * 4 + nks * 8 * 4
+
+
+def bwd_plan(b: int, h: int, w: int, ca: int, cb: int, k: int, sms: int = CARD_SMS):
+    """K9b's launches as ``csrc/small_conv3x3_bwd.cu`` plans them.
+
+    dx: grid (``dx_chunks`` of ``dx_nc`` channels, ``dx_blocks`` persistent
+    blocks), block j of a chunk walking the 8x16 pixel tiles j, j +
+    dx_blocks, ...; ``dx_nc`` is 128 where two such blocks fit an SM, else
+    64; ``dx_smem`` bytes (the chunk's weights split into TF32 heads and
+    rests, two buffers of g's K planes with their halo, the (tap, k)
+    offsets). dW: grid (``mchunks`` of 128 (tap, k) rows x ``cchunks`` of
+    64 channels, ``slices``), slice s summing the 4x16 tiles [T s / S,
+    T (s + 1) / S); ``wg_smem`` bytes (three x tiles in flight, the rests
+    of the one in use, three buffers of g). Both kernels run 256 threads,
+    at most 128 registers a thread (two blocks an SM)."""
+    c, nks = ca + cb, -(-9 * k // 8)
+    dx_nc = 128 if 2 * (_dx_smem(128, k, nks) + 1024) <= CARD_SMEM else 64
+    dx_smem = _dx_smem(dx_nc, k, nks)
+    dx_per_sm = 2 if 2 * (dx_smem + 1024) <= CARD_SMEM else 1
+    dx_tiles = _tiles(b, h, w, DX_TILE)
+    dx_chunks = -(-c // dx_nc)
+    mchunks, cchunks = -(-9 * k // WG_MR), -(-c // WG_NC)
+    wg_tiles = _tiles(b, h, w, WG_TILE)
+    return {"ksteps": nks, "dx_nc": dx_nc, "dx_chunks": dx_chunks, "dx_tiles": dx_tiles,
+            "dx_blocks": max(1, min(dx_tiles, dx_per_sm * sms // dx_chunks)),
+            "dx_smem": dx_smem, "dx_per_sm": dx_per_sm, "mchunks": mchunks,
+            "cchunks": cchunks, "wg_tiles": wg_tiles,
+            "slices": max(1, min(wg_tiles, BWD_MIN_BLOCKS * sms // (mchunks * cchunks),
+                                 RED_CHUNK)),
+            "wg_smem": ((WG_STAGES + 1) * WG_NC * WG_TILE[0] * WG_TILE[1]
+                        + WG_STAGES * k * WG_PS + k * WG_TILE[0]) * 4,
+            "threads": BWD_THREADS, "regs": 65536 // (BWD_THREADS * BWD_MIN_BLOCKS)}
+
+
+def _tf32_split(v: torch.Tensor):
+    """(hi, lo): v's TF32 head, its low 13 bits cleared (truncated), and the
+    exact rest, truncated to TF32 too, as the kernel splits its operands."""
+    def trunc(t):
+        return (t.view(torch.int32) & -8192).view(torch.float32)
+    hi = trunc(v.float().contiguous())
+    return hi, trunc((v.float() - hi).contiguous())
+
+
+def _mma_3x(d: torch.Tensor, a: torch.Tensor, b: torch.Tensor, passes: int = 3) -> torch.Tensor:
+    """d + a . b as the kernel's three products of a k-step sum it: lo.hi,
+    hi.lo, hi.hi, each pass's products summed exactly and added to d in f32
+    (rounded to nearest here; the card's tensor cores truncate). With
+    ``passes=1``, hi.hi alone."""
+    (ah, al), (bh, bl) = _tf32_split(a), _tf32_split(b)
+    for x, y in ((al, bh), (ah, bl), (ah, bh))[3 - passes:]:
+        d = (d.double() + torch.matmul(x.double(), y.double())).float()
+    return d
+
+
+def _shifted_g(g: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """G (B, H, W, 9K padded to k_pad): G[..., tap * K + k] = g_k[y - ty + 1,
+    x - tx + 1], zero outside the image: the mirrored-tap im2col."""
+    bsz, k, h, w = g.shape
+    gp = F.pad(g, (1, 1, 1, 1))
+    cols = [gp[:, :, 2 - ty:2 - ty + h, 2 - tx:2 - tx + w]
+            for ty in range(3) for tx in range(3)]
+    out = torch.stack(cols, 1).reshape(bsz, 9 * k, h, w).permute(0, 2, 3, 1)
+    return F.pad(out, (0, k_pad - 9 * k))
+
+
+def _reduce_partials(part: torch.Tensor) -> torch.Tensor:
+    """bwd::reduce_partials' order for at most 64 slices: strand t adds
+    slices t, t + 8, ... in order, then the 8 strands are added in order."""
+    strands = []
+    for t in range(8):
+        v = torch.zeros_like(part[0])
+        for s in range(t, part.shape[0], 8):
+            v = v + part[s]
+        strands.append(v)
+    out = strands[0]
+    for v in strands[1:]:
+        out = out + v
+    return out
+
+
+def small_conv3x3_bwd_split_plain(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+                                  w: torch.Tensor, sms: int = CARD_SMS, passes: int = 3):
+    """K9b's arithmetic emulated in float32 on the CPU, in the kernel's
+    order (tests only): the 3xTF32 products of each k-step of 8 (``passes``
+    as ``_mma_3x``), dx over the (tap, k) rows in order; dW per slice of
+    ``bwd_plan``, each 4x16 tile's 8 k-steps of 8 pixels summed apart and
+    then added to the slice's sum, the slices added as ``reduce_partials``
+    does; db likewise, a thread's row of 16 pixels a tile. Returns (dxa,
+    dxb, dw, db)."""
+    bsz, ca, h, wd = xa.shape
+    cb, k = xb.shape[1], w.shape[0]
+    c = ca + cb
+    plan = bwd_plan(bsz, h, wd, ca, cb, k, sms)
+    kp = 8 * plan["ksteps"]
+    gm = _shifted_g(g.float(), kp)                            # (B, H, W, kp)
+    wm = F.pad(w.float().permute(2, 3, 0, 1).reshape(9 * k, c), (0, 0, 0, kp - 9 * k))
+    # dx: (pixels x kp) . (kp x C), k-step by k-step
+    a = gm.reshape(-1, kp)
+    d = torch.zeros(a.shape[0], c)
+    for s in range(plan["ksteps"]):
+        d = _mma_3x(d, a[:, 8 * s:8 * s + 8], wm[8 * s:8 * s + 8], passes)
+    dx = d.reshape(bsz, h, wd, c).permute(0, 3, 1, 2)
+    # dW: the 4x16 tiles (padded image), 8 k-steps of 8 pixels each
+    th, tw = WG_TILE
+    hp, wp = -(-h // th) * th, -(-wd // tw) * tw
+    x = F.pad(torch.cat([xa, xb], 1).float(), (0, wp - wd, 0, hp - h))
+    gt = _shifted_g(F.pad(g.float(), (0, wp - wd, 0, hp - h)), 9 * k)   # (B, hp, wp, 9K)
+    gt = gt.reshape(bsz, hp // th, th, wp // tw, tw, 9 * k).permute(0, 1, 3, 2, 4, 5)
+    gt = gt.reshape(-1, th * tw, 9 * k)                       # (T, 64 pixels, 9K)
+    xt = x.reshape(bsz, c, hp // th, th, wp // tw, tw).permute(0, 2, 4, 3, 5, 1)
+    xt = xt.reshape(-1, th * tw, c)                           # (T, 64, C)
+    acc = torch.zeros(gt.shape[0], 9 * k, c)
+    for q in range(th * tw // 8):
+        acc = _mma_3x(acc, gt[:, 8 * q:8 * q + 8].transpose(1, 2), xt[:, 8 * q:8 * q + 8],
+                      passes)
+    # db: thread (k, row) adds its row's 16 pixels a tile, in order
+    gpad = F.pad(g.float(), (0, wp - wd, 0, hp - h))
+    gpad = gpad.reshape(bsz, k, hp // th, th, wp // tw, tw).permute(0, 2, 4, 1, 3, 5)
+    gpad = gpad.reshape(-1, k, th, tw)                        # (T, K, rows, 16)
+    n_t, n_s = acc.shape[0], plan["slices"]
+    parts = []
+    for s in range(n_s):
+        t0, t1 = n_t * s // n_s, n_t * (s + 1) // n_s
+        total, dbrow = torch.zeros(9 * k, c), torch.zeros(k, th)
+        for t in range(t0, t1):
+            total = total + acc[t]
+            for col in range(tw):
+                dbrow = dbrow + gpad[t, :, :, col]
+        db = dbrow[:, 0]
+        for r in range(1, th):
+            db = db + dbrow[:, r]
+        dw = total.reshape(3, 3, k, c).permute(2, 3, 0, 1)    # (K, C, 3, 3)
+        parts.append(torch.cat([dw.reshape(-1), db]))
+    dwb = _reduce_partials(torch.stack(parts))
+    n_w = k * c * 9
+    return (dx[:, :ca].contiguous(), dx[:, ca:].contiguous(),
+            dwb[:n_w].view(k, c, 3, 3), dwb[n_w:])
+
+
+def _case_tensors(gen, device, b, h, w, k, ca, cb):
+    rng = case_rng(gen)
+
+    def randn(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std)
+                                .astype("float32")).to(device)
+
+    return (randn(b, ca, h, w), randn(b, cb, h, w),
+            randn(k, ca + cb, 3, 3, std=(9 * (ca + cb)) ** -0.5), randn(k, std=0.1),
+            randn(b, k, h, w))
+
+
+def small_conv3x3_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                       k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB):
+    """Inputs on which K9 is timed on the card, from ``gen``: N(0, 1)
+    activations (b, ca, h, w) and (b, cb, h, w), a weight scaled to unit
+    output variance and a bias. Returns ((xa, xb, w, bias), library): the
+    library call is the plain version, ``F.conv2d`` over the concat."""
+    xa, xb, wk, bk, _ = _case_tensors(gen, device, b, h, w, k, ca, cb)
+    return (xa, xb, wk, bk), lambda: small_conv3x3_plain(xa, xb, wk, bk)
+
+
+def small_conv3x3_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                           k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB):
+    """Inputs on which K9b is timed on the card, from ``gen``, as
+    ``small_conv3x3_case``'s with an N(0, 1) cotangent g (b, k, h, w).
+    Returns ((g, xa, xb, w), library): the library call is cuDNN's backward
+    of the concat conv (``aten.convolution_backward``, what autograd runs
+    for it; the concat is built beforehand, its backward is two views)."""
+    xa, xb, wk, _, g = _case_tensors(gen, device, b, h, w, k, ca, cb)
+    xcat = torch.cat([xa, xb], 1)
+
+    def library():
+        dx, dw, db = torch.ops.aten.convolution_backward(
+            g, xcat, wk, [k], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True])
+        return dx[:, :ca], dx[:, ca:], dw, db
+
+    return (g, xa, xb, wk), library

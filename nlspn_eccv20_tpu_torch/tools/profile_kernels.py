@@ -26,7 +26,9 @@ in its training form at b=12, which also writes the 12 step inputs; the
 interleave microbenchmark's K11a ``interleave_asm``, K11b
 ``interleave_strided`` and K11d ``interleave_onehot`` at b=12 and b=1 of
 the TPU's (64, 128) padded phases and at b=12 of unaligned (59, 77) ones,
-which take the kernels' scalar forms) it
+which take the kernels' scalar forms; the op library's K9
+``small_conv3x3`` and K9b ``small_conv3x3_bwd`` at b=12 and b=1 of
+228x304 with K=10, at b=2 of an odd 57x75 plane with K=26 and with K=1) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
@@ -34,7 +36,8 @@ that form's autograd backward written out; for K6b, which no PyTorch call
 computes, 12 launches of K1b, the per-step route; for K6 likewise 12
 launches of K1; for K11a, K11b and K11d the ``.contiguous()`` copy of the
 permuted window, and for K11d also, as ``matmul_ms``, ``torch.matmul`` of
-the same 4B GEMMs on operands laid out for it beforehand) as CUDA-graph replays
+the same 4B GEMMs on operands laid out for it beforehand; for K9 the
+``F.conv2d`` over the concat, for K9b cuDNN's backward of it) as CUDA-graph replays
 (``devtools.measure``), and splits the call's device time into its CUDA
 kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
 inputs are the ones ``chip_smoke.py`` checks the kernels on (the
@@ -75,6 +78,8 @@ from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
     launch_fwd as prop_loop_fwd, prop_loop_bwd, prop_loop_bwd_case, prop_loop_case)
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import (
     prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_case)
+from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
+    small_conv3x3_bwd, small_conv3x3_bwd_case, small_conv3x3_case, small_conv3x3_planar)
 
 CALLS = 10       # calls in the profiled window
 # the sources each kernel's case launches (its yardstick's too)
@@ -82,7 +87,8 @@ SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["d
            "K3": ["dep_encode_front"], "K4": ["dec_aff_tail_bwd"],
            "K5": ["dep_encode_front_bwd"], "K6": ["prop_loop", "prop_step"],
            "K6b": ["prop_loop", "prop_loop_bwd", "prop_step_bwd"], "K7": ["deform_prop"],
-           "K8": ["deform_prop_bwd"], "K11a": ["interleave_asm"],
+           "K8": ["deform_prop_bwd"], "K9": ["small_conv3x3"], "K9b": ["small_conv3x3_bwd"],
+           "K11a": ["interleave_asm"],
            "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
 # K, C; K2's y1: the intermediate written, as in training), K5's and K3's
@@ -118,8 +124,12 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K6", 1, 240, 1216, {}), ("K6", 1, 256, 320, {"kernel": 5}),
          ("K6", 1, 256, 320, {"steps": 18}), ("K6", 12, 228, 304, {"save": True}),
          *((k, b, hp, wp, {}) for k in ("K11a", "K11b", "K11d")
-           for b, hp, wp in ((12, 64, 128), (1, 64, 128), (12, 59, 77)))]
-# (K11's height and width are those of the padded phase planes)
+           for b, hp, wp in ((12, 64, 128), (1, 64, 128), (12, 59, 77))),
+         *((k, b, h, w, {"k": kk}) for k in ("K9b", "K9")
+           for b, h, w, kk in ((12, 228, 304, 10), (1, 228, 304, 10), (2, 57, 75, 26),
+                               (1, 228, 304, 1)))]
+# (K11's height and width are those of the padded phase planes; K9's and
+# K9b's options: K, the outputs, beside the heads' Ca = 192 and Cb = 64)
 
 
 def onehot_matmul(ph, e):
@@ -173,6 +183,11 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K8":
         args, kw, library = deform_prop_bwd_case(gen, dev, b, h, w, **opts)
         kernel = lambda: deform_prop_bwd(*args, **kw)
+    elif kname in ("K9", "K9b"):
+        case = small_conv3x3_case if kname == "K9" else small_conv3x3_bwd_case
+        fn = small_conv3x3_planar if kname == "K9" else small_conv3x3_bwd
+        args, library = case(gen, dev, b, h, w, **opts)
+        kernel = lambda: fn(*args)
     elif kname in ("K11a", "K11b", "K11d"):
         (ph, e), library = interleave_case(gen, dev, b, h, w)
         kernel = {"K11a": lambda: interleave_asm(ph), "K11b": lambda: interleave_strided(ph),

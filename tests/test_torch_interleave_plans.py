@@ -11,6 +11,9 @@
 - K11b's thread map (``strided_map``, ``strided_plan``): every output
   element written once, from the right input, with float4 chunks where
   ``wp % 4 == 0`` and the scalar form elsewhere.
+- K11a's thread map (``microbench_interleave.asm_map``, ``asm_plan``):
+  output-driven, every output element written once from the 58x76 window
+  (no padding read), a float4 store a thread, whole warps.
 - K11d's tile plan (``onehot_plan``, ``onehot_tiles``): the 464 * 4B x 304
   product covered once, and enough blocks for 132 SMs at b=12 and b=1.
 - ``interleave_case`` (seeded, its library the interleave) and
@@ -22,6 +25,7 @@ import pytest
 import torch
 
 from nlspn_eccv20_tpu_torch.devtools import microbench_asm as asm
+from nlspn_eccv20_tpu_torch.devtools import microbench_interleave as mi
 from nlspn_eccv20_tpu_torch.devtools.microbench_interleave import interleave_window
 from nlspn_eccv20_tpu_torch.tools import profile_kernels
 
@@ -157,6 +161,39 @@ def test_k11b_plan_gives_every_sm_two_blocks_at_b1():
     blocks, threads, _ = asm.strided_plan(1, 64, 128)
     assert blocks * threads >= 1 * 8 * 58 * 4 * 19 == 35264
     assert blocks >= 2 * 132
+
+
+# ---- K11a's thread map -------------------------------------------------------
+
+@pytest.mark.parametrize("hp,wp", [(64, 128), (58, 76), (59, 77), (60, 78)])
+def test_k11a_thread_map_writes_every_output_once_from_the_window(hp, wp):
+    b = 2
+    src, dst = mi.asm_map(b, hp, wp)
+    assert np.array_equal(np.bincount(dst.ravel(), minlength=b * 8 * 232 * 304),
+                          np.ones(b * 8 * 232 * 304, np.int64))
+    # no read of the padding: every source lies in its plane's 58x76 window
+    assert np.all(src % wp < 76) and np.all((src // wp) % hp < 58)
+    ph = np.random.default_rng(hp + wp).standard_normal((b, 128, hp, wp)).astype(np.float32)
+    out = np.full(b * 8 * 232 * 304, np.nan, np.float32)
+    out[dst.ravel()] = ph.ravel()[src.ravel()]
+    assert np.array_equal(out, interleave_window(torch.from_numpy(ph)).numpy().ravel())
+    # output-driven: a thread's four outputs are one aligned float4 of a row,
+    # its four sources the phases b of one window element, 8 planes apart
+    assert np.all(dst[:, 0] % 4 == 0) and np.all(np.diff(dst, axis=1) == 1)
+    assert np.all(np.diff(src, axis=1) == 8 * hp * wp)
+
+
+def test_k11a_plan_is_whole_warps_whose_loads_are_row_pieces():
+    (gx, gy), threads = mi.asm_plan(12)
+    assert (gx, gy, threads) == (29, 96, 608) and threads % 32 == 0
+    src, dst = mi.asm_map(1, 64, 128)
+    # a warp's 32 threads: consecutive columns of one phase row (or of two,
+    # where the warp crosses an output row), so each of its four loads reads
+    # one or two runs of contiguous floats
+    steps = np.diff(src[:, 0].reshape(-1, 32), axis=1)
+    assert np.all((steps != 1).sum(axis=1) <= 1)
+    # and its float4 stores 512 contiguous bytes: output rows are contiguous
+    assert np.all(np.diff(dst[:, 0].reshape(-1, 32), axis=1) == 4)
 
 
 # ---- K11d's tile plan ----------------------------------------------------------
