@@ -97,14 +97,14 @@ Phases (any failure exits non-zero and prints no result):
      constant-affinity loop: prop_loop 1 a forward and prop_loop_bwd 1 a
      backward, every other kernel 0;
  10. the op library (nlspn_eccv20_tpu_torch.ops): K9 small_conv3x3 against
-     its plain version (F.conv2d over the concat; the library time is the
-     same call) at B=1 and B=4 of 256x320 and B=12 of 228x304 (Ca 192, Cb
-     64, K 10) and B=2 of 57x75 with K 26; K9b small_conv3x3_bwd at B=12
-     and B=1 of 228x304, at B=2 of 57x75 with K 26 and at B=1 with K 1,
-     each twice for equal bits and against its plain version in float64,
-     its library time cuDNN's backward of the concat conv, its bound that of
-     its design (bytes, or 3 TF32 passes on the tensor cores) with its f32
-     FMA bound printed beside it; then the op-library path with the
+     its plain version in float64 (F.conv2d over the concat; the library
+     time is the same call in f32) at B=1 and B=4 of 256x320 and B=12 of
+     228x304 (Ca 192, Cb 64, K 10) and B=2 of 57x75 with K 26; K9b
+     small_conv3x3_bwd at B=12 and B=1 of 228x304, at B=2 of 57x75 with K
+     26 and at B=1 with K 1, its library time cuDNN's backward of the
+     concat conv; each twice for equal bits, its bound that of its design
+     (bytes, or 3 TF32 passes on the tensor cores) with its f32 FMA bound
+     printed beside it; then the op-library path with the
      counters at 0: the heads identity (K9 with the fused stage-2 weights
      on the default model's and the offset model's stage-1 outputs and fe1
      equals their three *_dec0 convs, K 10 and 26), one autograd step
@@ -117,8 +117,9 @@ Phases (any failure exits non-zero and prints no result):
      in the window K7 and K8 once each, its gradients equal to impl="xla"'s;
  11. the devtools prototypes (nlspn_eccv20_tpu_torch.devtools): K10a
      deform_windowed and K10b deform_colgather against their plain
-     versions and the exact gather at the experiments' shapes (b=12 of
-     228x304 and b=1 of 240x1216, R 4, offsets clip(N(0, 1.5^2), -4, 4)),
+     versions (K10b equal bits) and the exact gather at the experiments'
+     shapes (b=12 of 228x304 and b=1 of 240x1216, R 4, offsets
+     clip(N(0, 1.5^2), -4, 4)),
      K10a also 5x5, each timed beside K7 on the same inputs, with the
      library time of F.grid_sample over the stacked grids and the weighted
      sum; K10c gather_probe equal bits to its plain version along both
@@ -1164,11 +1165,22 @@ def main() -> int:
     def conv_flops(b, h, w, c, k):
         return 2 * b * h * w * c * 9 * k
 
+    def k9b_bound(nb, flops):
+        """K9's and K9b's bound for their design, the larger of their bytes'
+        and of their three TF32 passes' on the tensor cores; and their f32
+        FMA bound."""
+        t_tc = 3 * flops / (peak["tf32_tflops"] * 1e12) * 1e3
+        t_bytes = bound(nb, 0)[0]
+        return ((t_tc, "operations") if t_tc >= t_bytes else (t_bytes, "bytes"),
+                bound(nb, flops))
+
     for b, h, w, k in ((1, H, W, 10), (4, H, W, 10), (TRAIN_B, REQ_H, REQ_W, 10),
                        (2, 57, 75, 26)):
         xa, xb = randn(b, CA, h, w), randn(b, CB, h, w)
         wk, bk = randn(k, CA + CB, 3, 3, std=(9 * (CA + CB)) ** -0.5), randn(k, std=0.1)
         out = small_conv3x3_planar(xa, xb, wk, bk)
+        if not torch.equal(out, small_conv3x3_planar(xa, xb, wk, bk)):
+            raise AssertionError(f"small_conv3x3 B={b} {h}x{w} K={k}: two runs, other bits")
         # held against the plain version in float64: cuDNN's f32 backward
         # of this conv is itself ~1e-4 off at these sums (the forward's log
         # line shows how far its f32 forward is)
@@ -1176,22 +1188,17 @@ def main() -> int:
         torch.cuda.synchronize()
         err, rel = rel_err(out.double(), ref)
         log(f"[kernel] small_conv3x3 B={b}: plain f32 vs float64 rel "
-            f"{rel_err(small_conv3x3_plain(xa, xb, wk, bk).double(), ref)[1]:.3e}")
+            f"{rel_err(small_conv3x3_plain(xa, xb, wk, bk).double(), ref)[1]:.3e}; "
+            f"equal bits in two runs")
         del ref
         ms = time_ms(lambda: small_conv3x3_planar(xa, xb, wk, bk))
         plain_ms = time_ms(lambda: small_conv3x3_plain(xa, xb, wk, bk))
-        bnd = bound(nbytes(xa, xb, wk, bk, out), conv_flops(b, h, w, CA + CB, k))
-        log(f"[kernel] small_conv3x3 B={b} {h}x{w} K={k}:")
+        bnd, fma = k9b_bound(nbytes(xa, xb, wk, bk, out), conv_flops(b, h, w, CA + CB, k))
+        log(f"[kernel] small_conv3x3 B={b} {h}x{w} K={k}: bound {bnd[0]:.4f} ms ({bnd[1]}; "
+            f"3 TF32 passes on the tensor cores, {peak['tf32_tflops']} TFLOP/s), "
+            f"f32 FMA bound {fma[0]:.4f} ms")
         # the library call is the plain version itself: F.conv2d over the concat
         record("small_conv3x3", b, err, rel, 1e-4, ms, plain_ms, plain_ms, bnd)
-
-    def k9b_bound(nb, flops):
-        """K9b's bound for its design, the larger of its bytes' and of its
-        three TF32 passes' on the tensor cores; and its f32 FMA bound."""
-        t_tc = 3 * flops / (peak["tf32_tflops"] * 1e12) * 1e3
-        t_bytes = bound(nb, 0)[0]
-        return ((t_tc, "operations") if t_tc >= t_bytes else (t_bytes, "bytes"),
-                bound(nb, flops))
 
     # the train step's plane at B=12 and B=1 (K 10, the kernel line's), then
     # B=2 of an odd 57x75 plane with the offset heads' K 26 and K 1
@@ -1404,8 +1411,9 @@ def main() -> int:
     def devtools_kernels():
         """K10a, K10b and K10c against their plain versions, timed, at the
         experiments' shapes and inputs."""
+        # operations a pixel: K10a's window; K10b's two tent rows a neighbour
         k10_flops = {"deform_windowed": 2 * 9 * (2 * RADIUS + 2) ** 2,
-                     "deform_colgather": 9 * (2 * RADIUS + 2) * 8 + 18}
+                     "deform_colgather": 9 * 2 * 8 + 18}
         for b, h, w in exp_deform3.SHAPES:
             feat, off, aff = exp_deform3.experiment_inputs(b, h, w, dev)
             f = feat[:, 0]
@@ -1422,6 +1430,9 @@ def main() -> int:
                 if not rel_exact <= 1e-5:
                     raise AssertionError(f"{kname} B={b} {h}x{w}: relative error "
                                          f"{rel_exact:.3e} against the exact gather")
+                if kname == "deform_colgather" and not torch.equal(out, ref):
+                    raise AssertionError(f"{kname} B={b} {h}x{w}: other bits than its plain "
+                                         f"version")
                 log(f"[devtools] {kname} B={b} {h}x{w}: equal bits {torch.equal(out, ref)}, "
                     f"rel {rel_exact:.3e} against the exact gather")
                 record(kname, b, err, rel, 1e-5, time_ms(fn), time_ms(plain, reps=2),

@@ -17,11 +17,25 @@ lane gather has no such row). 3x3 only: the TPU kernel's padding of R + 2
 is one row short for a 5x5 stencil's shift of 2, so other kernels raise.
 Forward only, as the TPU prototype.
 
+What bounds it on the card: its bytes, 116 a pixel (the plane, 27 offset
+and affinity planes, the output). The TPU kernel walks all 2R + 2 rows of
+the window (it had sublane shifts and no gather), which on the card is
+bound by instruction issue. The tent is non-zero on two rows at most,
+floor(ty) and floor(ty) + 1, so the kernel sums only those that lie in the
+window, with the plain version's own weight expression and in its order:
+the same bits for any finite plane (``deform_colgather_two_rows`` is that
+arithmetic in PyTorch, for the CPU tests). A thread owns 4 pixels of a row
+and reads the 27 planes as 16-byte loads where W % 4 == 0; a block stages
+its 16 x 64 tile of the plane and the halo by cp.async (``colgather_map``
+mirrors the pixel-to-thread map).
+
 ``main()`` runs the TPU experiment's comparison at NYU b=12 of 228x304 and
 KITTI b=1 of 240x1216 with offsets clip(N(0, 1.5^2), -4, 4): K10b's largest
 error against the exact gather, and the device times of K10b, the plain
 windowed form and K7 (``deform_prop``, the exact gather the model runs).
 It needs the card unless it is given ``device="cpu"`` (then no times).
+``deform_colgather_case`` builds the same kind of inputs from a seeded
+generator for ``tools/profile_kernels.py``.
 
     python -m nlspn_eccv20_tpu_torch.devtools.exp_deform3
 """
@@ -37,7 +51,8 @@ import torch.nn.functional as F
 from nlspn_eccv20_tpu_torch.device import resolve_device
 from nlspn_eccv20_tpu_torch.devtools.measure import measure
 from nlspn_eccv20_tpu_torch.ops.kernels import build
-from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop
+from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import deform_prop, sampling_grid
+from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import case_rng
 from nlspn_eccv20_tpu_torch.ops.propagate import (
     neighbor_shifts,
     propagate_deformable_exact_planar,
@@ -49,6 +64,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"deform_colgather_f32": [_P] * 4 + [_I] * 4 + [_P]}
 SHAPES = ((12, 228, 304), (1, 240, 1216))   # NYU train batch, KITTI b=1
 RADIUS = 4
+# csrc/deform_colgather.cu's layout: a thread's pixels along a row, a
+# block's tile (rows, columns) and its threads
+COLGATHER_PX, COLGATHER_TILE, COLGATHER_THREADS = 4, (16, 64), 256
 
 
 def _check(feat, off, aff, kernel, radius):
@@ -94,6 +112,62 @@ def deform_colgather_plain(feat: torch.Tensor, off: torch.Tensor, aff: torch.Ten
             neighk = neighk + wy * (g0 * (1.0 - fx) + g1 * fx)
         acc = acc + a * neighk
     return acc
+
+
+def deform_colgather_two_rows(feat: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
+                              radius: int = 4) -> torch.Tensor:
+    """K10b's arithmetic as ``csrc/deform_colgather.cu`` does it, for the
+    CPU tests: per neighbour only the tent's rows u0 = floor(ty) (clamped
+    to +-(R + 3)) and u0 + 1, each where it lies in the window, added in
+    that order to a sum that starts at +0, each weight ``tent(ty - u)``;
+    the column taps, their zeros outside the image and the sum over the
+    neighbours as ``deform_colgather_plain``. Equal bits to it for any
+    finite plane."""
+    _check(feat, off, aff, 3, radius)
+    b, h, w = feat.shape
+    flat = feat.reshape(b, h * w)
+    rows = torch.arange(h).view(1, h, 1)
+    cols = torch.arange(w).view(1, 1, w)
+    acc = torch.zeros_like(feat)
+    for k, (dy, dx) in enumerate(neighbor_shifts(3)):
+        ty, tx = off[:, 2 * k] + dy, off[:, 2 * k + 1] + dx
+        a = aff[:, k]
+        x0f = torch.floor(tx)
+        fx = tx - x0f
+        c = cols + torch.clamp(x0f, -(w + 2), w + 2).long()
+        u0 = torch.clamp(torch.floor(ty), -(radius + 3), radius + 3).long()
+        neighk = torch.zeros_like(feat)
+        for r in (0, 1):
+            u = u0 + r
+            yy = rows + u
+            g = []
+            for xx in (c, c + 1):
+                ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+                idx = (yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)).view(b, -1)
+                g.append(torch.where(ok, torch.gather(flat, 1, idx).view(b, h, w),
+                                     torch.zeros_like(feat)))
+            term = tent(ty - u.float()) * (g[0] * (1.0 - fx) + g[1] * fx)
+            in_window = (u >= dy - radius) & (u <= dy + radius + 1)
+            neighk = torch.where(in_window, neighk + term, neighk)
+        acc = acc + a * neighk
+    return acc
+
+
+def colgather_map(h: int, w: int):
+    """K10b's pixel-to-thread map on one image: {(block row, block column,
+    thread): [(y, x), ...]}, the pixels each thread computes (none for a
+    thread past the image), as ``csrc/deform_colgather.cu`` lays them out."""
+    th, tw = COLGATHER_TILE
+    per_row = tw // COLGATHER_PX
+    out = {}
+    for by in range(-(-h // th)):
+        for bx in range(-(-w // tw)):
+            for t in range(COLGATHER_THREADS):
+                y = by * th + t // per_row
+                xs = bx * tw + COLGATHER_PX * (t % per_row)
+                out[(by, bx, t)] = [(y, x) for x in range(xs, xs + COLGATHER_PX)
+                                    if y < h and x < w]
+    return out
 
 
 def deform_colgather(feat: torch.Tensor, off: torch.Tensor, aff: torch.Tensor,
@@ -144,6 +218,28 @@ def experiment_inputs(b, h, w, device, seed=0):
     aff = (rng.standard_normal((b, h, w, 9)) * 0.11).astype(np.float32)
     return tuple(torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(device)
                  for a in (feat, off, aff))
+
+
+def deform_colgather_case(gen: torch.Generator, device, b: int, h: int, w: int):
+    """Inputs on which K10b is timed on the card, from ``gen``: the
+    experiment's kind (feat N(0, 1), offsets clip(N(0, 1.5^2), -4, 4),
+    affinities N(0, 0.11^2)), drawn with numpy (``case_rng``). Returns
+    ((feat, off, aff, RADIUS), library): the library call is the exact
+    gather through ``F.grid_sample`` over the stacked sampling grids and
+    the weighted sum, which the port never calls."""
+    rng = case_rng(gen)
+    feat = rng.standard_normal((b, h, w)).astype(np.float32)
+    off = np.clip(rng.standard_normal((b, 18, h, w)) * 1.5, -4, 4).astype(np.float32)
+    aff = (rng.standard_normal((b, 9, h, w)) * 0.11).astype(np.float32)
+    feat, off, aff = (torch.from_numpy(a).to(device) for a in (feat, off, aff))
+    shifts = torch.tensor(neighbor_shifts(3), device=device, dtype=torch.float32)
+
+    def library():
+        smp = F.grid_sample(feat[:, None], sampling_grid(off, shifts), mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+        return (smp.view(b, 9, h, w) * aff).sum(1)
+
+    return (feat, off, aff, RADIUS), library
 
 
 def main(device=None, shapes=SHAPES):

@@ -5,8 +5,19 @@ K9 replaces the TPU kernel ``small_conv3x3._fwd_kernel`` (reached from
 ``_fwd_pallas``, ``nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py``); CUDA
 source ``csrc/small_conv3x3.cu``. K9b replaces its backward
 (``_bwd_kernel``, reached from ``_bwd_pallas``); CUDA source
-``csrc/small_conv3x3_bwd.cu``. Each source's header says what bounds it on
-the card and how it is laid out.
+``csrc/small_conv3x3_bwd.cu``. Both run their products on the tensor cores
+as error-compensated 3xTF32 at f32 accuracy (``csrc/wgmma_tf32.cuh``).
+
+What bounds them on the card: in f32 FMAs the forward is 2.2x its bytes at
+NYU's b=12 (572 against 264 us) and the backward 2.2x too, so plain f32
+arithmetic makes them operation-bound (K9's first form ran at 26% of the
+FMA peak). On ``wgmma`` the three TF32 passes fall under the bytes, so
+both designs aim at the bytes: K9 as an implicit GEMM, M the pixels, N
+the K outputs rounded up to 8, the reduction over (channel, tap) in k-steps
+of 8 channels of one tap, its A built in registers from a staged x tile
+with its halo, its weights split once a call; K9b as two such products
+(dx, and dW as split-K over pixel slices). Each source's header gives the
+layout.
 
 The op was built for the heads' stage-2 conv (the JAX package's
 ``models/nlspn.Heads``): xa the three heads' stage-1 outputs, xb ``fe1``,
@@ -19,9 +30,10 @@ Neither model routes through it; it is an op-library primitive, and
 ``small_conv3x3_bwd_plain`` on a CPU tensor. float32 only: bf16 is ROADMAP
 §A's bf16 item, for every kernel at once.
 
-For the CPU tests, ``bwd_plan`` mirrors K9b's launches and
-``small_conv3x3_bwd_split_plain`` its arithmetic (the TF32 split, in the
-kernel's order); ``small_conv3x3_case`` and ``small_conv3x3_bwd_case``
+For the CPU tests, ``fwd_plan`` and ``bwd_plan`` mirror the kernels'
+launches, and ``small_conv3x3_split_plain`` and
+``small_conv3x3_bwd_split_plain`` their arithmetic (the TF32 split, in the
+kernels' order); ``small_conv3x3_case`` and ``small_conv3x3_bwd_case``
 build the inputs on which the card times both kernels.
 """
 
@@ -192,6 +204,83 @@ small_conv3x3_planar.launches = 0
 small_conv3x3_bwd.launches = 0
 
 HEADS_CA, HEADS_CB = 192, 64   # the heads' stage 2: three 64-wide heads, fe1
+
+# ---- K9's design, mirrored for the CPU tests ----
+# (csrc/small_conv3x3.cu: the block tiles, the channel splits, shared memory)
+FWD_THREADS, FWD_MIN_BLOCKS = 256, 2   # two warpgroups, two blocks an SM
+FWD_TC, FWD_RP, FWD_CH = 32, 40, 8     # tile columns; floats a staged row; channels a chunk
+FWD_STAGES, FWD_MAX_SPLIT = 3, 8
+
+
+def _fwd_plane_floats(rows):
+    return rows * FWD_RP + ((8 - rows * FWD_RP % 16) + 16) % 16
+
+
+def fwd_plan(b: int, h: int, w: int, ca: int, cb: int, k: int, sms: int = 132):
+    """K9's launches as ``csrc/small_conv3x3.cu`` plans them: ``n`` = K
+    rounded up to 8 (wgmma's N), ``mt`` M-tiles of 64 pixels (4 rows x 16
+    columns) a warpgroup, a block tile of ``tile`` = (8 mt / 2, 32) pixels,
+    ``chunks`` of 8 channels split over ``splits`` blocks a tile of
+    ``chunks_per`` each (the split with the fewest chunk-steps, plus two of
+    pipeline fill, over its waves of 2 blocks an SM), ``grid`` (x, y, b
+    splits), ``smem`` bytes a block (three stages of a chunk's x tile with
+    its halo and its split weights) and ``scratch`` floats (the split
+    weights, and the partial sums where there are splits)."""
+    n = -(-k // 8) * 8
+    mt = 4 if n <= 16 else 2
+    tr = 8 * mt // 2
+    tiles = b * -(-h // tr) * -(-w // FWD_TC)
+    chunks = -(-(ca + cb) // FWD_CH)
+    slots = FWD_MIN_BLOCKS * sms
+    best = None
+    for ns in range(1, min(FWD_MAX_SPLIT, chunks) + 1):
+        per = -(-chunks // ns)
+        splits = -(-chunks // per)
+        cost = -(-tiles * splits // slots) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, per, splits)
+    _, per, splits = best
+    weights = chunks * 9 * 16 * n
+    return {"n": n, "mt": mt, "tile": (tr, FWD_TC), "tiles": tiles, "chunks": chunks,
+            "chunks_per": per, "splits": splits,
+            "grid": (-(-w // FWD_TC), -(-h // tr), b * splits),
+            "smem": FWD_STAGES * (FWD_CH * _fwd_plane_floats(tr + 2) + 9 * 2 * 8 * n) * 4,
+            "scratch": weights + (splits * b * k * h * w if splits > 1 else 0),
+            "threads": FWD_THREADS, "regs": 65536 // (FWD_THREADS * FWD_MIN_BLOCKS)}
+
+
+def small_conv3x3_split_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor, sms: int = 132, passes: int = 3) -> torch.Tensor:
+    """K9's arithmetic emulated in float32 on the CPU, in the kernel's
+    order (tests only): per split of ``fwd_plan``, starting from the bias
+    (the first split) or zero, each chunk of 8 channels summed apart over
+    its 9 taps, a k-step a tap of 3xTF32 products (``passes`` as
+    ``_mma_3x``), then added to the split's sum; the splits added in
+    order. Returns (B, K, H, W)."""
+    bsz, ca, h, wd = xa.shape
+    k = w.shape[0]
+    c = ca + xb.shape[1]
+    plan = fwd_plan(bsz, h, wd, ca, xb.shape[1], k, sms)
+    n, cp = plan["n"], plan["chunks"] * FWD_CH
+    xp = F.pad(torch.cat([xa, xb], 1).float(), (1, 1, 1, 1, 0, cp - c))
+    wm = F.pad(w.float(), (0, 0, 0, 0, 0, cp - c, 0, n - k))          # (n, cp, 3, 3)
+    cols = [xp[:, :, ty:ty + h, tx:tx + wd].permute(0, 2, 3, 1).reshape(-1, cp)
+            for ty in range(3) for tx in range(3)]                     # per tap (P, cp)
+    total = None
+    for s in range(plan["splits"]):
+        part = torch.zeros(cols[0].shape[0], n)
+        if s == 0:
+            part = part + F.pad(b.float(), (0, n - k))
+        for ch in range(s * plan["chunks_per"],
+                        min((s + 1) * plan["chunks_per"], plan["chunks"])):
+            sl = slice(FWD_CH * ch, FWD_CH * ch + FWD_CH)
+            acc = torch.zeros_like(part)
+            for tap in range(9):
+                acc = _mma_3x(acc, cols[tap][:, sl], wm[:, sl, tap // 3, tap % 3].t(), passes)
+            part = part + acc
+        total = part if total is None else total + part
+    return total[:, :k].reshape(bsz, h, wd, k).permute(0, 3, 1, 2).contiguous()
+
 
 # ---- K9b's design, mirrored for the CPU tests ----
 # (csrc/small_conv3x3_bwd.cu: dx_kernel's and wgrad_kernel's tiles and

@@ -167,8 +167,12 @@ def test_cases_are_seeded_and_their_library_computes_the_same_function():
 
 
 def test_profile_kernels_times_k9_and_k9b_at_the_four_shapes():
+    """The four shapes of both; K9 also at the serving shapes, b=1 and b=4
+    of 256x320."""
     for name, src in (("K9", "small_conv3x3"), ("K9b", "small_conv3x3_bwd")):
         cases = [c for c in profile_kernels.CASES if c[0] == name]
+        serving = [(name, 1, 256, 320, {"k": 10}), (name, 4, 256, 320, {"k": 10})]
         assert cases == [(name, 12, 228, 304, {"k": 10}), (name, 1, 228, 304, {"k": 10}),
-                         (name, 2, 57, 75, {"k": 26}), (name, 1, 228, 304, {"k": 1})]
+                         (name, 2, 57, 75, {"k": 26}), (name, 1, 228, 304, {"k": 1})] + (
+            serving if name == "K9" else [])
         assert profile_kernels.SOURCES[name] == [src]
