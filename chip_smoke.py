@@ -116,18 +116,20 @@ Phases (any failure exits non-zero and prints no result):
      once and K7 once, equal to impl="xla", and under autograd with offsets
      in the window K7 and K8 once each, its gradients equal to impl="xla"'s;
  11. the devtools prototypes (nlspn_eccv20_tpu_torch.devtools): K10a
-     deform_windowed and K10b deform_colgather against their plain
-     versions (K10b equal bits) and the exact gather at the experiments'
+     deform_windowed and K10b deform_colgather equal bits to their plain
+     versions and within 1e-5 of the exact gather at the experiments'
      shapes (b=12 of 228x304 and b=1 of 240x1216, R 4, offsets
-     clip(N(0, 1.5^2), -4, 4)),
-     K10a also 5x5, each timed beside K7 on the same inputs, with the
-     library time of F.grid_sample over the stacked grids and the weighted
-     sum; K10c gather_probe equal bits to its plain version along both
-     axes, negative indices too, its library time torch.gather; then the
-     devtools path with the counters at 0: propagate_deformable_pallas
-     forward and backward at b=12 (K10a and K8 against the plain versions,
-     offsets inside the window and beyond it, to +-5.5),
-     exp_deform3.main() and exp_deform2.main();
+     clip(N(0, 1.5^2), -4, 4)), each timed beside K7 on the same inputs,
+     with the library time of F.grid_sample over the stacked grids and the
+     weighted sum; K10a also 5x5 at b=1 of 228x304, equal bits, timed
+     beside its library time and its bytes bound; K10c gather_probe equal
+     bits to its plain version along both axes, negative indices too, its
+     library time torch.gather, and beside it the launch floor (a
+     one-element zero_, timed the same way); then the devtools path with
+     the counters at 0: propagate_deformable_pallas forward and backward
+     at b=12 (K10a and K8 against the plain versions within 1e-5, offsets
+     inside the window and beyond it, to +-5.5), exp_deform3.main() and
+     exp_deform2.main();
  12. the interleave microbenchmarks (devtools.microbench_interleave and
      microbench_asm): K11a interleave_asm, K11b interleave_strided, K11c
      tile_repeat_probe and K11d interleave_onehot (with the one-hot E)
@@ -153,7 +155,8 @@ serving and training paths do.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
 prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop,
 prop_loop_bwd, deform_windowed and deform_colgather <= 1e-5 (the
-forwards: same operations in the same order, equal bits expected; the
+forwards: same operations in the same order, equal bits expected, and
+required of deform_windowed and deform_colgather; the
 backwards: sums of at most 9, or (2R+2)^2 = 100,
 products a neighbour, and of 12 steps, in another order),
 decode_aff_tail(_bwd), dep_encode_front(_bwd) and small_conv3x3(_bwd)
@@ -1400,20 +1403,25 @@ def main() -> int:
     # ---- 11. the devtools prototypes ----
     t_devtools = time.perf_counter()
 
-    def windowed_library(f, off, aff):
+    shifts5 = torch.tensor(neighbor_shifts(5), device=dev, dtype=torch.float32)
+
+    def windowed_library(f, off, aff, shifts=shifts3):
         """K10a's and K10b's function (the exact gather inside the window)
         through F.grid_sample over the stacked grids and the weighted sum."""
         b, h, w = f.shape
-        smp = F.grid_sample(f[:, None], sampling_grid(off, shifts3), mode="bilinear",
+        smp = F.grid_sample(f[:, None], sampling_grid(off, shifts), mode="bilinear",
                             padding_mode="zeros", align_corners=True)
         return (smp.view(b, -1, h, w) * aff).sum(1)
 
     def devtools_kernels():
         """K10a, K10b and K10c against their plain versions, timed, at the
         experiments' shapes and inputs."""
-        # operations a pixel: K10a's window; K10b's two tent rows a neighbour
-        k10_flops = {"deform_windowed": 2 * 9 * (2 * RADIUS + 2) ** 2,
-                     "deform_colgather": 9 * 2 * 8 + 18}
+        # operations a pixel, a neighbour: K10a's 2 x 2 tent cells (2 floors
+        # and their 4 clamps, the 2 second cells, 4 weights of 2 operations,
+        # 4 taps and 2 rows of a product and a sum each, the affinity's
+        # product and sum); K10b's two tent rows
+        k10a_ops = 2 + 4 + 2 + 4 * 2 + 4 * 2 + 2 * 2 + 2
+        k10_flops = {"deform_windowed": 9 * k10a_ops, "deform_colgather": 9 * 2 * 8 + 18}
         for b, h, w in exp_deform3.SHAPES:
             feat, off, aff = exp_deform3.experiment_inputs(b, h, w, dev)
             f = feat[:, 0]
@@ -1430,11 +1438,11 @@ def main() -> int:
                 if not rel_exact <= 1e-5:
                     raise AssertionError(f"{kname} B={b} {h}x{w}: relative error "
                                          f"{rel_exact:.3e} against the exact gather")
-                if kname == "deform_colgather" and not torch.equal(out, ref):
+                if not torch.equal(out, ref):
                     raise AssertionError(f"{kname} B={b} {h}x{w}: other bits than its plain "
                                          f"version")
-                log(f"[devtools] {kname} B={b} {h}x{w}: equal bits {torch.equal(out, ref)}, "
-                    f"rel {rel_exact:.3e} against the exact gather")
+                log(f"[devtools] {kname} B={b} {h}x{w}: equal bits, rel {rel_exact:.3e} "
+                    f"against the exact gather")
                 record(kname, b, err, rel, 1e-5, time_ms(fn), time_ms(plain, reps=2),
                        time_ms(lambda: windowed_library(f, off, aff)),
                        bound(nbytes(f, off, aff, out), b * h * w * k10_flops[kname]),
@@ -1445,11 +1453,16 @@ def main() -> int:
         f = randn(1, REQ_H, REQ_W)
         off = (randn(1, 50, REQ_H, REQ_W, std=1.5)).clamp(-RADIUS, RADIUS).contiguous()
         aff = randn(1, 25, REQ_H, REQ_W, std=0.11)
-        _, rel = rel_err(deform_windowed(f, off, aff, 5, RADIUS),
-                         propagate_deformable_windowed_planar(f, off, aff, 5, RADIUS))
-        if not rel <= 1e-5:
-            raise AssertionError(f"deform_windowed 5x5: rel {rel:.3e}")
-        log(f"[devtools] deform_windowed 5x5 B=1 {REQ_H}x{REQ_W}: rel {rel:.3e}")
+        fn = lambda: deform_windowed(f, off, aff, 5, RADIUS)
+        plain = lambda: propagate_deformable_windowed_planar(f, off, aff, 5, RADIUS)
+        out, ref = fn(), plain()
+        if not torch.equal(out, ref):
+            raise AssertionError("deform_windowed 5x5: other bits than its plain version")
+        log(f"[devtools] deform_windowed 5x5 B=1 {REQ_H}x{REQ_W}: equal bits")
+        record("deform_windowed", 1, *rel_err(out, ref), 1e-5, time_ms(fn),
+               time_ms(plain, reps=2), time_ms(lambda: windowed_library(f, off, aff, shifts5)),
+               bound(nbytes(f, off, aff, out), REQ_H * REQ_W * 25 * k10a_ops),
+               main_b=TRAIN_B, shape=f" 5x5 {REQ_H}x{REQ_W}")
         # K10c on the probe's block, its indices and negative ones
         x, idx = exp_deform2.probe_inputs(dev)
         neg = torch.randint(-300, 300, idx.shape, generator=gen, dtype=torch.int32).to(dev)
@@ -1460,10 +1473,16 @@ def main() -> int:
             log(f"[devtools] gather_probe (64, 128) axis {axis}: equal bits, indices "
                 f"in [0, 64) and in [-300, 300)")
         ind64 = idx.long()
+        probe_bound = bound(nbytes(x, idx, x), x.numel())
         record("gather_probe", 1, 0.0, 0.0, 0.0, time_ms(lambda: probe_gather(x, idx, 1)),
                time_ms(lambda: probe_gather_plain(x, idx, 1)),
-               time_ms(lambda: torch.gather(x, 1, ind64)),
-               bound(nbytes(x, idx, x), x.numel()))
+               time_ms(lambda: torch.gather(x, 1, ind64)), probe_bound)
+        # the launch floor: one kernel that does no work, timed as gather_probe
+        one = torch.zeros(1, device=dev)
+        floor_ms = time_ms(lambda: one.zero_())
+        log(f"[devtools] launch floor: a one-element zero_ {floor_ms:.4f} ms a call "
+            f"(CUDA-graph replay of 20 calls); gather_probe's bound with it "
+            f"{max(floor_ms, probe_bound[0]):.4f} ms, its bytes {probe_bound[0]:.5f} ms")
 
     def devtools_path():
         """The devtools entry points with the counters at 0: K10a's

@@ -35,7 +35,8 @@ error against the exact gather, and the device times of K10b, the plain
 windowed form and K7 (``deform_prop``, the exact gather the model runs).
 It needs the card unless it is given ``device="cpu"`` (then no times).
 ``deform_colgather_case`` builds the same kind of inputs from a seeded
-generator for ``tools/profile_kernels.py``.
+generator for ``tools/profile_kernels.py`` (``experiment_case``, which
+K10a's case shares).
 
     python -m nlspn_eccv20_tpu_torch.devtools.exp_deform3
 """
@@ -220,25 +221,35 @@ def experiment_inputs(b, h, w, device, seed=0):
                  for a in (feat, off, aff))
 
 
-def deform_colgather_case(gen: torch.Generator, device, b: int, h: int, w: int):
-    """Inputs on which K10b is timed on the card, from ``gen``: the
-    experiment's kind (feat N(0, 1), offsets clip(N(0, 1.5^2), -4, 4),
-    affinities N(0, 0.11^2)), drawn with numpy (``case_rng``). Returns
-    ((feat, off, aff, RADIUS), library): the library call is the exact
-    gather through ``F.grid_sample`` over the stacked sampling grids and
-    the weighted sum, which the port never calls."""
+def experiment_case(gen: torch.Generator, device, b: int, h: int, w: int,
+                    kernel: int = 3):
+    """The experiment's kind of inputs for a ``kernel`` x ``kernel``
+    stencil, from ``gen``: feat N(0, 1), offsets clip(N(0, 1.5^2), -4, 4),
+    affinities N(0, 0.11^2), drawn with numpy (``case_rng``). Returns
+    ((feat, off, aff), library): the library call is the exact gather
+    through ``F.grid_sample`` over the stacked sampling grids and the
+    weighted sum, which the port never calls."""
+    k2 = kernel * kernel
     rng = case_rng(gen)
     feat = rng.standard_normal((b, h, w)).astype(np.float32)
-    off = np.clip(rng.standard_normal((b, 18, h, w)) * 1.5, -4, 4).astype(np.float32)
-    aff = (rng.standard_normal((b, 9, h, w)) * 0.11).astype(np.float32)
+    off = np.clip(rng.standard_normal((b, 2 * k2, h, w)) * 1.5, -4, 4).astype(np.float32)
+    aff = (rng.standard_normal((b, k2, h, w)) * 0.11).astype(np.float32)
     feat, off, aff = (torch.from_numpy(a).to(device) for a in (feat, off, aff))
-    shifts = torch.tensor(neighbor_shifts(3), device=device, dtype=torch.float32)
+    shifts = torch.tensor(neighbor_shifts(kernel), device=device, dtype=torch.float32)
 
     def library():
         smp = F.grid_sample(feat[:, None], sampling_grid(off, shifts), mode="bilinear",
                             padding_mode="zeros", align_corners=True)
-        return (smp.view(b, 9, h, w) * aff).sum(1)
+        return (smp.view(b, k2, h, w) * aff).sum(1)
 
+    return (feat, off, aff), library
+
+
+def deform_colgather_case(gen: torch.Generator, device, b: int, h: int, w: int):
+    """Inputs on which K10b is timed on the card, from ``gen``
+    (``experiment_case``, 3x3). Returns ((feat, off, aff, RADIUS),
+    library)."""
+    (feat, off, aff), library = experiment_case(gen, device, b, h, w)
     return (feat, off, aff, RADIUS), library
 
 

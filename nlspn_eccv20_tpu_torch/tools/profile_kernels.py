@@ -31,7 +31,9 @@ which take the kernels' scalar forms; the op library's K9
 228x304 with K=10, at b=2 of an odd 57x75 plane with K=26 and with K=1,
 K9 also at the serving shapes, b=1 and b=4 of 256x320; the devtools'
 K10b ``deform_colgather`` at NYU's b=12 of 228x304 and KITTI's b=1 of
-240x1216, on the experiment's offsets clip(N(0, 1.5^2), -4, 4)) it
+240x1216, and K10a ``deform_windowed`` at the same two and with 5x5
+neighbours at b=1 of 228x304, on the experiment's offsets clip(N(0,
+1.5^2), -4, 4)) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
@@ -40,7 +42,7 @@ computes, 12 launches of K1b, the per-step route; for K6 likewise 12
 launches of K1; for K11a, K11b and K11d the ``.contiguous()`` copy of the
 permuted window, and for K11d also, as ``matmul_ms``, ``torch.matmul`` of
 the same 4B GEMMs on operands laid out for it beforehand; for K9 the
-``F.conv2d`` over the concat, for K9b cuDNN's backward of it; for K10b the
+``F.conv2d`` over the concat, for K9b cuDNN's backward of it; for K10b and K10a the
 exact gather through ``F.grid_sample`` and the weighted sum) as CUDA-graph replays
 (``devtools.measure``), and splits the call's device time into its CUDA
 kernels with ``torch.profiler`` (per call, over ``CALLS`` calls). The
@@ -66,6 +68,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from nlspn_eccv20_tpu_torch.devtools.exp_deform3 import deform_colgather, deform_colgather_case
+from nlspn_eccv20_tpu_torch.devtools.exp_deform_prop_kernel import (
+    deform_windowed, deform_windowed_case)
 from nlspn_eccv20_tpu_torch.devtools.measure import measure
 from nlspn_eccv20_tpu_torch.devtools.microbench_asm import (
     interleave_case, interleave_onehot, interleave_strided, onehot_operands)
@@ -93,7 +97,8 @@ SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["d
            "K5": ["dep_encode_front_bwd"], "K6": ["prop_loop", "prop_step"],
            "K6b": ["prop_loop", "prop_loop_bwd", "prop_step_bwd"], "K7": ["deform_prop"],
            "K8": ["deform_prop_bwd"], "K9": ["small_conv3x3"], "K9b": ["small_conv3x3_bwd"],
-           "K10b": ["deform_colgather"], "K11a": ["interleave_asm"],
+           "K10a": ["deform_windowed"], "K10b": ["deform_colgather"],
+           "K11a": ["interleave_asm"],
            "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
 # K, C; K2's y1: the intermediate written, as in training), K5's and K3's
@@ -134,9 +139,12 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
            for b, h, w, kk in ((12, 228, 304, 10), (1, 228, 304, 10), (2, 57, 75, 26),
                                (1, 228, 304, 1))),
          ("K9", 1, 256, 320, {"k": 10}), ("K9", 4, 256, 320, {"k": 10}),
-         ("K10b", 12, 228, 304, {}), ("K10b", 1, 240, 1216, {})]
+         ("K10b", 12, 228, 304, {}), ("K10b", 1, 240, 1216, {}),
+         ("K10a", 12, 228, 304, {}), ("K10a", 1, 240, 1216, {}),
+         ("K10a", 1, 228, 304, {"kernel": 5})]
 # (K11's height and width are those of the padded phase planes; K9's and
-# K9b's options: K, the outputs, beside the heads' Ca = 192 and Cb = 64)
+# K9b's options: K, the outputs, beside the heads' Ca = 192 and Cb = 64;
+# K10a's: the stencil)
 
 
 def onehot_matmul(ph, e):
@@ -198,6 +206,9 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K10b":
         args, library = deform_colgather_case(gen, dev, b, h, w)
         kernel = lambda: deform_colgather(*args)
+    elif kname == "K10a":
+        args, library = deform_windowed_case(gen, dev, b, h, w, **opts)
+        kernel = lambda: deform_windowed(*args)
     elif kname in ("K11a", "K11b", "K11d"):
         (ph, e), library = interleave_case(gen, dev, b, h, w)
         kernel = {"K11a": lambda: interleave_asm(ph), "K11b": lambda: interleave_strided(ph),
