@@ -1,21 +1,28 @@
-"""Configuration for the PyTorch/CUDA port of NLSPN.
+"""Configuration and command line of the PyTorch/CUDA port of NLSPN.
 
 A copy of the JAX package's ``Config`` dataclass with the same field names,
 defaults and validation, so that one dict builds both packages' configs:
-``Config(**dataclasses.asdict(jax_cfg))``. Fields that only steer the JAX
-package's backends (``platform``, ``prop_loop``, ``fused_kernels``,
-``compile_cache*``) are kept for that round trip and are not read by the
-port. ``prop_impl`` is read for one route only: ``'pallas'`` with
-``use_GRU=False`` runs the whole propagation loop as one ``prop_loop``
-kernel, as it takes the JAX package to its whole-loop kernel; ``'auto'``
-and ``'xla'`` keep a ``prop_step`` launch per step. The CLI parser is not
-ported yet.
+``Config(**dataclasses.asdict(jax_cfg))``; ``build_parser`` has the same
+flags (with the same ``--name`` / ``--no_name`` pairs), so the same command
+line parses to the same fields in both.
+
+``platform`` is read by ``main`` only: ``None`` or ``'gpu'`` runs on the
+CUDA card, ``'cpu'`` on the CPU with every kernel's plain version; any
+other value raises. Fields that only steer the JAX package's backends
+(``prop_loop``, ``fused_kernels``, ``compile_cache*``, the shard counts)
+are kept for the round trip and are not read by the port. ``prop_impl`` is
+read for one route only: ``'pallas'`` with ``use_GRU=False`` runs the whole
+propagation loop as one ``prop_loop`` kernel, as it takes the JAX package
+to its whole-loop kernel; ``'auto'`` and ``'xla'`` keep a ``prop_step``
+launch per step.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -196,3 +203,146 @@ class Config:
 
     def replace(self, **kwargs) -> "Config":
         return dataclasses.replace(self, **kwargs)
+
+
+def _add_bool_flag(parser: argparse.ArgumentParser, name: str, default: bool,
+                   help_: str = ""):
+    """--name / --no_name paired flags (e.g. --augment / --no_augment)."""
+    group = parser.add_mutually_exclusive_group()
+    group.add_argument(f"--{name}", dest=name, action="store_true", help=help_)
+    group.add_argument(f"--no_{name}", dest=name, action="store_false")
+    parser.set_defaults(**{name: default})
+
+
+def build_parser() -> argparse.ArgumentParser:
+    d = Config()
+    p = argparse.ArgumentParser(description="NLSPN on a CUDA card (PyTorch)")
+
+    # Dataset
+    p.add_argument("--dir_data", type=str, default=d.dir_data)
+    p.add_argument("--data_name", type=str, default=d.data_name,
+                   choices=("NYU", "KITTIDC", "Synthetic"))
+    p.add_argument("--split_json", type=str, default=d.split_json)
+    p.add_argument("--patch_height", type=int, default=d.patch_height)
+    p.add_argument("--patch_width", type=int, default=d.patch_width)
+    p.add_argument("--top_crop", type=int, default=d.top_crop)
+
+    # Hardware
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--num_threads", type=int, default=d.num_threads)
+    p.add_argument("--platform", type=str, default=d.platform,
+                   help="gpu (the CUDA card, the default) or cpu (the plain "
+                        "versions of the kernels)")
+    p.add_argument("--num_data_shards", type=int, default=d.num_data_shards)
+    p.add_argument("--num_spatial_shards", type=int, default=d.num_spatial_shards)
+
+    # Network
+    p.add_argument("--model_name", type=str, default=d.model_name, choices=("NLSPN",))
+    p.add_argument("--affinity_gamma", type=float, default=d.affinity_gamma)
+    p.add_argument("--legacy", action="store_true", default=False)
+
+    # Training
+    p.add_argument("--loss", type=str, default=d.loss)
+    p.add_argument("--pretrain", type=str, default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--test_only", action="store_true")
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--max_depth", type=float, default=d.max_depth)
+    _add_bool_flag(p, "augment", d.augment)
+    p.add_argument("--num_sample", type=int, default=d.num_sample)
+    p.add_argument("--test_crop", action="store_true", default=False)
+    p.add_argument("--test_pipeline", action="store_true", default=False)
+    p.add_argument("--precision", type=str, default=d.precision, choices=("f32", "bf16"))
+
+    # Summary
+    p.add_argument("--num_summary", type=int, default=d.num_summary)
+
+    # Optimizer
+    p.add_argument("--decay", type=str, default=d.decay)
+    p.add_argument("--gamma", type=str, default=d.gamma)
+    p.add_argument("--optimizer", type=str, default=d.optimizer,
+                   choices=("SGD", "ADAM", "RMSprop"))
+    p.add_argument("--momentum", type=float, default=d.momentum)
+    p.add_argument("--betas", type=float, nargs=2, default=list(d.betas))
+    p.add_argument("--epsilon", type=float, default=d.epsilon)
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    _add_bool_flag(p, "warm_up", d.warm_up)
+    p.add_argument("--lr", type=float, default=d.lr)
+
+    # Logs
+    p.add_argument("--save", type=str, default=d.save)
+    p.add_argument("--save_dir", type=str, default="")
+    _add_bool_flag(p, "save_full", d.save_full)
+    p.add_argument("--save_image", action="store_true", default=False)
+    p.add_argument("--save_result_only", action="store_true", default=False)
+    p.add_argument("--experiments_dir", type=str, default=d.experiments_dir)
+
+    # GRU / model options
+    p.add_argument("--GRU_hidden_dim", type=int, default=d.GRU_hidden_dim)
+    p.add_argument("--GRU_input_dim", type=int, default=d.GRU_input_dim)
+    _add_bool_flag(p, "use_GRU", d.use_GRU)
+    _add_bool_flag(p, "use_S2D", d.use_S2D)
+    _add_bool_flag(p, "zero_init_aff", d.zero_init_aff)
+    p.add_argument("--network", type=str, default=d.network,
+                   choices=("resnet18", "resnet34"))
+    p.add_argument("--from_scratch", action="store_true", default=False)
+    p.add_argument("--dir_pretrain_backbone", type=str,
+                   default=d.dir_pretrain_backbone,
+                   help="directory of torchvision {resnet18,resnet34}.pth "
+                        "ImageNet weights")
+    p.add_argument("--prop_time", type=int, default=d.prop_time)
+    _add_bool_flag(p, "preserve_input", d.preserve_input)
+    p.add_argument("--always_clip", action="store_true", default=False)
+    p.add_argument("--prop_kernel", type=int, default=d.prop_kernel)
+    p.add_argument("--affinity", type=str, default=d.affinity,
+                   choices=("AS", "ASS", "TC", "TGASS"))
+    _add_bool_flag(p, "conf_prop", d.conf_prop)
+    p.add_argument("--offset", action="store_true", default=False)
+    p.add_argument("--offset_window", type=int, default=d.offset_window)
+    p.add_argument("--offset_neighbor_loop", type=str,
+                   default=d.offset_neighbor_loop, choices=("unroll", "scan"))
+    p.add_argument("--prop_impl", type=str, default=d.prop_impl,
+                   choices=("auto", "xla", "pallas"))
+    p.add_argument("--prop_loop", type=str, default=d.prop_loop,
+                   choices=("unroll", "scan"))
+    p.add_argument("--fused_kernels", type=str, default=d.fused_kernels,
+                   choices=("auto", "on", "off"))
+
+    # Profiling
+    p.add_argument("--profile", action="store_true", default=False)
+    p.add_argument("--profile_dir", type=str, default="")
+    # Compilation cache (the JAX package's; not read by the port)
+    _add_bool_flag(p, "compile_cache", d.compile_cache)
+    p.add_argument("--compile_cache_dir", type=str, default=d.compile_cache_dir)
+    return p
+
+
+def parse_args(argv=None) -> Config:
+    ns = build_parser().parse_args(argv)
+    known = {f.name for f in dataclasses.fields(Config)}
+    kwargs = {k: v for k, v in vars(ns).items() if k in known}
+    if isinstance(kwargs.get("betas"), list):
+        kwargs["betas"] = tuple(kwargs["betas"])
+    return check_args(Config(**kwargs).finalize())
+
+
+def check_args(cfg: Config) -> Config:
+    """The reference's resume rule: with ``--resume --pretrain <experiment
+    dir>`` the whole saved config is reloaded from that directory's
+    ``args.json``, keeping only test_only, pretrain, dir_data and resume
+    from the command line, and training continues in the same directory."""
+    if not cfg.resume:
+        return cfg
+    if not cfg.pretrain:
+        raise ValueError("--resume requires --pretrain <experiment dir>")
+    path = os.path.join(cfg.pretrain, "args.json")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"--resume: no args.json under {cfg.pretrain}")
+    with open(path) as f:
+        saved = Config.from_json(f.read())
+    return saved.replace(
+        test_only=cfg.test_only, pretrain=cfg.pretrain,
+        dir_data=cfg.dir_data, resume=True,
+        save_dir=cfg.pretrain,
+    ).finalize()

@@ -8,17 +8,14 @@ from __future__ import annotations
 
 import numpy as np
 
-from nlspn_eccv20_tpu_torch.data import get_sparse_depth
+from nlspn_eccv20_tpu_torch.data import BaseDataset, get_sparse_depth
 
 
-class Synthetic:
+class Synthetic(BaseDataset):
     SPLIT_SIZES = {"train": 32, "val": 8, "test": 8}
 
     def __init__(self, cfg, mode: str):
-        if mode not in self.SPLIT_SIZES:
-            raise NotImplementedError(f"mode {mode}")
-        self.cfg = cfg
-        self.mode = mode
+        super().__init__(cfg, mode)
         self.h = cfg.patch_height
         self.w = cfg.patch_width
 

@@ -50,3 +50,21 @@ def evaluate(sample, output) -> torch.Tensor:
 def evaluate_per_sample(sample, output) -> torch.Tensor:
     """A (B, 8) tensor: the metrics of each image on its own."""
     return _metrics(output["pred"], sample["gt"], (1, 2, 3))
+
+
+class MetricFunction:
+    """The metric suite as the summaries name it: ``metric_name`` and a
+    call that gives the (1, 8) batch metrics."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.metric_name = list(METRIC_NAMES)
+
+    def __call__(self, sample, output) -> torch.Tensor:
+        return evaluate(sample, output)
+
+
+def get_metric(cfg) -> MetricFunction:
+    if cfg.model_name != "NLSPN":
+        raise NotImplementedError(cfg.model_name)
+    return MetricFunction(cfg)

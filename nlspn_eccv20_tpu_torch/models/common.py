@@ -23,15 +23,21 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _zero_init(conv: nn.Module, zero_init: bool) -> None:
+    """Zero the conv, and mark it so for ``utils.weights.init_weights_``."""
+    conv.zero_init = zero_init
+    if zero_init:
+        nn.init.zeros_(conv.weight)
+        if conv.bias is not None:
+            nn.init.zeros_(conv.bias)
+
+
 def Conv(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
          bias: bool = True, zero_init: bool = False) -> nn.Conv2d:
     """Conv2d with the reference's padding (k - 1) // 2 and torch default init."""
     conv = nn.Conv2d(ch_in, ch_out, kernel, stride, (kernel - 1) // 2,
                      bias=bias)
-    if zero_init:
-        nn.init.zeros_(conv.weight)
-        if bias:
-            nn.init.zeros_(conv.bias)
+    _zero_init(conv, zero_init)
     return conv
 
 
@@ -39,10 +45,7 @@ def ConvTranspose(ch_in: int, ch_out: int, bias: bool = True,
                   zero_init: bool = False) -> nn.ConvTranspose2d:
     """ConvTranspose2d(k3, s2, p1, output_padding 1): exactly doubles H and W."""
     conv = nn.ConvTranspose2d(ch_in, ch_out, 3, 2, 1, 1, bias=bias)
-    if zero_init:
-        nn.init.zeros_(conv.weight)
-        if bias:
-            nn.init.zeros_(conv.bias)
+    _zero_init(conv, zero_init)
     return conv
 
 

@@ -16,6 +16,7 @@ from nlspn_eccv20_tpu_torch.models.common import BatchNorm
 def _resnet_conv(ch_in: int, ch_out: int, kernel: int, stride: int) -> nn.Conv2d:
     conv = nn.Conv2d(ch_in, ch_out, kernel, stride, kernel // 2, bias=False)
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
+    conv.fan_out_init = True     # for utils.weights.init_weights_
     return conv
 
 

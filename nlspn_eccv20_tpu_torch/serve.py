@@ -7,11 +7,14 @@ batch, runs the model under ``torch.inference_mode()`` and crops every
 prediction back to its request's size.
 
 Usage:
-    p = Predictor(cfg, state_dict=torch.load(path))   # on the CUDA card
+    p = Predictor(cfg, checkpoint="/path/to/experiment_dir")  # on the CUDA card
     depth = p.predict(rgb, sparse_depth)   # (H, W, 3) uint8/float, (H, W)
 
-It needs weights, as the JAX package's does. A tool that wants random ones
-asks for them: ``model = randomize_(get_model(cfg, dev), gen)``, then
+It needs weights, as the JAX package's does: a ``state_dict``, or a
+``checkpoint``, which is a reference or port checkpoint file
+(``.pt/.pth/.tar``) or a port experiment directory (its latest
+checkpoint). A tool that wants random ones asks for them:
+``model = randomize_(get_model(cfg, dev), gen)``, then
 ``Predictor(cfg, state_dict=model.state_dict(), device=dev)``.
 """
 
@@ -23,12 +26,11 @@ import numpy as np
 import torch
 
 from nlspn_eccv20_tpu_torch.config import Config
+from nlspn_eccv20_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from nlspn_eccv20_tpu_torch.device import cudnn_benchmark_mode
 from nlspn_eccv20_tpu_torch.models import get_model
-
-# ImageNet statistics (the JAX package's data/transforms.py).
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+from nlspn_eccv20_tpu_torch.train import load_pretrained_params
+from nlspn_eccv20_tpu_torch.utils.checkpoint import load_weights
 
 
 def _round_up(x: int, m: int) -> int:
@@ -42,18 +44,24 @@ class Predictor:
     changing the process-wide ``torch.backends.cudnn.benchmark``; a caller
     that runs ``self.model`` directly sets that flag itself. Without a
     ``state_dict`` it raises ``ValueError`` (after building the model, so
-    that a missing card is reported first, as the JAX package orders it)."""
+    that a missing card is reported first, as the JAX package orders it).
+    Weights from a ``checkpoint`` load as ``train.load_pretrained_params``
+    loads them: a missing key raises, an extra one warns."""
 
     def __init__(self, cfg: Config,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 checkpoint: Optional[str] = None,
                  device=None, bucket: int = 32):
         self.cfg = cfg
         self.bucket = bucket
         self.model = get_model(cfg, device)
         self.device = self.model.aff_scale_const.device
-        if state_dict is None:
-            raise ValueError("need `state_dict`")
-        self.model.load_state_dict(state_dict)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        elif checkpoint is not None:
+            load_pretrained_params(self.model, load_weights(cfg, checkpoint))
+        else:
+            raise ValueError("need `state_dict` or `checkpoint`")
 
     def _prepare(self, rgb: np.ndarray, dep: np.ndarray):
         """Normalize + pad one (H, W, 3)/(H, W[, 1]) pair to its bucket."""
@@ -99,6 +107,13 @@ class Predictor:
         pred = pred.cpu().numpy()
         return [pred[i, :h, :w] for i, (h, w) in enumerate(sizes)]
 
+    def warmup(self, shapes=((228, 304),)):
+        """One request of each (h, w), so that cuDNN has picked its
+        algorithms before the first real one."""
+        for (h, w) in shapes:
+            self.predict(np.zeros((h, w, 3), np.float32),
+                         np.zeros((h, w), np.float32))
+
     def benchmark(self, h: int = 228, w: int = 304, batch: int = 1,
                   calls: int = 20, seed: int = 0) -> Dict[str, float]:
         """Latency of ``predict_batch`` on ``batch`` requests of (h, w), from
@@ -126,3 +141,4 @@ class Predictor:
         times.sort()
         return {"median_s": times[len(times) // 2], "min_s": times[0],
                 "mean_s": sum(times) / len(times)}
+

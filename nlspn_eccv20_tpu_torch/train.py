@@ -8,6 +8,12 @@ Functions (K1b, or K8 with ``offset``, K4 and K5 on the card), then the
 optimizer with the per-step LR schedule. cuDNN runs in benchmark mode for
 the step's own calls only; the process-wide flag is left as it is.
 
+The initial weights are drawn from a generator seeded with ``cfg.seed``
+(``utils/weights.init_weights_``), so a run's weights are a function of its
+seed alone. ``init_backbone_pretrained`` puts torchvision's ImageNet ResNet
+into the encoder stages and ``load_pretrained_params`` merges a
+checkpoint's weights into the model, both as the JAX package's do.
+
 Usage:
     eng = Engine(cfg, steps_per_epoch=len(loader))   # on the CUDA card
     eng.init_state()                                  # or init_state(state_dict)
@@ -17,8 +23,9 @@ Usage:
 
 from __future__ import annotations
 
+import os
 import warnings
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -29,6 +36,8 @@ from nlspn_eccv20_tpu_torch.losses import get_loss
 from nlspn_eccv20_tpu_torch.metrics import evaluate, evaluate_per_sample
 from nlspn_eccv20_tpu_torch.models import get_model
 from nlspn_eccv20_tpu_torch.utils.optim import make_optimizer, set_lr
+from nlspn_eccv20_tpu_torch.utils.torch_import import load_torchvision_resnet
+from nlspn_eccv20_tpu_torch.utils.weights import init_weights_
 
 
 class Engine:
@@ -41,11 +50,27 @@ class Engine:
         self.cfg = cfg
         self.steps_per_epoch = max(steps_per_epoch, 1)
         self.loss_fn = get_loss(cfg)
-        self.model = get_model(cfg, device)
+        self.model = init_weights_(get_model(cfg, device),
+                                   torch.Generator().manual_seed(cfg.seed))
         self.device = self.model.aff_scale_const.device
         self.optimizer = None
         self.schedule = None
         self.step = 0
+
+    @property
+    def eval_batch_per_host(self) -> int:
+        """The eval batch of this process: 1 on one card, as the JAX
+        property gives on a one-device mesh."""
+        return 1
+
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """{net, optimizer, step, steps_per_epoch}, as
+        ``utils/checkpoint.CheckpointManager.save`` takes it; the weights
+        copied to the CPU."""
+        return {"net": {k: v.detach().cpu()
+                        for k, v in self.model.state_dict().items()},
+                "optimizer": self.optimizer.state_dict(), "step": self.step,
+                "steps_per_epoch": self.steps_per_epoch}
 
     def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None):
         """Load ``state_dict`` if given, put the model in train mode and
@@ -126,3 +151,54 @@ def check_offset_telemetry(cfg: Config, off_max: float,
         f"exactly (silent train/eval divergence). Raise offset_window to "
         f"widen the exact regime.", stacklevel=2)
     return True
+
+
+def init_backbone_pretrained(cfg: Config, model: torch.nn.Module) -> torch.nn.Module:
+    """ImageNet-pretrained encoder stages from torchvision's
+    ``{dir_pretrain_backbone}/{network}.pth``, as the reference builds its
+    model. ``--from_scratch`` skips it. A file missing under the default
+    directory warns (synthetic runs need none); one missing under a
+    directory the caller named raises. Nothing is downloaded."""
+    if cfg.from_scratch:
+        return model
+    path = os.path.join(cfg.dir_pretrain_backbone, f"{cfg.network}.pth")
+    if not os.path.isfile(path):
+        if cfg.dir_pretrain_backbone != Config().dir_pretrain_backbone:
+            raise FileNotFoundError(
+                f"--dir_pretrain_backbone given but {path} does not exist; "
+                f"pass --from_scratch to train without it")
+        warnings.warn(
+            f"no ImageNet-pretrained backbone at {path}; training the "
+            f"{cfg.network} encoder FROM SCRATCH. Published NYUv2/KITTI "
+            f"accuracy assumes pretrained weights: put the torchvision "
+            f"{cfg.network} state_dict at {path}, or pass --from_scratch to "
+            f"silence this warning.", stacklevel=2)
+        return model
+    stages = load_torchvision_resnet(path, cfg.network)
+    own = {k for k in model.state_dict() if k.startswith(("conv2.", "conv3.", "conv4."))}
+    missing = own - set(stages)
+    if missing:
+        raise KeyError(f"{path} lacks {sorted(missing)[:5]}...")
+    model.load_state_dict({k: stages[k] for k in own}, strict=False)
+    print(f"loaded ImageNet-pretrained {cfg.network} backbone from {path}")
+    return model
+
+
+def load_pretrained_params(model: torch.nn.Module,
+                           state_dict: Dict[str, torch.Tensor],
+                           strict: bool = False) -> torch.nn.Module:
+    """Load a checkpoint's weights into ``model``, as the reference's
+    test-time load does: a key the model has and the checkpoint lacks
+    raises; a key the model lacks warns (raises with ``strict``)."""
+    own = model.state_dict()
+    missing = set(own) - set(state_dict)
+    unexpected = set(state_dict) - set(own)
+    if missing:
+        raise KeyError(f"missing params in checkpoint: {sorted(missing)[:5]}...")
+    if unexpected:
+        if strict:
+            raise KeyError(f"unexpected params: {sorted(unexpected)[:5]}...")
+        warnings.warn(f"checkpoint params not in the model, ignored: "
+                      f"{sorted(unexpected)[:5]}...", stacklevel=2)
+    model.load_state_dict({k: state_dict[k] for k in own})
+    return model

@@ -190,3 +190,35 @@ def randomize_(model: nn.Module, generator: torch.Generator) -> nn.Module:
     if hasattr(model, "aff_scale_const"):
         uniform(model.aff_scale_const, 1.0, 5.0)
     return model
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw ``model``'s initial weights from ``generator`` (a CPU
+    generator), with the distributions its constructors use: PyTorch's
+    default for a conv (weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))),
+    kaiming normal (fan_out, ReLU) for the ResNet stages' convs, zeros where
+    a conv is zero-initialised; BatchNorm reset. The weights are then a
+    function of the generator's seed alone, whatever the global RNG holds."""
+    def draw(t, fill):
+        cpu = torch.empty(t.shape, dtype=t.dtype)
+        fill(cpu)
+        t.copy_(cpu)
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            params = [m.weight] + ([m.bias] if m.bias is not None else [])
+            fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(m.weight)
+            if getattr(m, "zero_init", False):
+                for p in params:
+                    p.zero_()
+            elif getattr(m, "fan_out_init", False):
+                std = (2.0 / fan_out) ** 0.5
+                draw(m.weight, lambda t: t.normal_(0.0, std, generator=generator))
+            else:
+                bound = fan_in ** -0.5
+                for p in params:
+                    draw(p, lambda t: t.uniform_(-bound, bound, generator=generator))
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model

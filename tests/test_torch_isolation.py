@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no JAX, Flax or JAX-package import, and no
-silent fall back to the CPU when there is no card."""
+silent fall back to the CPU when there is no card (the CLI runs on the CPU
+only with ``--platform cpu``)."""
 
 import ast
 import os
@@ -40,7 +41,9 @@ def test_no_jax_imports(path):
 def test_sources_found():
     rel = {os.path.relpath(p, REPO) for p in port_sources()}
     assert {"chip_smoke.py", "nlspn_eccv20_tpu_torch/serve.py",
-            "nlspn_eccv20_tpu_torch/models/nlspn.py"} <= rel
+            "nlspn_eccv20_tpu_torch/models/nlspn.py",
+            "nlspn_eccv20_tpu_torch/main.py", "nlspn_eccv20_tpu_torch/data/nyu.py",
+            "nlspn_eccv20_tpu_torch/utils/checkpoint.py"} <= rel
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -52,4 +55,23 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(Config())
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(Config(), checkpoint="no/such/run")   # the card is reported first
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model(Config())
+
+
+@pytest.mark.parametrize("platform", [None, "gpu"])
+def test_main_raises_without_a_card_unless_asked_for_the_cpu(platform, monkeypatch,
+                                                             tmp_path):
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.main import main, resolve_platform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(platform=platform, data_name="Synthetic",
+                 save_dir=str(tmp_path / "run")).finalize()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(cfg)
+    assert not (tmp_path / "run").exists()
+    assert resolve_platform("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unknown platform"):
+        resolve_platform("tpu")
