@@ -161,11 +161,35 @@ Phases (any failure exits non-zero and prints no result):
      answering one 228x304 request within 2e-4 of the plain versions'
      forward; each run's wall time and images/s, the checkpoint's size and
      whether the native data library built;
- 14. the kernel line, then {"ok": true, "device": ...} as the last line.
+ 14. bf16 serving (precision="bf16"): K2-bf16 (decode_aff_tail_bf16) and
+     K3-bf16 (dep_encode_front_bf16) against their bf16 plain versions at
+     the serving shapes (B=1 and B=4 of 256x320), at KITTI's B=1 (K2's
+     60x304 base grid, K3's 240x1216 plane), K2 also at B=2 and B=12 and
+     on the odd 57x75 grid, with K=24 and with C = 40 and 30 (every cluster
+     size the wrapper picks, 8, 4, 2 and 1, runs in bf16), K3 with C1 = 96
+     and on a 230x306 plane; each shape twice for equal bits, within one
+     bf16 ulp of the largest plain output (2^-7 of it), the share of
+     elements not bit-equal printed, timed beside its plain version,
+     cuDNN's two bf16 convs (the library time) and its bound (2-byte
+     inputs; bf16 operations at the tensor cores' peak); then the three
+     configurations served through a Predictor in bf16 at full width (4
+     b=1 requests and one b=4 batch of 228x304, counters at 0 just before:
+     prop_step 12, decode_aff_tail_bf16 and dep_encode_front_bf16 11 a
+     forward on the default path, deform_prop 12 with offsets, prop_loop 1
+     on the loop path, the f32 K2 and K3 0), outputs finite, observed depth
+     kept exactly, the bf16 forward through the kernels within 1e-2 of
+     max |pred| of the bf16 forward through the plain versions, the gap to
+     the f32 forward at the same weights printed, and latency and device
+     busy time a forward at b=1 and b=4 in bf16 beside f32; then phase
+     13's checkpoint tested with --precision bf16 --test_only (its metric
+     row printed beside the f32 test row) and --precision bf16 without
+     --test_only raising NotImplementedError;
+ 15. the kernel line, then {"ok": true, "device": ...} as the last line.
 
-TF32 is off for cuDNN and for matmuls: every number here is float32. cuDNN
-runs in benchmark mode (it times its algorithms per conv shape), as the
-serving and training paths do.
+TF32 is off for cuDNN and for matmuls: every f32 number here is float32
+(phase 14 runs bf16 where the configuration says so). cuDNN runs in
+benchmark mode (it times its algorithms per conv shape), as the serving and
+training paths do.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
 prop_step, prop_step_bwd, deform_prop, deform_prop_bwd, prop_loop,
 prop_loop_bwd, deform_windowed and deform_colgather <= 1e-5 (the
@@ -188,7 +212,9 @@ loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
 The kernel line's launches are each kernel's count on its path: the
 default serving run's for the forward kernels, the default training run's
 for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
-the constant-affinity runs' for prop_loop and prop_loop_bwd, the op-library
+the constant-affinity runs' for prop_loop and prop_loop_bwd, the bf16
+default serving run's for decode_aff_tail_bf16 and dep_encode_front_bf16,
+the op-library
 path's for small_conv3x3 and small_conv3x3_bwd, the devtools path's for
 deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits),
 the two microbenchmark main()s' for K11a-d.
@@ -250,16 +276,18 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.affinity import normalize_affinity
     from nlspn_eccv20_tpu_torch.ops.kernels import build
     from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
-        SPLITS, decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case,
-        decode_aff_tail_bwd_plain, decode_aff_tail_case, decode_aff_tail_fwd_y1,
-        decode_aff_tail_plain, decode_aff_tail_plain_y1, tail_plan)
+        SPLITS, decode_aff_tail, decode_aff_tail_bf16, decode_aff_tail_bwd,
+        decode_aff_tail_bwd_case, decode_aff_tail_bwd_plain, decode_aff_tail_case,
+        decode_aff_tail_fwd_y1, decode_aff_tail_plain, decode_aff_tail_plain_bf16,
+        decode_aff_tail_plain_y1, tail_plan)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
         deform_prop, deform_prop_bwd, deform_prop_bwd_case, deform_prop_bwd_plain,
         deform_prop_case, deform_prop_fwd_plain, deform_prop_plain, sampling_grid)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import fwd_plan as deform_fwd_plan
     from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
-        dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case,
-        dep_encode_front_bwd_plain, dep_encode_front_case, dep_encode_front_plain)
+        dep_encode_front, dep_encode_front_bf16, dep_encode_front_bwd,
+        dep_encode_front_bwd_case, dep_encode_front_bwd_plain, dep_encode_front_case,
+        dep_encode_front_plain, dep_encode_front_plain_bf16)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
         prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_case, prop_loop_plain)
@@ -345,9 +373,9 @@ def main() -> int:
         err = (out - ref).abs().max().item()
         return err, err / max(ref.abs().max().item(), 1e-30)
 
-    def bound(nbytes, flops):
+    def bound(nbytes, flops, rate="f32_tflops"):
         t_bytes = nbytes / (peak["hbm_tbps"] * 1e12) * 1e3
-        t_ops = flops / (peak["f32_tflops"] * 1e12) * 1e3
+        t_ops = flops / (peak[rate] * 1e12) * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
     def taps_t2(n):   # (output, tap) pairs of a k3/s2/p1/op1 transposed conv
@@ -896,11 +924,11 @@ def main() -> int:
                     else 0 if k.startswith(("prop_step", "deform_prop", "prop_loop"))
                     else cfg.prop_time - 1) for k in wrappers}
 
-    def with_plain_versions(fn):
+    def with_plain_versions(fn, plain=plain_of):
         """fn() with the model calling every kernel's plain version."""
-        saved = {k: getattr(nlspn_mod, k) for k in plain_of}
+        saved = {k: getattr(nlspn_mod, k) for k in plain}
         try:
-            for k, f in plain_of.items():
+            for k, f in plain.items():
                 setattr(nlspn_mod, k, f)
             return fn()
         finally:
@@ -1702,10 +1730,10 @@ def main() -> int:
     # ---- 13. the CLI path ----
     t_cli = time.perf_counter()
 
-    def run_cli(cfg, tag):
+    def run_cli(cfg, tag, extra_wrappers=None):
         """``main.main(cfg)`` with the counters at 0 just before; returns
         (test metric means, launches, wall seconds, its standard output)."""
-        all_wrappers = {**fwd_wrappers, **bwd_wrappers}
+        all_wrappers = {**fwd_wrappers, **bwd_wrappers, **(extra_wrappers or {})}
         for fn in all_wrappers.values():
             fn.launches = 0
         out = io.StringIO()
@@ -1842,11 +1870,215 @@ def main() -> int:
         log(f"[cli] Predictor(checkpoint=model_00002.pt) answered one {REQ_H}x{REQ_W} "
             f"request in {serve_ms:.1f} ms (its first, cuDNN picking algorithms), within "
             f"{rel:.3e} of the plain versions' forward; {card}")
-    finally:
+    except BaseException:
         shutil.rmtree(cli_dir, ignore_errors=True)
+        raise
     log(f"[cli] phase 13: {time.perf_counter() - t_cli:.1f} s")
 
-    # ---- 14. results ----
+    # ---- 14. bf16 serving ----
+    t_bf16 = time.perf_counter()
+    bf16 = torch.bfloat16
+    ulp = 2.0 ** -7           # one bf16 ulp, relative to the largest plain output
+    k2_bf16_splits = set()
+
+    def check_bf16(kname, b, shape, kernel, plain, library, args, out_of, flops):
+        """A bf16 kernel against its plain version on ``args``: equal bits in
+        two runs, within one bf16 ulp of the largest plain output, the share
+        of elements not bit-equal; timed beside its plain version, the
+        library call and its bound (bytes as the tensors lie, bf16
+        operations)."""
+        out, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        tag = f"{kname} B={b}{shape}"
+        if not same_bits(lambda: (kernel(*args),)):
+            raise AssertionError(f"{tag}: two runs gave other bits")
+        err, rel = rel_err(out_of(out), out_of(ref))
+        share = (out_of(out) != out_of(ref)).float().mean().item()
+        log(f"[bf16] {tag}: equal bits in two runs; {share:.3e} of the elements not "
+            f"bit-equal to the plain version")
+        record(kname, b, err, rel, ulp, time_ms(lambda: kernel(*args)),
+               time_ms(lambda: plain(*args)), time_ms(library),
+               bound(nbytes(*args, out), flops, "bf16_tflops"), shape=shape)
+
+    def check_k2_bf16(b, hg, wg, k=8, c=256):
+        (x, w1, b1, w2, b2), _ = decode_aff_tail_case(gen, dev, b, hg, wg, k, c)
+        args = (x.to(bf16), w1, b1, w2, b2)
+        k2_bf16_splits.add(tail_plan(b, hg, wg, c, sms)[2])
+        xn, w1b, b1b, w2b, b2b = (x.permute(0, 3, 1, 2).to(bf16).contiguous(),
+                                  w1.to(bf16), b1.to(bf16), w2.to(bf16), b2.to(bf16))
+
+        def library():   # cuDNN's two bf16 transposed convs, NCHW
+            y1 = F.relu(F.conv_transpose2d(xn, w1b, b1b, 2, 1, 1))
+            return F.conv_transpose2d(y1, w2b, b2b, 2, 1, 1)
+
+        shape = "" if (hg, wg, k, c) == (H // 4, W // 4, 8, 256) else f" {hg}x{wg} K={k} C={c}"
+        flops = 2 * b * (taps_t2(hg) * taps_t2(wg) * c * 16
+                         + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
+        check_bf16("decode_aff_tail_bf16", b, shape, decode_aff_tail_bf16,
+                   decode_aff_tail_plain_bf16, library, args, lambda t: t, flops)
+
+    def check_k3_bf16(b, h, w, c=256):
+        (plane, w0, b0, w1, b1), _ = dep_encode_front_case(gen, dev, b, h, w, c)
+        args = (plane.to(bf16), w0, b0, w1, b1)
+        p4, w0b, b0b, w1b, b1b = (args[0][:, None], w0.to(bf16), b0.to(bf16),
+                                  w1.to(bf16), b1.to(bf16))
+
+        def library():   # cuDNN's two bf16 convs with their ReLUs, NCHW out
+            return F.relu(F.conv2d(F.relu(F.conv2d(p4, w0b, b0b, 2, 1)), w1b, b1b, 2, 1))
+
+        flops = 2 * b * (taps_s2(h) * taps_s2(w) * 16
+                         + taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c)
+        check_bf16("dep_encode_front_bf16", b, "" if (h, w, c) == (H, W, 256)
+                   else f" {h}x{w} C1={c}", dep_encode_front_bf16,
+                   dep_encode_front_plain_bf16, library, args, lambda t: t.float(), flops)
+
+    bf16_wrappers = {"decode_aff_tail_bf16": decode_aff_tail_bf16,
+                     "dep_encode_front_bf16": dep_encode_front_bf16}
+    bf16_plain_of = {**plain_of, "decode_aff_tail": decode_aff_tail_plain_bf16,
+                     "dep_encode_front": dep_encode_front_plain_bf16}
+
+    def expected_bf16(cfg):
+        """Launches a bf16 forward of ``cfg`` makes: the f32 forward's, with
+        K2's and K3's moved to their bf16 forms."""
+        want = expected_launches(cfg, fwd_wrappers)
+        return {**want, "decode_aff_tail": 0, "dep_encode_front": 0,
+                "decode_aff_tail_bf16": want["decode_aff_tail"],
+                "dep_encode_front_bf16": want["dep_encode_front"]}
+
+    def busy_ms(fn, iters=3):
+        """Device busy time of one call: its kernels' device times summed
+        by torch.profiler over ``iters`` calls, a call's share."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(a, "self_device_time_total", 0.0) or a.self_cuda_time_total
+                 for a in prof.key_averages()
+                 if a.device_type == torch.autograd.DeviceType.CUDA)
+        return us / 1e3 / iters
+
+    def serve_bf16(kw, tag):
+        """The configuration ``kw`` served in bf16 beside f32 at the same
+        random weights; returns the bf16 run's launches."""
+        cfg = Config(precision="bf16", **kw)
+        weights = randomize_(get_model(cfg, dev), torch.Generator().manual_seed(1))
+        pred = {p: Predictor(cfg.replace(precision=p), state_dict=weights.state_dict(),
+                             device=dev) for p in ("f32", "bf16")}
+        del weights
+        rng = np.random.default_rng(2)
+
+        def request():
+            rgb = rng.integers(0, 256, (REQ_H, REQ_W, 3), dtype=np.uint8)
+            dep = np.zeros((REQ_H, REQ_W), np.float32)
+            idx = rng.choice(REQ_H * REQ_W, cfg.num_sample, replace=False)
+            dep.flat[idx] = rng.uniform(0.5, 10.0, cfg.num_sample)
+            return rgb, dep
+
+        wrappers = {**fwd_wrappers, **bf16_wrappers}
+        per_forward = expected_bf16(cfg)
+        batches = [[request()] for _ in range(4)] + [[request() for _ in range(4)]]
+        for fn in wrappers.values():
+            fn.launches = 0
+        before = {k: 0 for k in wrappers}
+        for reqs in batches:
+            outs = pred["bf16"].predict_batch([r for r, _ in reqs], [d for _, d in reqs])
+            for (_, dep), out in zip(reqs, outs):
+                if (out.shape != (REQ_H, REQ_W) or out.dtype != np.float32
+                        or not np.isfinite(out).all()):
+                    raise AssertionError(f"[bf16{tag}] bad output {out.shape} {out.dtype}")
+                if not np.array_equal(out[dep > 0], dep[dep > 0]):
+                    raise AssertionError(f"[bf16{tag}] observed depth not kept")
+            for k, fn in wrappers.items():
+                if fn.launches - before[k] != per_forward[k]:
+                    raise AssertionError(f"[bf16{tag}] {k}: {fn.launches - before[k]} "
+                                         f"launches in one forward, expected {per_forward[k]}")
+                before[k] = fn.launches
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        log(f"[bf16{tag}] {len(batches)} forwards (4 x b=1, 1 x b=4) of {REQ_H}x{REQ_W}: "
+            f"outputs finite f32, observed depth kept exactly; launches {launches} = "
+            f"{per_forward} per forward")
+
+        sample, _ = pred["bf16"].make_sample([r for r, _ in batches[-1]],
+                                             [d for _, d in batches[-1]])
+        with torch.inference_mode():
+            out_k = pred["bf16"].model(sample, need_inter=False)["pred"]
+            out_p = with_plain_versions(lambda: pred["bf16"].model(
+                sample, need_inter=False)["pred"], bf16_plain_of)
+            out_f = pred["f32"].model(sample, need_inter=False)["pred"]
+        scale = out_p.abs().max().item()
+        err = (out_k - out_p).abs().max().item()
+        gap = (out_k - out_f).abs().max().item()
+        log(f"[bf16{tag}] b=4 pred, kernels vs plain versions (both bf16): max |d| "
+            f"{err:.3e} = {err / scale:.3e} of max |pred| {scale:.3f} (bar 1e-2); "
+            f"bf16 vs f32 at the same weights (not gated): max |d| {gap:.3e}, "
+            f"{gap / scale:.3e} of max |pred|")
+        if not err <= 1e-2 * scale:
+            raise AssertionError(f"[bf16{tag}] kernels vs plain: {err:.3e} > 1e-2 x {scale:.3f}")
+
+        for b in (1, 4):
+            s = {k: v[:b] for k, v in sample.items()}
+            line = []
+            for p in ("f32", "bf16", "bf16", "f32"):
+                lat = pred[p].benchmark(REQ_H, REQ_W, batch=b, calls=10, seed=3)["median_s"]
+                with torch.inference_mode():
+                    busy = busy_ms(lambda: pred[p].model(s, need_inter=False))
+                line.append(f"{p} {lat * 1e3:.3f} / {busy:.3f}")
+            log(f"[bf16{tag}] b={b} predict_batch latency median / device busy a forward, "
+                f"ms (in turns): {'; '.join(line)}; {card}")
+        return launches
+
+    try:
+        # the kernels at the serving shapes (timed rows of the kernel line:
+        # B=1), B=4 and KITTI's B=1; K2's other grids give every cluster size
+        for b in (1, 4):
+            check_k2_bf16(b, H // 4, W // 4)
+            check_k3_bf16(b, H, W)
+        check_k2_bf16(1, KITTI_H // 4, KITTI_W // 4)
+        check_k3_bf16(1, KITTI_H, KITTI_W)
+        check_k2_bf16(1, H // 4, W // 4, k=24)
+        check_k2_bf16(2, H // 4, W // 4)
+        check_k2_bf16(TRAIN_B, 58, 76)
+        check_k2_bf16(1, 57, 75)
+        check_k2_bf16(1, H // 4, W // 4, c=40)
+        check_k2_bf16(1, 58, 76, c=30)
+        if k2_bf16_splits != set(SPLITS):
+            raise AssertionError(f"decode_aff_tail_bf16: cluster sizes "
+                                 f"{sorted(k2_bf16_splits)} checked, the wrapper picks {SPLITS}")
+        check_k3_bf16(1, REQ_H, REQ_W, c=96)
+        check_k3_bf16(1, 230, 306)
+        log(f"[bf16] kernels: {time.perf_counter() - t_bf16:.1f} s")
+
+        bf16_launches = serve_bf16({}, "")
+        serve_bf16({"offset": True}, " offset")
+        serve_bf16(LOOP, " loop")
+        torch.cuda.empty_cache()
+
+        # phase 13's checkpoint tested in bf16 beside its f32 test row
+        cfg_b = parse_args(["--test_only", "--pretrain", run, "--data_name", "Synthetic",
+                            "--test_pipeline", "--experiments_dir", cli_dir, "--save",
+                            "cli_test_bf16", "--precision", "bf16"])
+        _, got, wall_b, _ = run_cli(cfg_b, "test_only bf16", bf16_wrappers)
+        check_cli_launches("test_only --precision bf16: 1 forward at b=1", got,
+                           {**{k: 0 for k in bwd_wrappers}, **expected_bf16(cfg_b)})
+        row_b = metric_row(os.path.join(cfg_b.save_dir, "metric_test.txt"))
+        log(f"[cli] --precision bf16 --test_only: metric row {np.round(row_b, 5).tolist()} "
+            f"beside the f32 test row {np.round(row3, 5).tolist()} (not gated); wall "
+            f"{wall_b:.2f} s; {card}")
+        cfg_t = parse_args(["--data_name", "Synthetic", "--test_pipeline", "--epochs", "1",
+                            "--experiments_dir", cli_dir, "--save", "cli_train_bf16",
+                            "--precision", "bf16"])
+        try:
+            cli_main.main(cfg_t)
+        except NotImplementedError as e:
+            log(f"[cli] --precision bf16 without --test_only raised NotImplementedError: {e}")
+        else:
+            raise AssertionError("[cli] --precision bf16 trained instead of raising")
+    finally:
+        shutil.rmtree(cli_dir, ignore_errors=True)
+    log(f"[bf16] phase 14: {time.perf_counter() - t_bf16:.1f} s")
+
+    # ---- 15. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -1854,6 +2086,10 @@ def main() -> int:
                             "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:284"),
         "dep_encode_front": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front.cu",
                              "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),
+        "decode_aff_tail_bf16": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail.cu",
+                                 "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:284"),
+        "dep_encode_front_bf16": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front.cu",
+                                  "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),
         "prop_step_bwd": ("nlspn_eccv20_tpu_torch/csrc/prop_step_bwd.cu",
                           "nlspn_eccv20_tpu/ops/pallas/local_prop.py:148"),
         "decode_aff_tail_bwd": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail_bwd.cu",
@@ -1892,6 +2128,7 @@ def main() -> int:
                      "deform_prop_bwd": offset_train_launches["deform_prop_bwd"],
                      "prop_loop": loop_launches["prop_loop"],
                      "prop_loop_bwd": loop_train_launches["prop_loop_bwd"],
+                     **{k: bf16_launches[k] for k in bf16_wrappers},
                      **oplib_launches,
                      **{k: devtools_launches[k] for k in
                         ("deform_windowed", "deform_colgather", "gather_probe")},

@@ -14,6 +14,13 @@ pre-flipped storage.
 the batch's in train mode, eps 1e-5 and momentum 0.1 as in the JAX package;
 in train mode it updates the running variance with the batch's biased
 variance, as Flax does.
+
+Mixed precision (``precision='bf16'``) as the JAX package has it: the
+parameters stay f32, and each block computes in its input's dtype. ``Conv``
+and ``ConvTranspose`` cast their weight and bias to that dtype at use (the
+library adds the bias before it rounds the output, where the JAX ``Conv``
+rounds first and adds in bf16); ``BatchNorm`` in eval mode normalises in f32
+and returns the input's dtype. Training in bf16 is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 
 
 def _zero_init(conv: nn.Module, zero_init: bool) -> None:
@@ -32,11 +41,34 @@ def _zero_init(conv: nn.Module, zero_init: bool) -> None:
             nn.init.zeros_(conv.bias)
 
 
+def cast_to(t, dtype):
+    """``t`` in ``dtype`` (None stays None): an f32 parameter at its use."""
+    return None if t is None else t.to(dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype, the parameters cast at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast_to(self.weight, x.dtype),
+                                  cast_to(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (fixed output_padding) in its input's dtype,
+    the parameters cast at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, cast_to(self.weight, x.dtype),
+                                  cast_to(self.bias, x.dtype), self.stride,
+                                  self.padding, self.output_padding,
+                                  self.groups, self.dilation)
+
+
 def Conv(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
          bias: bool = True, zero_init: bool = False) -> nn.Conv2d:
     """Conv2d with the reference's padding (k - 1) // 2 and torch default init."""
-    conv = nn.Conv2d(ch_in, ch_out, kernel, stride, (kernel - 1) // 2,
-                     bias=bias)
+    conv = Conv2d(ch_in, ch_out, kernel, stride, (kernel - 1) // 2, bias=bias)
     _zero_init(conv, zero_init)
     return conv
 
@@ -44,7 +76,7 @@ def Conv(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
 def ConvTranspose(ch_in: int, ch_out: int, bias: bool = True,
                   zero_init: bool = False) -> nn.ConvTranspose2d:
     """ConvTranspose2d(k3, s2, p1, output_padding 1): exactly doubles H and W."""
-    conv = nn.ConvTranspose2d(ch_in, ch_out, 3, 2, 1, 1, bias=bias)
+    conv = ConvTranspose2d(ch_in, ch_out, 3, 2, 1, 1, bias=bias)
     _zero_init(conv, zero_init)
     return conv
 
@@ -59,7 +91,9 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return super().forward(x.float()).to(x.dtype)
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)

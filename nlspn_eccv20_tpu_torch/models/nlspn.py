@@ -40,6 +40,17 @@ whole-loop route). Gradients follow the JAX package's
 conventions: ``torch.maximum`` against zero where it writes ``jnp.maximum``
 (half the gradient at an exact tie), ``F.relu`` where it writes ``nn.relu``
 (none), and ``aff_scale_const`` trains only under TGASS.
+
+With ``precision='bf16'`` the network computes in bf16 where the JAX package
+does, and the propagation stays f32: the parameters stay f32 and are cast
+at use; rgb and the sparse depth enter as bf16 (S2D pools in f32 on the
+rounded depth); the heads' stage-2 output goes to f32 before its ReLU and
+sigmoid; the GRU's state, ``encode_aff``'s input and ``encode_dep``'s plane
+(``pred / max_depth``) are bf16, so ``dep_encode_front`` and
+``decode_aff_tail`` run their bf16 kernels; ``decode_aff_tail`` returns
+f32, and ``dep_p``, the affinities, the confidence and every step stay f32,
+as do ``pred`` and ``pred_init``. Only inference: a bf16 forward under
+autograd raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -91,7 +102,8 @@ class S2D(nn.Module):
     they never win the min) and max-pool pyramid (k = 11, 13), both as
     cascades of 3x3 pools (a k+2 pool is exactly a 3x3 pool of the k pool),
     two 1x1 convs, concat with the raw depth, 3x3 conv to 32 channels. The
-    pooling stays f32 because of the sentinel.
+    pooling stays f32 because of the sentinel (999 is not a bf16 value); the
+    rest runs in ``dep``'s dtype.
     """
 
     def __init__(self):
@@ -101,6 +113,7 @@ class S2D(nn.Module):
         self.conv = ConvBNReLU(17, 32, 3, 1, bn=False)
 
     def forward(self, dep: torch.Tensor) -> torch.Tensor:
+        dt = dep.dtype
         d = dep.float()                              # (B, 1, H, W)
         pools = []
         m = torch.where(d == 0.0, -999.0, -d)
@@ -114,10 +127,10 @@ class S2D(nn.Module):
             if s in (11, 13):
                 pools.append(m)
         c0, c1 = self.pool_convs[0][0], self.pool_convs[1][0]
-        f16 = planar_channel_mlp(torch.cat(pools, dim=1),
+        f16 = planar_channel_mlp(torch.cat(pools, dim=1).to(dt),
                                  c0.weight[:, :, 0, 0].t(), c0.bias,
                                  c1.weight[:, :, 0, 0].t(), c1.bias)
-        return self.conv(torch.cat([f16, d], dim=1))
+        return self.conv(torch.cat([f16, d.to(dt)], dim=1))
 
 
 class ConvGRU(nn.Module):
@@ -135,10 +148,10 @@ class ConvGRU(nn.Module):
         self.convq = Conv(hidden_dim + input_dim, hidden_dim, 3)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        hd = self.hidden_dim
+        hd, dt = self.hidden_dim, h.dtype
         zr = F.conv2d(torch.cat([h, x], dim=1),
-                      torch.cat([self.convz.weight, self.convr.weight]),
-                      torch.cat([self.convz.bias, self.convr.bias]), padding=1)
+                      torch.cat([self.convz.weight, self.convr.weight]).to(dt),
+                      torch.cat([self.convz.bias, self.convr.bias]).to(dt), padding=1)
         z = torch.sigmoid(zr[:, :hd])
         r = torch.sigmoid(zr[:, hd:])
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
@@ -148,8 +161,9 @@ class ConvGRU(nn.Module):
 class EncodeDep(nn.Sequential):
     """Loop depth plane -> GRU input feature at 1/8 (reference :134-138).
 
-    conv0 (1->16) and conv1 (16->2c) run as the ``dep_encode_front`` kernel;
-    conv2 (2c->c) is a stock conv on its NHWC output.
+    conv0 (1->16) and conv1 (16->2c) run as the ``dep_encode_front`` kernel
+    (its bf16 form on a bf16 plane); conv2 (2c->c) is a stock conv on its
+    NHWC output.
     """
 
     def __init__(self, cfg: Config):
@@ -168,7 +182,8 @@ class DecodeAff(nn.Sequential):
     """GRU hidden state -> raw planar neighbor affinities (reference :140-144).
 
     deconv0 is a stock transposed conv; deconv1 + ReLU + deconv2 run as the
-    ``decode_aff_tail`` kernel, whose output is planar (B, K2 - 1, H, W).
+    ``decode_aff_tail`` kernel (its bf16 form on a bf16 state), whose output
+    is planar (B, K2 - 1, H, W) f32.
     """
 
     def __init__(self, cfg: Config):
@@ -206,9 +221,9 @@ class NLSPNModel(nn.Module):
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.precision != "f32":
-            raise NotImplementedError("the port runs precision='f32' only so far")
         self.cfg = cfg
+        # the compute dtype (JAX NLSPNModel.dtype); parameters stay f32
+        self.compute_dtype = torch.bfloat16 if cfg.precision == "bf16" else torch.float32
         nn_ = cfg.num_neighbors
         width = self.HEAD_WIDTH
 
@@ -244,9 +259,10 @@ class NLSPNModel(nn.Module):
             self.GRU = ConvGRU(cfg.GRU_hidden_dim, cfg.GRU_input_dim)
 
     def run_heads(self, fd2fe2: torch.Tensor, fe1: torch.Tensor):
-        """The JAX package's ``Heads``: planar (pred_init, raw aff, conf)."""
+        """The JAX package's ``Heads``: planar (pred_init, raw aff, conf),
+        f32 from stage 2 on."""
         out = {name: getattr(self, f"{name}_dec0")(torch.cat(
-                   [getattr(self, f"{name}_dec1")(fd2fe2), fe1], dim=1))
+                   [getattr(self, f"{name}_dec1")(fd2fe2), fe1], dim=1)).float()
                for name, _ in self.head_specs}
         pred_init = F.relu(out["id"][:, 0])
         conf = torch.sigmoid(out["cf"][:, 0]) if "cf" in out else None
@@ -254,11 +270,11 @@ class NLSPNModel(nn.Module):
 
     def forward(self, sample: Dict[str, torch.Tensor],
                 need_inter: bool = True) -> Dict[str, object]:
-        cfg = self.cfg
-        rgb, dep = sample["rgb"], sample["dep"].float()
+        cfg, dt = self.cfg, self.compute_dtype
+        rgb, dep = sample["rgb"].to(dt), sample["dep"].float()
 
         # ---- Encoder (reference :276-288) ----
-        fe1_dep = self.S2D(dep) if cfg.use_S2D else self.conv1_dep(dep)
+        fe1_dep = self.S2D(dep.to(dt)) if cfg.use_S2D else self.conv1_dep(dep.to(dt))
         fe1 = torch.cat([self.conv1_rgb(rgb), fe1_dep], dim=1)    # 64 @ 1/1
         fe2 = self.conv2(fe1)                                      # 64 @ 1/1
         fe3 = self.conv3(fe2)                                      # 128 @ 1/2
@@ -324,14 +340,14 @@ class NLSPNModel(nn.Module):
                              clip=cfg.always_clip, pre_blend=False)
         else:
             if cfg.use_GRU:
-                aff_feat = self.encode_aff(aff)
+                aff_feat = self.encode_aff(aff.to(dt))
             for _ in range(cfg.prop_time - 1):
                 pred = step(pred, aff)
                 inter.append(pred)
                 if cfg.use_GRU:
-                    dep_feat = self.encode_dep(pred / cfg.max_depth)
+                    dep_feat = self.encode_dep((pred / cfg.max_depth).to(dt))
                     aff_feat = self.GRU(aff_feat, dep_feat)
-                    raw = self.decode_aff(aff_feat)[:, :, :h, :w]
+                    raw = self.decode_aff(aff_feat)[:, :, :h, :w]   # f32
                     aff = normalize_affinity(raw, gamma, cfg.affinity).contiguous()
             # Final iteration: propagate only, no GRU refresh (reference k == K).
             pred = step(pred, aff)

@@ -4,17 +4,19 @@ Counterpart of ``nlspn_eccv20_tpu/models/resnet.py``. NLSPN uses
 torchvision's ``layer1..layer3`` and stores them as ``conv2..conv4``; the
 child names here (``0.conv1``, ``0.bn1``, ``0.downsample.0`` ...) are
 torchvision's, so a torchvision or reference ``state_dict`` loads as it is.
+A block computes in its input's dtype, the residual add included
+(``models/common.py`` says how the blocks cast).
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from nlspn_eccv20_tpu_torch.models.common import BatchNorm
+from nlspn_eccv20_tpu_torch.models.common import BatchNorm, Conv2d
 
 
 def _resnet_conv(ch_in: int, ch_out: int, kernel: int, stride: int) -> nn.Conv2d:
-    conv = nn.Conv2d(ch_in, ch_out, kernel, stride, kernel // 2, bias=False)
+    conv = Conv2d(ch_in, ch_out, kernel, stride, kernel // 2, bias=False)
     nn.init.kaiming_normal_(conv.weight, mode="fan_out", nonlinearity="relu")
     conv.fan_out_init = True     # for utils.weights.init_weights_
     return conv

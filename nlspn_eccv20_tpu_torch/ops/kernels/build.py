@@ -122,17 +122,18 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: kernel launch failed with cudaError_t {err}")
 
 
-def check_tensor(t, what: str, shape=None, device=None) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of ``shape``
-    (None entries match any size) on ``device``."""
+def check_tensor(t, what: str, shape=None, device=None, dtype=None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (float32
+    by default) and ``shape`` (None entries match any size) on ``device``."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: expected a contiguous tensor")
     if shape is not None and (t.dim() != len(shape) or any(

@@ -15,6 +15,14 @@ the intermediate y1, which K4 reads instead of recomputing deconv1.
 ``decode_aff_tail`` is differentiable: under autograd it runs
 ``DecodeAffTailFunction``, whose backward is K4 on a CUDA tensor and
 ``decode_aff_tail_bwd_plain`` on a CPU tensor.
+
+On a bf16 ``x`` (``precision='bf16'``) it runs K2-bf16,
+``decode_aff_tail_bf16``: the same kernel on bf16 operands (the f32 weights
+and biases rounded to bf16 as the kernel stages them), summing in f32 and
+rounding y1 and the output to bf16 where the TPU kernel does; the output is
+planar f32 holding bf16 values, as the TPU kernel stores it. Its plain
+version is ``decode_aff_tail_plain_bf16``. bf16 has no backward yet: under
+autograd a bf16 ``x`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,10 +33,12 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dec_aff_tail_f32": [_P] * 7 + [_I] * 6 + [_P]}
+_SIGNATURES = {"dec_aff_tail_f32": [_P] * 7 + [_I] * 6 + [_P],
+               "dec_aff_tail_bf16": [_P] * 7 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {
     "dec_aff_tail_bwd_f32": [_P] * 9 + [_I] * 5 + [_P],
     "dec_aff_tail_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
@@ -76,6 +86,22 @@ def decode_aff_tail_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return decode_aff_tail_plain_y1(x, w1, b1, w2, b2)[0]
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, held in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def decode_aff_tail_plain_bf16(x, w1, b1, w2, b2):
+    """K2-bf16's plain version: x, the weights and the biases rounded to
+    bf16, each transposed conv summed in f32 with its bias added in f32, y1
+    rounded to bf16 after its ReLU and the output rounded to bf16, as the
+    TPU kernel (``_fwd_kernel``) rounds them. Planar f32 holding bf16
+    values."""
+    y1 = _bf16(F.relu(F.conv_transpose2d(_bf16(x).permute(0, 3, 1, 2), _bf16(w1),
+                                         _bf16(b1), 2, 1, 1)))
+    return _bf16(F.conv_transpose2d(y1, _bf16(w2), _bf16(b2), 2, 1, 1)).contiguous()
+
+
 def decode_aff_tail_bwd_plain(g, x, w1, w2, y1):
     """K4's plain version, on K4's inputs: (dx, dw1, db1, dw2, db2) at
     cotangent g, from the forward's input x and its intermediate y1 (whose
@@ -93,7 +119,8 @@ def _check_inputs(x, w1, b1, w2, b2):
     if k not in OUT_CHANNELS:
         raise ValueError(f"decode_aff_tail: K = {k}, the kernel takes {OUT_CHANNELS}")
     dev = x.device
-    build.check_tensor(x, "decode_aff_tail x")
+    build.check_tensor(x, "decode_aff_tail x",
+                       dtype=torch.bfloat16 if x.dtype == torch.bfloat16 else None)
     build.check_tensor(w1, "decode_aff_tail w1", (c, MID_CHANNELS, 3, 3), dev)
     if w1.data_ptr() % 16:
         raise ValueError("decode_aff_tail w1: expected 16-byte alignment")
@@ -110,18 +137,19 @@ def _launch_fwd(x, w1, b1, w2, b2, y1: Optional[torch.Tensor] = None):
     if y1 is not None:
         build.check_tensor(y1, "decode_aff_tail y1",
                            (bsz, MID_CHANNELS, 2 * hg, 2 * wg), x.device)
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty((bsz, k, 4 * hg, 4 * wg), device=x.device, dtype=torch.float32)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     split = tail_plan(bsz, hg, wg, c, sms)[2]
     with torch.cuda.device(x.device):
         lib = build.load("dec_aff_tail", _SIGNATURES)
-        err = lib.dec_aff_tail_f32(
+        err = (lib.dec_aff_tail_bf16 if bf16 else lib.dec_aff_tail_f32)(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), out.data_ptr(),
             y1.data_ptr() if y1 is not None else None, bsz, hg, wg, c, k, split,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "decode_aff_tail")
-    decode_aff_tail.launches += 1
+    (decode_aff_tail_bf16 if bf16 else decode_aff_tail).launches += 1
     return out
 
 
@@ -174,6 +202,8 @@ class DecodeAffTailFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         out, y1 = decode_aff_tail_fwd_y1(x, w1, b1, w2, b2)
         ctx.save_for_backward(x, w1, w2, y1)
         return out
@@ -185,18 +215,39 @@ class DecodeAffTailFunction(torch.autograd.Function):
 
 def decode_aff_tail(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """x: (B, Hg, Wg, C) NHWC; w1: (C, 16, 3, 3), b1: (16,); w2: (16, K, 3, 3),
-    b2: (K,) in torch ConvTranspose2d layout, K = 8 or 24.
-    Returns planar (B, K, 4Hg, 4Wg) f32."""
+    """x: (B, Hg, Wg, C) NHWC, f32 or bf16; w1: (C, 16, 3, 3), b1: (16,);
+    w2: (16, K, 3, 3), b2: (K,) f32 in torch ConvTranspose2d layout, K = 8
+    or 24. Returns planar (B, K, 4Hg, 4Wg) f32. A bf16 ``x`` goes to
+    ``decode_aff_tail_bf16``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         return DecodeAffTailFunction.apply(x, w1, b1, w2, b2)
+    if x.dtype == torch.bfloat16:
+        return decode_aff_tail_bf16(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return decode_aff_tail_plain(x, w1, b1, w2, b2)
     return _launch_fwd(x, w1, b1, w2, b2)
 
 
+def decode_aff_tail_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """K2-bf16: ``decode_aff_tail`` on a bf16 ``x``, the weights and biases
+    f32 (the kernel rounds them to bf16). Returns planar (B, K, 4Hg, 4Wg)
+    f32 holding bf16 values. On a CPU tensor it runs
+    ``decode_aff_tail_plain_bf16``; on a CUDA tensor it launches the kernel
+    or raises. Forward only: under autograd it raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        raise NotImplementedError(BF16_TRAINING)
+    if x.device.type == "cpu":
+        return decode_aff_tail_plain_bf16(x, w1, b1, w2, b2)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"decode_aff_tail_bf16 x: expected bfloat16, got {x.dtype}")
+    return _launch_fwd(x, w1, b1, w2, b2)
+
+
 decode_aff_tail.launches = 0
+decode_aff_tail_bf16.launches = 0
 decode_aff_tail_bwd.launches = 0
 
 

@@ -13,6 +13,14 @@ ReLU mask and recomputes conv0's.
 ``dep_encode_front`` is differentiable: under autograd it runs
 ``DepEncodeFrontFunction``, whose backward is K5 on a CUDA tensor and
 ``dep_encode_front_bwd_plain`` on a CPU tensor.
+
+On a bf16 plane (``precision='bf16'``) it runs K3-bf16,
+``dep_encode_front_bf16``: the same kernel on bf16 operands (the f32 weights
+and biases rounded to bf16 as the kernel stages them), summing in f32 and
+rounding conv0's output and the output to bf16 where the TPU kernel does;
+the output is NHWC bf16, which ``encode_dep``'s stock conv2 reads as it is.
+Its plain version is ``dep_encode_front_plain_bf16``. bf16 has no backward
+yet: under autograd a bf16 plane raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,10 +30,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P]}
+_SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P],
+               "dep_encode_front_bf16": [_P] * 6 + [_I] * 4 + [_P]}
 _BWD_SIGNATURES = {
     "dep_encode_front_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "dep_encode_front_bwd_scratch_floats": ([_I] * 4, ctypes.c_longlong),
@@ -44,6 +54,23 @@ def dep_encode_front_plain(xplane: torch.Tensor, w0: torch.Tensor,
     """Two ``conv2d`` (k3/s2/p1), each followed by a ReLU; NHWC out."""
     y1 = F.relu(F.conv2d(xplane[:, None], w0, b0, 2, 1))
     return F.relu(F.conv2d(y1, w1, b1, 2, 1)).permute(0, 2, 3, 1).contiguous()
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, held in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def dep_encode_front_plain_bf16(xplane: torch.Tensor, w0: torch.Tensor,
+                                b0: torch.Tensor, w1: torch.Tensor,
+                                b1: torch.Tensor) -> torch.Tensor:
+    """K3-bf16's plain version: the plane, the weights and the biases
+    rounded to bf16, each conv summed in f32 with its bias added in f32,
+    conv0's output rounded to bf16 after its ReLU and the output rounded
+    to bf16, as the TPU kernel (``_fwd_kernel``) rounds them. NHWC bf16."""
+    p0 = _bf16(F.relu(F.conv2d(_bf16(xplane)[:, None], _bf16(w0), _bf16(b0), 2, 1)))
+    out = F.relu(F.conv2d(p0, _bf16(w1), _bf16(b1), 2, 1))
+    return out.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous()
 
 
 def _conv(x, w):
@@ -68,7 +95,8 @@ def dep_encode_front_bwd_plain(g, xplane, w0, b0, w1, out):
 def _check_inputs(xplane, w0, b0, w1, b1):
     c1 = w1.shape[0]
     dev = xplane.device
-    build.check_tensor(xplane, "dep_encode_front x")
+    build.check_tensor(xplane, "dep_encode_front x",
+                       dtype=torch.bfloat16 if xplane.dtype == torch.bfloat16 else None)
     build.check_tensor(w0, "dep_encode_front w0", (MID_CHANNELS, 1, 3, 3), dev)
     build.check_tensor(b0, "dep_encode_front b0", (MID_CHANNELS,), dev)
     build.check_tensor(w1, "dep_encode_front w1", (c1, MID_CHANNELS, 3, 3), dev)
@@ -85,16 +113,17 @@ def _launch_fwd(xplane, w0, b0, w1, b1):
     bsz, h, w = xplane.shape
     c1 = w1.shape[0]
     _check_inputs(xplane, w0, b0, w1, b1)
+    bf16 = xplane.dtype == torch.bfloat16
     out = torch.empty(_out_shape(xplane, c1), device=xplane.device,
-                      dtype=torch.float32)
+                      dtype=xplane.dtype)
     with torch.cuda.device(xplane.device):
         lib = build.load("dep_encode_front", _SIGNATURES)
-        err = lib.dep_encode_front_f32(
+        err = (lib.dep_encode_front_bf16 if bf16 else lib.dep_encode_front_f32)(
             xplane.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), out.data_ptr(), bsz, h, w, c1,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "dep_encode_front")
-    dep_encode_front.launches += 1
+    (dep_encode_front_bf16 if bf16 else dep_encode_front).launches += 1
     return out
 
 
@@ -136,6 +165,8 @@ class DepEncodeFrontFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xplane, w0, b0, w1, b1):
+        if xplane.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_TRAINING)
         fwd = dep_encode_front_plain if xplane.device.type == "cpu" else _launch_fwd
         out = fwd(xplane, w0, b0, w1, b1)
         ctx.save_for_backward(xplane, w0, b0, w1, out)
@@ -148,18 +179,39 @@ class DepEncodeFrontFunction(torch.autograd.Function):
 
 def dep_encode_front(xplane: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
                      w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
-    """xplane: (B, H, W); w0: (16, 1, 3, 3), b0: (16,); w1: (C1, 16, 3, 3),
-    b1: (C1,) in torch Conv2d layout. Returns NHWC
-    (B, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2), C1) f32."""
+    """xplane: (B, H, W) f32 or bf16; w0: (16, 1, 3, 3), b0: (16,);
+    w1: (C1, 16, 3, 3), b1: (C1,) f32 in torch Conv2d layout. Returns NHWC
+    (B, ceil(ceil(H/2)/2), ceil(ceil(W/2)/2), C1) in the plane's dtype. A
+    bf16 plane goes to ``dep_encode_front_bf16``."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xplane, w0, b0, w1, b1)):
         return DepEncodeFrontFunction.apply(xplane, w0, b0, w1, b1)
+    if xplane.dtype == torch.bfloat16:
+        return dep_encode_front_bf16(xplane, w0, b0, w1, b1)
     if xplane.device.type == "cpu":
         return dep_encode_front_plain(xplane, w0, b0, w1, b1)
     return _launch_fwd(xplane, w0, b0, w1, b1)
 
 
+def dep_encode_front_bf16(xplane: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                          w1: torch.Tensor, b1: torch.Tensor) -> torch.Tensor:
+    """K3-bf16: ``dep_encode_front`` on a bf16 plane, the weights and biases
+    f32 (the kernel rounds them to bf16). Returns NHWC bf16. On a CPU
+    tensor it runs ``dep_encode_front_plain_bf16``; on a CUDA tensor it
+    launches the kernel or raises. Forward only: under autograd it
+    raises."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xplane, w0, b0, w1, b1)):
+        raise NotImplementedError(BF16_TRAINING)
+    if xplane.device.type == "cpu":
+        return dep_encode_front_plain_bf16(xplane, w0, b0, w1, b1)
+    if xplane.dtype != torch.bfloat16:
+        raise ValueError(f"dep_encode_front_bf16 x: expected bfloat16, got {xplane.dtype}")
+    return _launch_fwd(xplane, w0, b0, w1, b1)
+
+
 dep_encode_front.launches = 0
+dep_encode_front_bf16.launches = 0
 dep_encode_front_bwd.launches = 0
 
 

@@ -8,10 +8,13 @@ the device time by group (the port's forward kernels, convolutions, the
 rest), and the top kernels by device time. ``--offset`` runs the non-local
 propagation (``Config(offset=True)``) instead, ``--loop`` the
 constant-affinity configuration (``Config(use_GRU=False,
-prop_impl="pallas")``, the whole loop one ``prop_loop`` launch). TF32 stays
-off, as in ``chip_smoke.py``. Needs the CUDA card:
+prop_impl="pallas")``, the whole loop one ``prop_loop`` launch).
+``--precision bf16`` serves the same configuration in bf16 (K2 and K3 in
+their bf16 forms; the f32 weights cast at use). TF32 stays off, as in
+``chip_smoke.py``. Needs the CUDA card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--offset | --loop] [--cudnn-heuristics]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_serve [--offset | --loop] \
+        [--precision f32|bf16] [--cudnn-heuristics]
 
 By default cuDNN times its algorithms for each conv shape first
 (``torch.backends.cudnn.benchmark``), as ``Predictor.predict_batch`` has it
@@ -66,6 +69,7 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cudnn-heuristics", action="store_true")
+    ap.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     add_config_options(ap)
     ap.add_argument("--trace-dir", default="chiprun_out")
     args = ap.parse_args(argv)
@@ -73,7 +77,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.benchmark = not args.cudnn_heuristics
-    cfg = config_of(args)
+    cfg = config_of(args).replace(precision=args.precision)
     model = randomize_(get_model(cfg), torch.Generator().manual_seed(1))
     predictor = Predictor(cfg, state_dict=model.state_dict())  # the card or raise
     del model
@@ -81,6 +85,8 @@ def main(argv=None) -> int:
     tag = "cudnn-heuristics" if args.cudnn_heuristics else "cudnn-benchmark"
     if args.offset or args.loop:
         tag += "_offset" if args.offset else "_loop"
+    if args.precision != "f32":
+        tag += "_" + args.precision
     report = {"device": torch.cuda.get_device_name(0), "mode": tag}
 
     for b in (1, 4):

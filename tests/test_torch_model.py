@@ -173,8 +173,17 @@ def test_config_round_trips_and_validates_like_jax():
 
 @pytest.mark.parametrize("kw", [{"precision": "bf16"}])
 def test_unported_options_raise(kw):
+    """bf16 serves (get_model builds) but does not train yet."""
+    from nlspn_eccv20_tpu_torch.train import Engine
+
+    eng = Engine(Config(**TINY, **kw), device="cpu")
+    eng.init_state()
+    s = sample(1, 32, 32)
+    batch = {"rgb": torch.from_numpy(nchw(s["rgb"])),
+             "dep": torch.from_numpy(nchw(s["dep"])),
+             "gt": torch.from_numpy(nchw(s["dep"])) + 1.0}
     with pytest.raises(NotImplementedError):
-        get_model(Config(**kw), device="cpu")
+        eng.train_step(batch)
 
 
 def test_training_forward_reaches_every_parameter():
