@@ -182,12 +182,31 @@ Phases (any failure exits non-zero and prints no result):
      the f32 forward at the same weights printed, and latency and device
      busy time a forward at b=1 and b=4 in bf16 beside f32; then phase
      13's checkpoint tested with --precision bf16 --test_only (its metric
-     row printed beside the f32 test row) and --precision bf16 without
-     --test_only raising NotImplementedError;
- 15. the kernel line, then {"ok": true, "device": ...} as the last line.
+     row printed beside the f32 test row);
+ 15. bf16 training: K4-bf16 (decode_aff_tail_bwd_bf16) and K5-bf16
+     (dep_encode_front_bwd_bf16) against their bf16 plain versions at the
+     train step's B=12 and at B=1 of 228x304, K4 also with K=24 on an odd
+     57x75 grid and with C=30, K5 with C1 = 96 and 30 and on a 230x306
+     plane at B=2; each shape twice for equal bits, every output within
+     one bf16 ulp of its largest plain value (2^-7 of it), timed beside
+     its plain version, cuDNN's bf16 backward of the same two convs (the
+     library time) and its bound; then 5 bf16 train steps of each
+     configuration at batch 12 of 228x304 (launches 11 K4-bf16 and 11
+     K5-bf16 a step on the default and offset paths, none on the loop's;
+     finite losses; every parameter a finite f32 gradient), one step
+     through the kernels against the same step through their plain
+     versions (the plain bf16 forward and backward as autograd Functions)
+     from the same parameters under cuDNN's deterministic algorithms
+     (loss within 1e-2, each gradient within 5e-2 relative L2 or twice
+     the plain bf16 step's distance from the f32 step), and the bf16
+     step's time and peak memory beside the f32 step's at the same
+     initial weights; then main --precision bf16 in its own temporary
+     directory: one epoch trained, resumed for a second, --test_only, its
+     checkpoint's weights f32 and served by an f32 Predictor;
+ 16. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every f32 number here is float32
-(phase 14 runs bf16 where the configuration says so). cuDNN runs in
+(phases 14 and 15 run bf16 where the configuration says so). cuDNN runs in
 benchmark mode (it times its algorithms per conv shape), as the serving and
 training paths do.
 Tolerances: relative error = max |kernel - plain| / max |plain|;
@@ -208,12 +227,18 @@ exactly), K11d with a random E <= 1e-5 (sums of 304 products in another
 order, and its split drops products below 2^-21 of each), deconv0 channels-last against NCHW <= 1e-4,
 whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
-<= 5e-3 (PARITY.md's gradient bar).
+<= 5e-3 (PARITY.md's gradient bar); the bf16 kernels (K2-K5 bf16) <= 2^-7
+(one bf16 ulp: a sum in another order can round to the neighbouring bf16
+value), the bf16 forward <= 1e-2 of max |pred|, the bf16 train step as
+phase 15 says (a rounding tie flips a ReLU mask, and bf16 itself moves a
+gradient by up to 0.1-0.4 relative L2 against f32).
 The kernel line's launches are each kernel's count on its path: the
 default serving run's for the forward kernels, the default training run's
 for the backward ones, the offset runs' for deform_prop and deform_prop_bwd,
 the constant-affinity runs' for prop_loop and prop_loop_bwd, the bf16
 default serving run's for decode_aff_tail_bf16 and dep_encode_front_bf16,
+the bf16 default training run's for decode_aff_tail_bwd_bf16 and
+dep_encode_front_bwd_bf16,
 the op-library
 path's for small_conv3x3 and small_conv3x3_bwd, the devtools path's for
 deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits),
@@ -277,8 +302,9 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.kernels import build
     from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
         SPLITS, decode_aff_tail, decode_aff_tail_bf16, decode_aff_tail_bwd,
-        decode_aff_tail_bwd_case, decode_aff_tail_bwd_plain, decode_aff_tail_case,
-        decode_aff_tail_fwd_y1, decode_aff_tail_plain, decode_aff_tail_plain_bf16,
+        decode_aff_tail_bwd_bf16, decode_aff_tail_bwd_case, decode_aff_tail_bwd_plain,
+        decode_aff_tail_bwd_plain_bf16, decode_aff_tail_case, decode_aff_tail_fwd_y1,
+        decode_aff_tail_plain, decode_aff_tail_plain_bf16, decode_aff_tail_plain_bf16_y1,
         decode_aff_tail_plain_y1, tail_plan)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
         deform_prop, deform_prop_bwd, deform_prop_bwd_case, deform_prop_bwd_plain,
@@ -286,8 +312,9 @@ def main() -> int:
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import fwd_plan as deform_fwd_plan
     from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
         dep_encode_front, dep_encode_front_bf16, dep_encode_front_bwd,
-        dep_encode_front_bwd_case, dep_encode_front_bwd_plain, dep_encode_front_case,
-        dep_encode_front_plain, dep_encode_front_plain_bf16)
+        dep_encode_front_bwd_bf16, dep_encode_front_bwd_case, dep_encode_front_bwd_plain,
+        dep_encode_front_bwd_plain_bf16, dep_encode_front_case, dep_encode_front_plain,
+        dep_encode_front_plain_bf16)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
         prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_case, prop_loop_plain)
@@ -2065,20 +2092,300 @@ def main() -> int:
         log(f"[cli] --precision bf16 --test_only: metric row {np.round(row_b, 5).tolist()} "
             f"beside the f32 test row {np.round(row3, 5).tolist()} (not gated); wall "
             f"{wall_b:.2f} s; {card}")
-        cfg_t = parse_args(["--data_name", "Synthetic", "--test_pipeline", "--epochs", "1",
-                            "--experiments_dir", cli_dir, "--save", "cli_train_bf16",
-                            "--precision", "bf16"])
-        try:
-            cli_main.main(cfg_t)
-        except NotImplementedError as e:
-            log(f"[cli] --precision bf16 without --test_only raised NotImplementedError: {e}")
-        else:
-            raise AssertionError("[cli] --precision bf16 trained instead of raising")
     finally:
         shutil.rmtree(cli_dir, ignore_errors=True)
     log(f"[bf16] phase 14: {time.perf_counter() - t_bf16:.1f} s")
 
-    # ---- 15. results ----
+    # ---- 15. bf16 training ----
+    t_bt = time.perf_counter()
+
+    def check_bwd_bf16(kname, b, shape, kernel, plain, library, args, flops):
+        """K4-bf16 or K5-bf16 against its plain version on ``args``: equal
+        bits in two runs; each output at its own bar: the bf16 input
+        gradient within one bf16 ulp of its largest plain value (2^-7 of
+        it) with at most 1e-3 of its elements not bit-equal, each f32
+        weight and bias gradient within 5e-4 of its largest plain value (a
+        kernel that leaves out one of the TPU kernel's rounding points puts
+        about 40% of the input gradient's elements off and moves a weight
+        or bias gradient by 1e-3 or more: ``tests/test_torch_bf16_train.py``);
+        timed beside its plain version, cuDNN's bf16 backward of the same
+        two convs and its bound (bytes as the tensors lie, bf16
+        operations)."""
+        outs, refs = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        tag = f"{kname} B={b}{shape}"
+        if not same_bits(lambda: kernel(*args)):
+            raise AssertionError(f"{tag}: two runs gave other bits")
+        errs = [rel_err(o.float(), r.float()) for o, r in zip(outs, refs)]
+        share = (outs[0] != refs[0]).float().mean().item()
+        log(f"[bf16-train] {tag}: equal bits in two runs; relative error of each "
+            f"output {[f'{r:.2e}' for _, r in errs]} (bars 2^-7, then 5e-4 each); "
+            f"{share:.3e} of the input gradient's elements not bit-equal to the plain "
+            f"version (bar 1e-3)")
+        if not share <= 1e-3:
+            raise AssertionError(f"{tag}: {share:.3e} of the input gradient not bit-equal")
+        for i, (_, r) in enumerate(errs[1:], 1):
+            if not r <= 5e-4:
+                raise AssertionError(f"{tag}: output {i} (f32) relative error {r:.3e} > 5e-4")
+        record(kname, b, max(e for e, _ in errs), errs[0][1], ulp,
+               time_ms(lambda: kernel(*args)), time_ms(lambda: plain(*args)),
+               time_ms(library), bound(nbytes(*args, *outs), flops, "bf16_tflops"),
+               main_b=TRAIN_B, shape=shape)
+
+    def check_k4_bf16(b, hg, wg, k=8, c=256):
+        args, library = decode_aff_tail_bwd_case(gen, dev, b, hg, wg, k, c, dtype=bf16)
+        flops = 2 * 2 * b * (taps_t2(hg) * taps_t2(wg) * c * 16
+                             + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
+        shape = "" if (hg, wg, k, c) == (58, 76, 8, 256) else f" {hg}x{wg} K={k} C={c}"
+        check_bwd_bf16("decode_aff_tail_bwd_bf16", b, shape, decode_aff_tail_bwd_bf16,
+                       decode_aff_tail_bwd_plain_bf16, library, args, flops)
+
+    def check_k5_bf16(b, h, w, c=256):
+        args, library = dep_encode_front_bwd_case(gen, dev, b, h, w, c, dtype=bf16)
+        flops = 2 * b * (3 * taps_s2(h) * taps_s2(w) * 16
+                         + 2 * taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c)
+        shape = "" if (h, w, c) == (REQ_H, REQ_W, 256) else f" {h}x{w} C1={c}"
+        check_bwd_bf16("dep_encode_front_bwd_bf16", b, shape, dep_encode_front_bwd_bf16,
+                       dep_encode_front_bwd_plain_bf16, library, args, flops)
+
+    class PlainTail(torch.autograd.Function):
+        """K2-bf16's and K4-bf16's plain versions as one autograd Function."""
+
+        @staticmethod
+        def forward(ctx, x, w1, b1, w2, b2):
+            out, y1 = decode_aff_tail_plain_bf16_y1(x, w1, b1, w2, b2)
+            ctx.save_for_backward(x, w1, w2, y1)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return decode_aff_tail_bwd_plain_bf16(g, *ctx.saved_tensors)
+
+    class PlainFront(torch.autograd.Function):
+        """K3-bf16's and K5-bf16's plain versions as one autograd Function."""
+
+        @staticmethod
+        def forward(ctx, x, w0, b0, w1, b1):
+            out = dep_encode_front_plain_bf16(x, w0, b0, w1, b1)
+            ctx.save_for_backward(x, w0, b0, w1, out)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return dep_encode_front_bwd_plain_bf16(g, *ctx.saved_tensors)
+
+    bf16_train_plain = {**plain_of, "decode_aff_tail": PlainTail.apply,
+                        "dep_encode_front": PlainFront.apply}
+    bt_wrappers = {**fwd_wrappers, **bwd_wrappers, **bf16_wrappers,
+                   "decode_aff_tail_bwd_bf16": decode_aff_tail_bwd_bf16,
+                   "dep_encode_front_bwd_bf16": dep_encode_front_bwd_bf16}
+
+    def expected_bf16_train(cfg, steps=1, forwards=0):
+        """Launches of ``steps`` bf16 train steps and ``forwards`` bf16 eval
+        forwards of ``cfg``: the f32 ones with K2-K5 moved to their bf16
+        forms."""
+        fwd = expected_launches(cfg, fwd_wrappers)
+        bwd = expected_launches(cfg, bwd_wrappers)
+        want = {**{k: n * (steps + forwards) for k, n in fwd.items()},
+                **{k: n * steps for k, n in bwd.items()}}
+        for k in ("decode_aff_tail", "dep_encode_front", "decode_aff_tail_bwd",
+                  "dep_encode_front_bwd"):
+            want[k + "_bf16"], want[k] = want[k], 0
+        return want
+
+    def train_bf16(kw, tag):
+        """5 bf16 Engine steps of ``kw`` at batch 12 of 228x304 (random
+        weights, seed 4 as phases 7 and 8): launches, finite losses, f32
+        gradients; one step through the kernels against the same step
+        through their plain versions; then the bf16 step's time and peak
+        memory beside the f32 step's at the same weights. Returns the
+        launches."""
+        cfg = Config(precision="bf16", **kw)
+        eng = Engine(cfg, steps_per_epoch=100, device=dev)
+        randomize_(eng.model, torch.Generator().manual_seed(4))
+        model = eng.init_state()
+        data = Synthetic(cfg, "train")
+        drng = np.random.default_rng(5)
+        tb = [eng.put_batch(data.batch([(i * TRAIN_B + j) % len(data)
+                                        for j in range(TRAIN_B)], drng))
+              for i in range(TRAIN_STEPS)]
+        per_step = expected_bf16_train(cfg)
+        for fn in bt_wrappers.values():
+            fn.launches = 0
+        losses = []
+        for i in range(TRAIN_STEPS):
+            before = {k: fn.launches for k, fn in bt_wrappers.items()}
+            aux = eng.train_step(tb[i])
+            got = {k: fn.launches - before[k] for k, fn in bt_wrappers.items()}
+            if got != per_step:
+                raise AssertionError(f"[bf16-train{tag}] step {i}: launches {got}, "
+                                     f"expected {per_step}")
+            losses.append(aux["loss"].item())
+            if aux["loss"].dtype != torch.float32 or not np.isfinite(losses[-1]):
+                raise AssertionError(f"[bf16-train{tag}] step {i}: loss {aux['loss']}")
+            for pname, p in model.named_parameters():
+                if p.grad is None or p.grad.dtype != torch.float32 \
+                        or not torch.isfinite(p.grad).all():
+                    raise AssertionError(f"[bf16-train{tag}] step {i}: {pname} has no "
+                                         f"finite f32 gradient")
+        launches = {k: fn.launches for k, fn in bt_wrappers.items()}
+        log(f"[bf16-train{tag}] {TRAIN_STEPS} bf16 steps of {TRAIN_B} x {REQ_H}x{REQ_W}: "
+            f"losses {[round(v, 4) for v in losses]}, finite f32; every parameter a "
+            f"finite f32 gradient; launches per step "
+            f"{ {k: n for k, n in per_step.items() if n} } (the others 0)")
+
+        # one step through the kernels against the same step through their
+        # plain versions, from the same parameters, cuDNN deterministic; the
+        # bar: 1e-2 on the loss, and on each gradient 5e-2 relative L2 or,
+        # where bf16 moves it farther, twice the plain bf16 step's distance
+        # from the f32 step at the same weights, never past 0.5 (the CPU
+        # tests' bar)
+        batch = tb[0]
+        f32_model = get_model(cfg.replace(precision="f32"), dev)
+        f32_model.load_state_dict(model.state_dict())
+        f32_model.train()
+
+        def loss_and_grads(m):
+            m.zero_grad(set_to_none=True)
+            out = m(batch, need_inter=False)
+            loss = eng.loss_fn(batch, out)[0] / TRAIN_B
+            loss.backward()
+            return loss.item(), {n: p.grad.clone() for n, p in m.named_parameters()}
+
+        def dist(a, b):
+            return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+        stats = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            loss_k, gk = loss_and_grads(model)
+            _, gk2 = loss_and_grads(model)
+            loss_p, gp = with_plain_versions(lambda: loss_and_grads(model), bf16_train_plain)
+            loss_f, gf = loss_and_grads(f32_model)
+        model.load_state_dict({**model.state_dict(), **stats})
+        rows = [(dist(gk[n], gp[n]), dist(gp[n], gf[n]), n) for n in gp
+                if gp[n].abs().max() > 0]
+        ratios = [gk[n].norm().item() / gp[n].norm().item() for _, _, n in rows]
+
+        def bar(noise):
+            return min(max(5e-2, 2 * noise), 0.5)
+
+        worst = max(rows, key=lambda r: r[0] / bar(r[1]))
+        floor = max(dist(gk2[n], gk[n]) for n in gk)
+        rel = abs(loss_k - loss_p) / abs(loss_p)
+        log(f"[bf16-train{tag}] one step, kernels vs plain versions (both bf16): loss "
+            f"{loss_k:.6f} vs {loss_p:.6f} (rel {rel:.3e}, bar 1e-2); gradients within "
+            f"5e-2 rel L2: {sum(r[0] <= 5e-2 for r in rows)} of {len(rows)}, largest "
+            f"{max(r[0] for r in rows):.3e}, nearest its bar {worst[0]:.3e} at {worst[2]} "
+            f"(plain bf16 vs f32 {worst[1]:.3e}, bar {bar(worst[1]):.3e}); norms "
+            f"{min(ratios):.4f} to {max(ratios):.4f} of the plain step's (bar 3/4 to 4/3); "
+            f"kernels against themselves {floor:.3e}; bf16 vs f32 loss {loss_f:.6f} (rel "
+            f"{abs(loss_k - loss_f) / abs(loss_f):.3e}); cuDNN deterministic")
+        if not rel <= 1e-2:
+            raise AssertionError(f"[bf16-train{tag}] loss: rel {rel:.3e} > 1e-2")
+        for (d, noise, n), ratio in zip(rows, ratios):
+            if not d <= bar(noise):
+                raise AssertionError(f"[bf16-train{tag}] gradient {n}: rel L2 {d:.3e}, "
+                                     f"bf16 vs f32 {noise:.3e}")
+            if not 3 / 4 <= ratio <= 4 / 3:
+                raise AssertionError(f"[bf16-train{tag}] gradient {n}: norm x{ratio:.4f} "
+                                     f"of the plain step's")
+        del gk, gk2, gp, gf, f32_model, model
+
+        # the step's time and peak memory, bf16 beside f32 at the same
+        # initial weights, each engine alone on the card
+        times = {}
+        for p in ("bf16", "f32"):
+            if p == "bf16":
+                e, eng = eng, None
+            else:
+                e = Engine(cfg.replace(precision="f32"), steps_per_epoch=100, device=dev)
+                randomize_(e.model, torch.Generator().manual_seed(4))
+                e.init_state()
+                e.train_step(tb[0])        # cuDNN picks its algorithms
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = []
+            for i in range(TRAIN_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                e.train_step(tb[i])
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+            times[p] = (sorted(ms)[len(ms) // 2], min(ms),
+                        torch.cuda.max_memory_allocated() / 2**30)
+            del e
+            torch.cuda.empty_cache()
+        log(f"[bf16-train{tag}] b={TRAIN_B} train step (CUDA events, forward + loss + "
+            f"backward + Adam), median / min over {TRAIN_STEPS} steps and peak memory: "
+            + "; ".join(f"{p} {t[0]:.3f} / {t[1]:.3f} ms, {t[2]:.3f} GiB"
+                        for p, t in times.items()) + f"; {card}")
+        return launches
+
+    bt_dir = tempfile.mkdtemp(prefix="cli-bf16-", dir=build.BUILD_DIR)
+    try:
+        # (a) the kernels at the train step's shape (the kernel line's rows),
+        # at b=1 and at shapes their tiles make risky: K4 with K = 24 on an
+        # uneven grid and with C = 30 (channels not in 16-byte groups), K5
+        # with C1 = 96, C1 = 30 and on a 230x306 plane
+        for b in (TRAIN_B, 1):
+            check_k4_bf16(b, 58, 76)
+            check_k5_bf16(b, REQ_H, REQ_W)
+        check_k4_bf16(1, 57, 75, k=24)
+        check_k4_bf16(1, 58, 76, c=30)
+        check_k5_bf16(1, REQ_H, REQ_W, c=96)
+        check_k5_bf16(1, REQ_H, REQ_W, c=30)
+        check_k5_bf16(2, 230, 306)
+        log(f"[bf16-train] kernels: {time.perf_counter() - t_bt:.1f} s")
+
+        # (b), (c) the three configurations trained in bf16
+        bt_launches = train_bf16({}, "")
+        train_bf16({"offset": True}, " offset")
+        loop_bt = train_bf16(LOOP, " loop")
+        if loop_bt["decode_aff_tail_bwd_bf16"] or loop_bt["dep_encode_front_bwd_bf16"]:
+            raise AssertionError("[bf16-train loop] K4-bf16 or K5-bf16 launched")
+        torch.cuda.empty_cache()
+
+        # (d) the CLI in bf16: train one epoch, resume for a second, test
+        cfg_t = parse_args(["--data_name", "Synthetic", "--test_pipeline", "--epochs", "1",
+                            "--experiments_dir", bt_dir, "--save", "cli_bf16",
+                            "--precision", "bf16"])
+        extra = {k: bt_wrappers[k] for k in bt_wrappers if k.endswith("_bf16")}
+        _, got, wall_t, _ = run_cli(cfg_t, "train bf16", extra)
+        check_cli_launches("--precision bf16: train 1 step, val and test at b=1", got,
+                           expected_bf16_train(cfg_t, 1, 2))
+        run_b = cfg_t.save_dir
+        net = torch.load(os.path.join(run_b, "ckpt", "model_00001.pt"),
+                         weights_only=True)["net"]
+        if any(v.dtype == torch.bfloat16 for v in net.values()):
+            raise AssertionError("[cli] a bf16 run's checkpoint holds bf16 weights")
+        cfg_r = parse_args(["--resume", "--pretrain", run_b]).replace(epochs=2)
+        _, got, wall_r, out_r = run_cli(cfg_r, "resume bf16", extra)
+        check_cli_launches("--precision bf16 resumed epoch 2", got,
+                           expected_bf16_train(cfg_r, 1, 2))
+        if "resumed from epoch 1" not in out_r or cfg_r.precision != "bf16":
+            raise AssertionError("[cli] the bf16 run did not resume in bf16 from epoch 1")
+        cfg_o = parse_args(["--test_only", "--pretrain", run_b, "--data_name", "Synthetic",
+                            "--test_pipeline", "--experiments_dir", bt_dir, "--save",
+                            "cli_bf16_test", "--precision", "bf16"])
+        _, got, wall_o, _ = run_cli(cfg_o, "test_only bf16", extra)
+        check_cli_launches("--precision bf16 --test_only", got,
+                           expected_bf16_train(cfg_o, 0, 1))
+        f32_answer = Predictor(Config(), checkpoint=os.path.join(
+            run_b, "ckpt", "model_00002.pt"), device=dev).predict(
+            np.zeros((REQ_H, REQ_W, 3), np.uint8), np.ones((REQ_H, REQ_W), np.float32))
+        if not np.isfinite(f32_answer).all():
+            raise AssertionError("[cli] the bf16 run's checkpoint served non-finite depth")
+        log(f"[cli] --precision bf16: train 1 epoch {wall_t:.2f} s, resume for epoch 2 "
+            f"{wall_r:.2f} s, --test_only {wall_o:.2f} s; checkpoints hold f32 weights, "
+            f"which an f32 Predictor serves; {card}")
+    finally:
+        shutil.rmtree(bt_dir, ignore_errors=True)
+    log(f"[bf16-train] phase 15: {time.perf_counter() - t_bt:.1f} s")
+
+    # ---- 16. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -2096,6 +2403,10 @@ def main() -> int:
                                 "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:476"),
         "dep_encode_front_bwd": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front_bwd.cu",
                                  "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:405"),
+        "decode_aff_tail_bwd_bf16": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail_bwd.cu",
+                                     "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:476"),
+        "dep_encode_front_bwd_bf16": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front_bwd.cu",
+                                      "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:405"),
         "deform_prop": ("nlspn_eccv20_tpu_torch/csrc/deform_prop.cu",
                         "nlspn_eccv20_tpu/ops/pallas/deform_prop.py:171"),
         "deform_prop_bwd": ("nlspn_eccv20_tpu_torch/csrc/deform_prop_bwd.cu",
@@ -2129,6 +2440,8 @@ def main() -> int:
                      "prop_loop": loop_launches["prop_loop"],
                      "prop_loop_bwd": loop_train_launches["prop_loop_bwd"],
                      **{k: bf16_launches[k] for k in bf16_wrappers},
+                     **{k: bt_launches[k] for k in ("decode_aff_tail_bwd_bf16",
+                                                    "dep_encode_front_bwd_bf16")},
                      **oplib_launches,
                      **{k: devtools_launches[k] for k in
                         ("deform_windowed", "deform_colgather", "gather_probe")},

@@ -14,9 +14,8 @@ are kept for the round trip and are not read by the port. ``prop_impl`` is
 read for one route only: ``'pallas'`` with ``use_GRU=False`` runs the whole
 propagation loop as one ``prop_loop`` kernel, as it takes the JAX package
 to its whole-loop kernel; ``'auto'`` and ``'xla'`` keep a ``prop_step``
-launch per step. ``precision='bf16'`` serves and tests in bf16, as the JAX
-package computes it (``models/nlspn.py`` says where); training in bf16 is
-not ported yet and raises ``NotImplementedError`` with ``BF16_TRAINING``.
+launch per step. ``precision='bf16'`` serves, tests and trains in bf16, as
+the JAX package computes it (``models/nlspn.py`` says where).
 """
 
 from __future__ import annotations
@@ -28,10 +27,6 @@ import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
-
-BF16_TRAINING = ("bf16 training is not ported yet (ROADMAP A.1, its training "
-                 "half): precision='bf16' serves and tests only")
-
 
 @dataclass
 class Config:

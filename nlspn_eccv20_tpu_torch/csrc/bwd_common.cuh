@@ -10,16 +10,66 @@
 // so every block writes its own partial sum to a scratch buffer and a
 // second kernel adds the partials in a fixed order: the result is the same
 // bits from run to run, as on the TPU. No atomics.
+//
+// bf16 (the kernels' bf16 forms, precision='bf16'): the wide tensor A of
+// the weight gradient may be bf16. Its raw words are staged by cp.async (which
+// cannot convert) and widened to f32 as they are read; the sums stay f32.
+// The transpose can round the weights to bf16 as it lays them out.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 
 namespace bwd {
 
 constexpr int M = 16;  // the planar side's channels, fixed by the model
+
+// v rounded to bf16 (to nearest even), held in f32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// v rounded to T and held in f32: the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return round_bf16(v);
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// v as a T: rounded to nearest even for bf16.
+template <typename T>
+__device__ __forceinline__ T narrow(float v) {
+  if constexpr (std::is_same_v<T, float>) return v;
+  else return __float2bfloat16_rn(v);
+}
+
+// The two bf16 values of a 32-bit word, widened: the lower half first.
+__device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// Four values stored from f32 to T at dst: one 16-byte store for float, one
+// 8-byte store for bf16 (dst aligned to that).
+template <typename T>
+__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d) {
+  if constexpr (std::is_same_v<T, float>) {
+    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+    uint2 v;
+    v.x = *reinterpret_cast<const unsigned*>(&lo);
+    v.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(dst) = v;
+  }
+}
 
 // ---- weight gradient of a k3/s2/p1 convolution --------------------------
 //
@@ -45,23 +95,40 @@ constexpr int M = 16;  // the planar side's channels, fixed by the model
 // segment: per pixel 2 float4 loads of A and 6 words of P for 72 FMAs. The
 // block's sums go to part[s], staged through shared memory so that the
 // stores are whole float4s; reduce_partials adds the slices in a fixed
-// order.
+// order. A bf16 A (TA = __nv_bfloat16) is staged as its raw words, rows of
+// A_PITCH_H values, 16-byte copies of 8 channels: a thread's 8 channels are
+// one 16-byte load, widened in registers.
 
 constexpr int WG_C = 128;              // channels per block
 constexpr int WG_NT = WG_C / 8 * M;    // 256 threads: (octet, m)
 constexpr int SEG = 32;                // pixels per row segment
 constexpr int A_PITCH = WG_C + 4;      // keeps float4 rows 16-byte aligned
+constexpr int A_PITCH_H = WG_C + 8;    // bf16 rows: 272 bytes, 16-byte aligned
 constexpr int P_COLS = 2 * SEG + 1;
 constexpr int P_M = 3 * P_COLS;        // 195 = 3 mod 32: 16 m, 16 banks
-constexpr int WG_BUF = SEG * A_PITCH + M * P_M;  // floats per buffer
-constexpr int WG_SMEM = 2 * WG_BUF * (int)sizeof(float);
 constexpr int CARD_SMS = 132;          // H100 SXM
 constexpr int WG_MIN_PIXELS = 64;      // pixels a slice takes at least
 
+// floats of a buffer's A rows, and of a whole buffer (A rows, then P)
+template <typename TA>
+__host__ __device__ constexpr int wg_a_floats() {
+  return std::is_same_v<TA, float> ? SEG * A_PITCH : SEG * A_PITCH_H / 2;
+}
+template <typename TA>
+__host__ __device__ constexpr int wg_buf() { return wg_a_floats<TA>() + M * P_M; }
+template <typename TA>
+__host__ __device__ constexpr int wg_smem() { return 2 * wg_buf<TA>() * (int)sizeof(float); }
+static_assert(2 * wg_buf<__nv_bfloat16>() >= WG_C / 2 * M * 9 &&
+              (wg_buf<__nv_bfloat16>() * 4) % 16 == 0,
+              "the output stage fits, and bf16 buffers stay 16-byte aligned");
+
+template <typename TA>
 __global__ void __launch_bounds__(WG_NT, 2)
-wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
+wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
                 float* __restrict__ part, int B, int Ha, int Wa, int C,
                 int Hp, int Wp, int S) {
+  constexpr bool F32 = std::is_same_v<TA, float>;
+  constexpr int WG_BUF = wg_buf<TA>(), A_FLOATS = wg_a_floats<TA>();
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * WG_C;
@@ -72,24 +139,40 @@ wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
   // the segment being staged: image b, row i, first column j, pixels len
   const long long row0 = beg / Wa;
   int j = (int)(beg - row0 * Wa), i = (int)(row0 % Ha), b = (int)(row0 / Ha);
-  const bool vec = (C & 3) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
+  const bool vec = (C & (F32 ? 3 : 7)) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
 
   // issues the copies of the segment (b, i, j, len) into buffer buf
   auto stage = [&](int buf, int len) {
     float* as = smem + buf * WG_BUF;
-    float* ps = as + SEG * A_PITCH;
-    const float* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
-    if (vec) {
-      for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
-        const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
-        const bool ok = c0 + cc < C;
-        cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+    float* ps = as + A_FLOATS;
+    const TA* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
+    if constexpr (F32) {
+      if (vec) {
+        for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
+          const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
+          const bool ok = c0 + cc < C;
+          cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+        }
+      } else {
+        for (int e = tid; e < len * WG_C; e += WG_NT) {
+          const int px = e / WG_C, cc = e % WG_C;
+          const bool ok = c0 + cc < C;
+          cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+        }
       }
     } else {
-      for (int e = tid; e < len * WG_C; e += WG_NT) {
-        const int px = e / WG_C, cc = e % WG_C;
-        const bool ok = c0 + cc < C;
-        cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+      __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(as);
+      if (vec) {
+        for (int e = tid; e < len * (WG_C / 8); e += WG_NT) {
+          const int px = e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
+          const bool ok = c0 + cc < C;
+          cpa::copy16(ah + px * A_PITCH_H + cc, ok ? asrc + px * C + cc : A, ok);
+        }
+      } else {  // plain loads: the buffer is not read before the next barrier
+        for (int e = tid; e < len * WG_C; e += WG_NT) {
+          const int px = e / WG_C, cc = e % WG_C;
+          ah[px * A_PITCH_H + cc] = c0 + cc < C ? asrc[px * C + cc] : __float2bfloat16_rn(0.0f);
+        }
       }
     }
     const float* pb = P + (long long)b * M * Hp * Wp;
@@ -138,7 +221,8 @@ wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
     cpa::wait<1>();
     __syncthreads();
     const float* ap = smem + buf * WG_BUF + 8 * oct;
-    const float* pr = smem + buf * WG_BUF + SEG * A_PITCH + m * P_M;
+    const __nv_bfloat16* aph = reinterpret_cast<const __nv_bfloat16*>(smem + buf * WG_BUF) + 8 * oct;
+    const float* pr = smem + buf * WG_BUF + A_FLOATS + m * P_M;
     float w0[3];  // the window's left column: P cols 2 px - 1 + {0, 1, 2}
 #pragma unroll
     for (int r = 0; r < 3; ++r) w0[r] = pr[r * P_COLS];
@@ -150,9 +234,17 @@ wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
         w1[r] = pr[r * P_COLS + 2 * px + 1];
         w2[r] = pr[r * P_COLS + 2 * px + 2];
       }
-      const float4 a0 = *reinterpret_cast<const float4*>(ap + px * A_PITCH);
-      const float4 a1 = *reinterpret_cast<const float4*>(ap + px * A_PITCH + 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float av[8];
+      if constexpr (F32) {
+        const float4 a0 = *reinterpret_cast<const float4*>(ap + px * A_PITCH);
+        const float4 a1 = *reinterpret_cast<const float4*>(ap + px * A_PITCH + 4);
+        av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
+        av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
+      } else {
+        const uint4 u = *reinterpret_cast<const uint4*>(aph + px * A_PITCH_H);
+        av[0] = lo_bf16(u.x), av[1] = hi_bf16(u.x), av[2] = lo_bf16(u.y), av[3] = hi_bf16(u.y);
+        av[4] = lo_bf16(u.z), av[5] = hi_bf16(u.z), av[6] = lo_bf16(u.w), av[7] = hi_bf16(u.w);
+      }
 #pragma unroll
       for (int k = 0; k < 8; ++k)
 #pragma unroll
@@ -202,16 +294,17 @@ inline long long wgrad_s2_partial_floats(long long n_pixels, int C) {
   return (long long)wgrad_s2_slices(n_pixels, C) * C * M * 9;
 }
 
-// A (B, Ha, Wa, C), P (B, M, Hp, Wp): part gets wgrad_s2_slices partials of
-// dW. Returns the first launch error, if any.
-inline cudaError_t wgrad_s2(const float* A, const float* P, float* part, int B,
+// A (B, Ha, Wa, C), f32 or bf16, P (B, M, Hp, Wp): part gets
+// wgrad_s2_slices partials of dW. Returns the first launch error, if any.
+template <typename TA>
+inline cudaError_t wgrad_s2(const TA* A, const float* P, float* part, int B,
                             int Ha, int Wa, int C, int Hp, int Wp,
                             cudaStream_t stream) {
   const int S = wgrad_s2_slices((long long)B * Ha * Wa, C);
   const cudaError_t err = cudaFuncSetAttribute(
-      wgrad_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
+      wgrad_s2_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<TA>());
   if (err != cudaSuccess) return err;
-  wgrad_s2_kernel<<<dim3((C + WG_C - 1) / WG_C, S), WG_NT, WG_SMEM, stream>>>(
+  wgrad_s2_kernel<TA><<<dim3((C + WG_C - 1) / WG_C, S), WG_NT, wg_smem<TA>(), stream>>>(
       A, P, part, B, Ha, Wa, C, Hp, Wp, S);
   return cudaGetLastError();
 }
@@ -221,22 +314,25 @@ inline cudaError_t wgrad_s2(const float* A, const float* P, float* part, int B,
 //   out[n][c][r] = in[n][r][c]     in (nb, R, Cc), out (nb, Cc, R)
 //
 // Lays weights out as a kernel stages them, once a call (36,864 floats at
-// C = 256): then a block copies them with 16-byte copies.
+// C = 256): then a block copies them with 16-byte copies. With rnd each
+// weight is rounded to bf16 on the way (the bf16 forms take bf16 weights).
 
 __global__ void __launch_bounds__(256)
 transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int nb,
-                 int R, int Cc) {
+                 int R, int Cc, bool rnd) {
   const long long o = (long long)blockIdx.x * 256 + threadIdx.x;
   if (o >= (long long)nb * R * Cc) return;
   const int r = (int)(o % R), c = (int)((o / R) % Cc);
   const long long n = o / ((long long)R * Cc);
-  out[o] = __ldg(in + (n * R + r) * Cc + c);
+  const float v = __ldg(in + (n * R + r) * Cc + c);
+  out[o] = rnd ? round_bf16(v) : v;
 }
 
 inline void transpose(const float* in, float* out, int nb, int R, int Cc,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, bool rnd = false) {
   const long long n = (long long)nb * R * Cc;
-  transpose_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(in, out, nb, R, Cc);
+  transpose_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(in, out, nb, R, Cc,
+                                                                     rnd);
 }
 
 // Floats rounded up to a multiple of 4, so that scratch regions stay

@@ -1,4 +1,4 @@
-// Asynchronous 4- and 16-byte copies from device memory to shared memory
+// Asynchronous 4-, 8- and 16-byte copies from device memory to shared memory
 // (cp.async, sm_80 and later), for kernels that stage tiles with a halo: a thread
 // issues all of its copies without waiting on any, so their latencies
 // overlap each other (and, with two buffers, the compute on the previous
@@ -19,8 +19,15 @@ __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) 
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0));
 }
 
+// The same for 8 bytes (four bf16 values): dst and src 8-byte aligned.
+__device__ __forceinline__ void copy8(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 8 : 0));
+}
+
 // The same for 16 bytes: dst and src 16-byte aligned.
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 16 : 0));

@@ -40,6 +40,28 @@
 // The weight gradients are summed without atomics, so the result is the
 // same bits from run to run, as the TPU kernel's sequential grid gives.
 // Plain f32 FMAs: no tensor cores.
+//
+// bf16 form (K4-bf16, dec_aff_tail_bwd_bf16, precision='bf16'): the same
+// passes with T = __nv_bfloat16 for x and dx, rounding where the TPU kernel
+// (_bwd_kernel at dt = bfloat16) rounds: g to bf16 before any product (the
+// f32 cotangent of K2-bf16's output is not rounded yet), w1 and w2 to bf16,
+// dY1 to bf16 after its f32 sum and mask, dx to bf16 after its f32 sum; dW1,
+// dW2, db1 and db2 are f32 sums of those bf16 operands (db2 of the rounded
+// g). Products of two bf16 values are exact in f32, so only the order of
+// the f32 sums differs from the TPU kernel's.
+// y1: the TPU kernel recomputes P in f32, takes the ReLU mask on it and
+// rounds it to bf16. This form reads the y1 that K2-bf16 writes under
+// autograd, already rounded after bias and ReLU, as the f32 form reads K2's:
+// recomputing deconv1 would cost its 3.8 GFLOP again. Its mask [y1 > 0]
+// differs from [P > 0] only where 0 < P <= 2^-134 (P rounds to +0 in bf16).
+// That needs a term below 2^-133: every product of two bf16 values x w1 and
+// the bf16 bias are multiples of 2^-133 when |x w1| >= 2^-117 (or is 0) and
+// |b1| >= 2^-126 (or is 0), so then is every f32 partial sum of them, and a
+// positive P is at least 2^-133, the least positive bf16. Inputs that small
+// do not occur in the model, whose activations and weights are O(1e-3..1e2).
+// The staged g and w2 are rounded in shared memory once their copies have
+// landed; x is staged as raw bf16 words and widened as it is read
+// (bwd_common.cuh). y1 and dY1 stay f32 buffers holding bf16 values.
 
 #include <cuda_runtime.h>
 
@@ -75,7 +97,7 @@ constexpr int dy1_smem_bytes() {
 // and slide a 3x3 window of g along each row of the tile: per position 1
 // word of y1 and 6 of g for 9 FMAs. Then db2 over the g pixels the tile
 // owns and db1 over its dY1, each added in a fixed order.
-template <int K>
+template <typename T, int K>
 __global__ void __launch_bounds__(NT_A)
 dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
            const float* __restrict__ w2, float* __restrict__ dy1,
@@ -113,6 +135,11 @@ dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
   cpa::commit();
   cpa::wait<0>();
   __syncthreads();
+  if constexpr (!std::is_same_v<T, float>) {  // g and w2 as the TPU kernel takes them
+    for (int e = tid; e < K * G_K; e += NT_A) gs[e] = bwd::round_bf16(gs[e]);
+    for (int e = tid; e < M * K * 9; e += NT_A) ws[e] = bwd::round_bf16(ws[e]);
+    __syncthreads();
+  }
 
   if (tid < HALF) {
     const int mq = tid % 4, cg = (tid / 4) % (TC / PQ), r = tid / (4 * (TC / PQ));
@@ -154,7 +181,7 @@ dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
       const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float d = yv[i] > 0.0f ? acc[j][i] : 0.0f;
+        const float d = yv[i] > 0.0f ? bwd::round_to<T>(acc[j][i]) : 0.0f;
         sum[i] += d;
         if (rr < H1 && cc < W1) dy1[(((long)b * M + 4 * mq + i) * H1 + rr) * W1 + cc] = d;
       }
@@ -236,9 +263,11 @@ constexpr int D_M = DR * D_PITCH; // floats per m
 static_assert(M % MC == 0, "chunks tile the m");
 
 // w1t is w1 laid out (M * 9, C): the taps' rows of weights, channels last.
+// dx is written as T, each value rounded once from its f32 sum.
+template <typename T>
 __global__ void __launch_bounds__(NT_B, 3)
 dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
-          float* __restrict__ dx, int Hg, int Wg, int C, int H1, int W1,
+          T* __restrict__ dx, int Hg, int Wg, int C, int H1, int W1,
           int n_groups) {
   __shared__ __align__(16) float w1s[2][MC * 9 * CG];  // [m * 9 + tap][channel]
   __shared__ __align__(16) float ds[2][MC * D_M];       // [m][DR][D_PITCH]
@@ -339,7 +368,7 @@ dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
   }
   const int oy = oy0 + row;
   if (oy >= Hg) return;
-  float* orow = dx + ((long)b * Hg + oy) * Wg * C;
+  T* orow = dx + ((long)b * Hg + oy) * Wg * C;
 #pragma unroll
   for (int j = 0; j < PXT; ++j) {
     const int ox = ox0 + PXT * half + j;
@@ -347,14 +376,14 @@ dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = co0 + 32 * h + 4 * o;
-      float* out = orow + (long)ox * C + c;
+      T* out = orow + (long)ox * C + c;
       if (vec && c + 3 < C) {
-        *reinterpret_cast<float4*>(out) = make_float4(acc[j][4 * h], acc[j][4 * h + 1],
-                                                      acc[j][4 * h + 2], acc[j][4 * h + 3]);
+        bwd::store4(out, acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
+                    acc[j][4 * h + 3]);
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (c + k < C) out[k] = acc[j][4 * h + k];
+          if (c + k < C) out[k] = bwd::narrow<T>(acc[j][4 * h + k]);
       }
     }
   }
@@ -383,9 +412,44 @@ Layout layout(int B, int Hg, int Wg, int C, int K) {
   return l;
 }
 
+template <typename T>
+int launch(const T* x, const float* y1, const float* g, const float* w1,
+           const float* w2, T* dx, float* dw1, float* dw2b, float* scratch, int B,
+           int Hg, int Wg, int C, int K, void* stream) {
+  constexpr bool RND = !std::is_same_v<T, float>;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Layout l = layout(B, Hg, Wg, C, K);
+  const int H1 = 2 * Hg, W1 = 2 * Wg;
+  float* dy1 = scratch + l.dy1;
+  const dim3 grid_a((W1 + TC - 1) / TC, (H1 + TR - 1) / TR, B);
+  cudaError_t err;
+  if (K == 8) {
+    dy1_kernel<T, 8><<<grid_a, NT_A, dy1_smem_bytes<8>(), s>>>(g, y1, w2, dy1,
+                                                               scratch + l.part_a, H1, W1);
+  } else if (K == 24) {
+    err = cudaFuncSetAttribute(dy1_kernel<T, 24>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               dy1_smem_bytes<24>());
+    if (err != cudaSuccess) return (int)err;
+    dy1_kernel<T, 24><<<grid_a, NT_A, dy1_smem_bytes<24>(), s>>>(g, y1, w2, dy1,
+                                                                 scratch + l.part_a, H1, W1);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  bwd::transpose(w1, scratch + l.w1t, 1, C, M * 9, s, RND);  // (C, M 9) -> (M 9, C)
+  const int n_groups = (C + CG - 1) / CG;
+  const dim3 grid_b((Wg + TOW - 1) / TOW, (Hg + TOH - 1) / TOH, B * n_groups);
+  dx_kernel<T><<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
+                                       n_groups);
+  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, s);
+  if (err != cudaSuccess) return (int)err;
+  bwd::reduce_partials(scratch + l.part_a, l.blocks_a, l.np, dw2b, scratch + l.tmp, s);
+  bwd::reduce_partials(scratch + l.part_w, l.slices, C * M * 9, dw1, scratch + l.tmp, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Floats of scratch dec_aff_tail_bwd_f32 needs.
+// Floats of scratch dec_aff_tail_bwd_f32 and dec_aff_tail_bwd_bf16 need.
 extern "C" long long dec_aff_tail_bwd_scratch_floats(int B, int Hg, int Wg,
                                                      int C, int K) {
   return layout(B, Hg, Wg, C, K).total;
@@ -394,39 +458,22 @@ extern "C" long long dec_aff_tail_bwd_scratch_floats(int B, int Hg, int Wg,
 // x (B, Hg, Wg, C) NHWC; y1 (B, 16, 2Hg, 2Wg), the forward's intermediate;
 // g (B, K, 4Hg, 4Wg); w1 (C, 16, 3, 3); w2 (16, K, 3, 3). Writes dx (as x),
 // dw1 (as w1) and dw2b = [dW2 (16 K 9) | db1 (16) | db2 (K)]. K must be 8 or
-// 24. Returns cudaGetLastError() after the last launch.
+// 24. Returns cudaGetLastError() after the last launch. The bf16 form takes
+// a bf16 x and writes a bf16 dx; y1 (bf16 values), g, the weights and the
+// gradients of the weights are f32 in both.
 extern "C" int dec_aff_tail_bwd_f32(const float* x, const float* y1,
                                     const float* g, const float* w1,
                                     const float* w2, float* dx, float* dw1,
                                     float* dw2b, float* scratch, int B, int Hg,
                                     int Wg, int C, int K, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const Layout l = layout(B, Hg, Wg, C, K);
-  const int H1 = 2 * Hg, W1 = 2 * Wg;
-  float* dy1 = scratch + l.dy1;
-  const dim3 grid_a((W1 + TC - 1) / TC, (H1 + TR - 1) / TR, B);
-  cudaError_t err;
-  if (K == 8) {
-    dy1_kernel<8><<<grid_a, NT_A, dy1_smem_bytes<8>(), s>>>(g, y1, w2, dy1,
-                                                            scratch + l.part_a, H1, W1);
-  } else if (K == 24) {
-    err = cudaFuncSetAttribute(dy1_kernel<24>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               dy1_smem_bytes<24>());
-    if (err != cudaSuccess) return (int)err;
-    dy1_kernel<24><<<grid_a, NT_A, dy1_smem_bytes<24>(), s>>>(g, y1, w2, dy1,
-                                                              scratch + l.part_a, H1, W1);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  bwd::transpose(w1, scratch + l.w1t, 1, C, M * 9, s);  // (C, M 9) -> (M 9, C)
-  const int n_groups = (C + CG - 1) / CG;
-  const dim3 grid_b((Wg + TOW - 1) / TOW, (Hg + TOH - 1) / TOH, B * n_groups);
-  dx_kernel<<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
-                                    n_groups);
-  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1,
-                                        W1, s);
-  if (err != cudaSuccess) return (int)err;
-  bwd::reduce_partials(scratch + l.part_a, l.blocks_a, l.np, dw2b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_w, l.slices, C * M * 9, dw1, scratch + l.tmp, s);
-  return (int)cudaGetLastError();
+  return launch<float>(x, y1, g, w1, w2, dx, dw1, dw2b, scratch, B, Hg, Wg, C, K, stream);
+}
+
+extern "C" int dec_aff_tail_bwd_bf16(const __nv_bfloat16* x, const float* y1,
+                                     const float* g, const float* w1,
+                                     const float* w2, __nv_bfloat16* dx, float* dw1,
+                                     float* dw2b, float* scratch, int B, int Hg,
+                                     int Wg, int C, int K, void* stream) {
+  return launch<__nv_bfloat16>(x, y1, g, w1, w2, dx, dw1, dw2b, scratch, B, Hg, Wg, C, K,
+                               stream);
 }

@@ -48,6 +48,25 @@
 //      fixed order.
 // No atomics: the result is the same bits from run to run. Any H and W, as
 // the forward. Plain f32 FMAs: no tensor cores.
+//
+// bf16 form (K5-bf16, dep_encode_front_bwd_bf16, precision='bf16'): the
+// same passes with T = __nv_bfloat16 for the plane x, g, out and dx,
+// rounding where the TPU kernel (_bwd_kernel at dt = bfloat16) rounds: w0,
+// b0 and w1 to bf16; p0 recomputed as K3-bf16 computes it (bf16 operands,
+// f32 sum, the bias added in f32), its ReLU mask taken on the f32 value and
+// p0 rounded to bf16; gm = g [out > 0] (g arrives bf16, so gm is exact);
+// dP0 rounded to bf16 after its f32 sum and mask; dx rounded to bf16 once,
+// after its f32 sum, as the TPU kernel rounds dx16 (its re-interleaved f32
+// plane gradient then holds bf16 values, and the JAX model's cast back to
+// bf16 changes none of them). dW0, db0, dW1 and db1 are f32 sums of those
+// bf16 operands. The mask [out > 0] on K3-bf16's rounded output differs from
+// the TPU kernel's [out_f32 > 0] only where 0 < out_f32 <= 2^-134, which
+// needs a term below 2^-133 (dec_aff_tail_bwd.cu bounds the same case).
+// cp.async cannot convert, so g and out are staged as raw bf16 quads by
+// 8-byte copies where out's f32 copy would lie, and the thread that copied
+// a quad widens and masks it after its own wait; the plane is read with
+// plain loads and widened. p0, dP0 and gm stay f32 buffers holding bf16
+// values.
 
 #include <cuda_runtime.h>
 
@@ -85,10 +104,12 @@ static_assert(NT_A % Q4 == 0, "a thread keeps one channel quad");
   A[0] = fmaf((W).x, X, A[0]); \
   A[1] = fmaf((W).y, X, A[1]);
 
-// p0 at (Y, X) of plane xb for one m, as dep_encode_front.cu computes it
-__device__ __forceinline__ float conv0_at(const float* xb, const float* w9, float bias,
+// p0 at (Y, X) of plane xb for one m, as dep_encode_front.cu computes it,
+// before its rounding to T
+template <typename T>
+__device__ __forceinline__ float conv0_at(const T* xb, const float* w9, float bias,
                                           int Y, int X, int H, int W) {
-  float sum = bias;
+  float sum = bwd::round_to<T>(bias);
 #pragma unroll
   for (int ty = 0; ty < 3; ++ty) {
     const int yy = 2 * Y - 1 + ty;
@@ -97,7 +118,8 @@ __device__ __forceinline__ float conv0_at(const float* xb, const float* w9, floa
     for (int tx = 0; tx < 3; ++tx) {
       const int xx = 2 * X - 1 + tx;
       if (xx < 0 || xx >= W) continue;
-      sum = fmaf(w9[ty * 3 + tx], __ldg(xb + (long)yy * W + xx), sum);
+      sum = fmaf(bwd::round_to<T>(__ldg(w9 + ty * 3 + tx)),
+                 bwd::widen(__ldg(xb + (long)yy * W + xx)), sum);
     }
   }
   return fmaxf(sum, 0.0f);
@@ -109,13 +131,15 @@ __device__ __forceinline__ float conv0_at(const float* xb, const float* w9, floa
 // with more it writes its sums to part[split] and finish_dp0_kernel adds
 // the splits in order. Each block also writes gm over its own pixels and
 // channels, and their sums over its pixels to dbp[tile] (db1's partials).
+template <typename T>
 __global__ void __launch_bounds__(NT_A, 2)
-dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
-           const float* __restrict__ out, const float* __restrict__ w0,
+dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
+           const T* __restrict__ out, const float* __restrict__ w0,
            const float* __restrict__ b0, const float* __restrict__ w1t,
            float* __restrict__ dp0, float* __restrict__ p0,
            float* __restrict__ gm, float* __restrict__ part,
            float* __restrict__ dbp, int B, int H, int W, int C1, int n_split) {
+  constexpr bool F32 = std::is_same_v<T, float>;
   extern __shared__ __align__(16) float smem[];
   __shared__ float w0s[M * 9];
   __shared__ float b0s[M];
@@ -134,13 +158,16 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const int k_end = min(n_chunks, k_beg + per_split);
   const long tile = ((long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   const bool vec = (C1 & 3) == 0 &&
-                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out)) & 15) == 0;
+                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out)) &
+                    (F32 ? 15 : 7)) == 0;
 
-  for (int i = tid; i < M * 9; i += NT_A) w0s[i] = __ldg(w0 + i);
-  if (tid < M) b0s[tid] = __ldg(b0 + tid);
+  for (int i = tid; i < M * 9; i += NT_A) w0s[i] = bwd::round_to<T>(__ldg(w0 + i));
+  if (tid < M) b0s[tid] = bwd::round_to<T>(__ldg(b0 + tid));
 
   // issues the copies of chunk k (g, out and w1) into buffer buf; thread
-  // tid always copies channel quad tid % Q4 of its pixels
+  // tid always copies channel quad tid % Q4 of its pixels. bf16: g's and
+  // out's raw quads go to a pixel's slot of the out region (CC halves of g,
+  // then CC of out), for mask() to widen.
   auto stage = [&](int k, int buf) {
     float* gs = smem + buf * BUF_A;
     float* os = gs + XP * GP;
@@ -151,15 +178,30 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const int gy = a0 + pix / XC, gx = t0 + pix % XC, ch = c0 + cc;
       const bool in = gy < Ho && gx < Wo;
       const long o = in ? gbase + ((long)gy * Wo + gx) * C1 + ch : 0;
-      if (vec) {
-        cpa::copy16(gs + pix * GP + cc, g + o, in && ch < C1);
-        cpa::copy16(os + pix * GP + cc, out + o, in && ch < C1);
-      } else {
+      if constexpr (F32) {
+        if (vec) {
+          cpa::copy16(gs + pix * GP + cc, g + o, in && ch < C1);
+          cpa::copy16(os + pix * GP + cc, out + o, in && ch < C1);
+        } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool ok = in && ch + q < C1;
-          cpa::copy4(gs + pix * GP + cc + q, g + (ok ? o + q : 0), ok);
-          cpa::copy4(os + pix * GP + cc + q, out + (ok ? o + q : 0), ok);
+          for (int q = 0; q < 4; ++q) {
+            const bool ok = in && ch + q < C1;
+            cpa::copy4(gs + pix * GP + cc + q, g + (ok ? o + q : 0), ok);
+            cpa::copy4(os + pix * GP + cc + q, out + (ok ? o + q : 0), ok);
+          }
+        }
+      } else {
+        T* rg = reinterpret_cast<T*>(os + pix * GP) + cc;
+        if (vec) {
+          cpa::copy8(rg, g + o, in && ch < C1);
+          cpa::copy8(rg + CC, out + o, in && ch < C1);
+        } else {  // plain loads, read back by this thread only
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bool ok = in && ch + q < C1;
+            rg[q] = ok ? g[o + q] : bwd::narrow<T>(0.0f);
+            rg[CC + q] = ok ? out[o + q] : bwd::narrow<T>(0.0f);
+          }
         }
       }
     }
@@ -178,8 +220,19 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
     float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int e = tid; e < XP * Q4; e += NT_A) {
       const int pix = e / Q4, r = pix / XC, c = pix % XC;
-      float4 v = *reinterpret_cast<float4*>(gs + pix * GP + cc);
-      const float4 u = *reinterpret_cast<const float4*>(os + pix * GP + cc);
+      float4 v, u;
+      if constexpr (F32) {
+        v = *reinterpret_cast<float4*>(gs + pix * GP + cc);
+        u = *reinterpret_cast<const float4*>(os + pix * GP + cc);
+      } else {
+        const T* rg = reinterpret_cast<const T*>(os + pix * GP) + cc;
+        const uint2 a = *reinterpret_cast<const uint2*>(rg);
+        const uint2 d = *reinterpret_cast<const uint2*>(rg + CC);
+        v = make_float4(bwd::lo_bf16(a.x), bwd::hi_bf16(a.x), bwd::lo_bf16(a.y),
+                        bwd::hi_bf16(a.y));
+        u = make_float4(bwd::lo_bf16(d.x), bwd::hi_bf16(d.x), bwd::lo_bf16(d.y),
+                        bwd::hi_bf16(d.y));
+      }
       v.x = u.x > 0.0f ? v.x : 0.0f;
       v.y = u.y > 0.0f ? v.y : 0.0f;
       v.z = u.z > 0.0f ? v.z : 0.0f;
@@ -218,7 +271,11 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
   for (int e = tid; e < XT * XT; e += NT_A) {  // the plane under the tile
     const int yy = 4 * a0 - 1 + e / XT, xx = 4 * t0 - 1 + e % XT;
     const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-    cpa::copy4(xs + e, x + (ok ? ((long)b * H + yy) * W + xx : 0), ok);
+    if constexpr (F32) {
+      cpa::copy4(xs + e, x + (ok ? ((long)b * H + yy) * W + xx : 0), ok);
+    } else {  // read after the first barrier below
+      xs[e] = ok ? bwd::widen(x[((long)b * H + yy) * W + xx]) : 0.0f;
+    }
   }
   if (k_beg < k_end) stage(k_beg, 0);
   cpa::commit();
@@ -304,16 +361,17 @@ dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
       }
     }
     pv = fmaxf(pv, 0.0f);
-    p0[o] = pv;
-    dp0[o] = pv > 0.0f ? sum : 0.0f;
+    p0[o] = bwd::round_to<T>(pv);
+    dp0[o] = pv > 0.0f ? bwd::round_to<T>(sum) : 0.0f;
   }
 }
 
 #undef FMA2
 
 // dP0 and p0 from n_split partial sums, added in split order.
+template <typename T>
 __global__ void __launch_bounds__(256)
-finish_dp0_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+finish_dp0_kernel(const T* __restrict__ x, const float* __restrict__ w0,
                   const float* __restrict__ b0, const float* __restrict__ part,
                   float* __restrict__ dp0, float* __restrict__ p0, int B, int H,
                   int W, int n_split) {
@@ -326,8 +384,8 @@ finish_dp0_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   float sum = part[o];
   for (int sp = 1; sp < n_split; ++sp) sum += part[sp * n + o];
   const float pv = conv0_at(x + (long)b * H * W, w0 + m * 9, __ldg(b0 + m), Y, X, H, W);
-  p0[o] = pv;
-  dp0[o] = pv > 0.0f ? sum : 0.0f;
+  p0[o] = bwd::round_to<T>(pv);
+  dp0[o] = pv > 0.0f ? bwd::round_to<T>(sum) : 0.0f;
 }
 
 // ---- 2. dx = convT(dP0, w0), and partial dW0 / db0 ----
@@ -338,9 +396,10 @@ constexpr int PX = FX / 2;
 constexpr int NT_B = 256;
 constexpr int NPB = M * 9 + M;   // partials per block: dW0 | db0
 
+template <typename T>
 __global__ void __launch_bounds__(NT_B)
-dx0_kernel(const float* __restrict__ x, const float* __restrict__ dp0,
-           const float* __restrict__ w0, float* __restrict__ dx,
+dx0_kernel(const T* __restrict__ x, const float* __restrict__ dp0,
+           const float* __restrict__ w0, T* __restrict__ dx,
            float* __restrict__ part, int H, int W) {
   __shared__ float dps[M][PY + 1][PX + 1];
   __shared__ float xs[FY + 1][FX + 1];
@@ -352,7 +411,7 @@ dx0_kernel(const float* __restrict__ x, const float* __restrict__ dp0,
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   float* pb = part + (long)((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * NPB;
 
-  for (int i = tid; i < M * 9; i += NT_B) w0s[i] = __ldg(w0 + i);
+  for (int i = tid; i < M * 9; i += NT_B) w0s[i] = bwd::round_to<T>(__ldg(w0 + i));
   for (int i = tid; i < M * (PY + 1) * (PX + 1); i += NT_B) {
     const int c = i % (PX + 1), r = (i / (PX + 1)) % (PY + 1), m = i / ((PX + 1) * (PY + 1));
     const int Y = Y0 + r, X = X0 + c;
@@ -362,7 +421,7 @@ dx0_kernel(const float* __restrict__ x, const float* __restrict__ dp0,
     const int c = i % (FX + 1), r = i / (FX + 1);
     const int yy = 2 * Y0 - 1 + r, xx = 2 * X0 - 1 + c;
     xs[r][c] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-        ? __ldg(x + ((long)b * H + yy) * W + xx) : 0.0f;
+        ? bwd::widen(__ldg(x + ((long)b * H + yy) * W + xx)) : 0.0f;
   }
   __syncthreads();
 
@@ -379,7 +438,7 @@ dx0_kernel(const float* __restrict__ x, const float* __restrict__ dp0,
         for (int m = 0; m < M; ++m) d = fmaf(w0s[m * 9 + ty * 3 + tx], dps[m][yl][xl], d);
       }
     }
-    dx[((long)b * H + yy) * W + xx] = d;
+    dx[((long)b * H + yy) * W + xx] = bwd::narrow<T>(d);
   }
 
   // partial dW0 (thread = (m, tap)) and db0 (thread = m) over owned positions
@@ -432,9 +491,47 @@ Layout layout(int B, int H, int W, int C1) {
   return l;
 }
 
+template <typename T>
+int launch(const T* x, const T* g, const T* out, const float* w0, const float* b0,
+           const float* w1, T* dx, float* dw0b, float* dw1b, float* scratch, int B,
+           int H, int W, int C1, void* stream) {
+  constexpr bool RND = !std::is_same_v<T, float>;
+  cudaStream_t s = (cudaStream_t)stream;
+  const Layout l = layout(B, H, W, C1);
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
+  float* dp0 = scratch + l.dp0;
+  float* p0 = scratch + l.p0;
+  float* gm = scratch + l.gm;
+  bwd::transpose(w1, scratch + l.w1t, C1, M, 9, s, RND);  // (C1, M, 9) -> (C1, 9, M)
+  cudaError_t err = cudaFuncSetAttribute(
+      dp0_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DP0_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_a((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * l.n_split);
+  dp0_kernel<T><<<grid_a, NT_A, DP0_SMEM, s>>>(x, g, out, w0, b0, scratch + l.w1t, dp0,
+                                               p0, gm, scratch + l.part_dp,
+                                               scratch + l.part_db, B, H, W, C1,
+                                               l.n_split);
+  if (l.n_split > 1) {
+    const long n = (long)B * M * H1 * W1;
+    finish_dp0_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split);
+  }
+  const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
+  dx0_kernel<T><<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, scratch + l.part_b, H, W);
+  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s);
+  if (err != cudaSuccess) return (int)err;
+  bwd::reduce_partials(scratch + l.part_b, l.blocks_b, NPB, dw0b, scratch + l.tmp, s);
+  bwd::reduce_partials(scratch + l.part_w, l.slices, C1 * M * 9, dw1b, scratch + l.tmp, s);
+  bwd::reduce_partials(scratch + l.part_db, l.tiles, C1, dw1b + (long)C1 * M * 9,
+                       scratch + l.tmp, s);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Floats of scratch dep_encode_front_bwd_f32 needs.
+// Floats of scratch dep_encode_front_bwd_f32 and dep_encode_front_bwd_bf16
+// need.
 extern "C" long long dep_encode_front_bwd_scratch_floats(int B, int H, int W,
                                                          int C1) {
   return layout(B, H, W, C1).total;
@@ -443,41 +540,25 @@ extern "C" long long dep_encode_front_bwd_scratch_floats(int B, int H, int W,
 // x (B, H, W); g and out (B, Ho, Wo, C1) NHWC, out the forward's output;
 // w0 (16, 1, 3, 3), b0 (16); w1 (C1, 16, 3, 3). Writes dx (as x),
 // dw0b = [dW0 (16 9) | db0 (16)] and dw1b = [dW1 (C1 16 9) | db1 (C1)].
-// Returns cudaGetLastError() after the last launch.
+// Returns cudaGetLastError() after the last launch. The bf16 form takes a
+// bf16 x, g and out and writes a bf16 dx; the weights and the gradients of
+// the weights are f32 in both.
 extern "C" int dep_encode_front_bwd_f32(const float* x, const float* g,
                                         const float* out, const float* w0,
                                         const float* b0, const float* w1,
                                         float* dx, float* dw0b, float* dw1b,
                                         float* scratch, int B, int H, int W,
                                         int C1, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const Layout l = layout(B, H, W, C1);
-  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
-  const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
-  float* dp0 = scratch + l.dp0;
-  float* p0 = scratch + l.p0;
-  float* gm = scratch + l.gm;
-  bwd::transpose(w1, scratch + l.w1t, C1, M, 9, s);  // (C1, M, 9) -> (C1, 9, M)
-  cudaError_t err = cudaFuncSetAttribute(
-      dp0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DP0_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_a((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * l.n_split);
-  dp0_kernel<<<grid_a, NT_A, DP0_SMEM, s>>>(x, g, out, w0, b0, scratch + l.w1t, dp0,
-                                            p0, gm, scratch + l.part_dp,
-                                            scratch + l.part_db, B, H, W, C1,
-                                            l.n_split);
-  if (l.n_split > 1) {
-    const long n = (long)B * M * H1 * W1;
-    finish_dp0_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split);
-  }
-  const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
-  dx0_kernel<<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, scratch + l.part_b, H, W);
-  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s);
-  if (err != cudaSuccess) return (int)err;
-  bwd::reduce_partials(scratch + l.part_b, l.blocks_b, NPB, dw0b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_w, l.slices, C1 * M * 9, dw1b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_db, l.tiles, C1, dw1b + (long)C1 * M * 9,
-                       scratch + l.tmp, s);
-  return (int)cudaGetLastError();
+  return launch<float>(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W, C1,
+                       stream);
+}
+
+extern "C" int dep_encode_front_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                         const __nv_bfloat16* out, const float* w0,
+                                         const float* b0, const float* w1,
+                                         __nv_bfloat16* dx, float* dw0b, float* dw1b,
+                                         float* scratch, int B, int H, int W, int C1,
+                                         void* stream) {
+  return launch<__nv_bfloat16>(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W,
+                               C1, stream);
 }

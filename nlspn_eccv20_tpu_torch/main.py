@@ -6,8 +6,9 @@ with every kernel's plain version): the epoch loop trains and validates,
 saves a checkpoint each epoch, then the last weights are tested; with
 ``--test_only --pretrain <dir or .pt>`` it only tests. ``--test_pipeline``
 cuts every loop to one batch. cuDNN runs without TF32, so that
-``precision='f32'`` computes in f32. ``--precision bf16`` tests (and the
-port serves) in bf16; training in bf16 raises ``NotImplementedError``.
+``precision='f32'`` computes in f32. ``--precision bf16`` trains, tests
+(and the port serves) in bf16: f32 weights and optimizer, bf16 compute, f32
+gradients; its checkpoints hold f32 weights, which an f32 run loads.
 
 Usage:
   python -m nlspn_eccv20_tpu_torch.main --data_name NYU --dir_data ... \\
@@ -17,6 +18,8 @@ Usage:
   python -m nlspn_eccv20_tpu_torch.main --platform cpu --data_name Synthetic \\
       --test_pipeline --epochs 1 --batch_size 2 --patch_height 64 \\
       --patch_width 96
+  python -m nlspn_eccv20_tpu_torch.main --precision bf16 --data_name Synthetic \\
+      --test_pipeline --epochs 1
   python -m nlspn_eccv20_tpu_torch.main --precision bf16 --test_only \\
       --pretrain <experiment dir or .pt> --data_name Synthetic --test_pipeline
 """
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING, Config, parse_args
+from nlspn_eccv20_tpu_torch.config import Config, parse_args
 from nlspn_eccv20_tpu_torch.data import get_dataset
 from nlspn_eccv20_tpu_torch.data.loader import DataLoader
 from nlspn_eccv20_tpu_torch.device import resolve_device
@@ -130,10 +133,8 @@ def _resume(cfg: Config, engine: Engine, ckpt: CheckpointManager, latest: int,
 
 
 def train(cfg: Config, device=None):
-    """The epoch loop; returns the Engine with the last weights. f32 only:
-    with ``precision='bf16'`` it raises before anything is loaded."""
-    if cfg.precision != "f32":
-        raise NotImplementedError(BF16_TRAINING)
+    """The epoch loop, in f32 or bf16 (``cfg.precision``); returns the
+    Engine with the last weights."""
     main_proc = is_main_process()
     data_train = get_dataset(cfg, "train")
     data_val = get_dataset(cfg, "val")

@@ -19,8 +19,14 @@ Mixed precision (``precision='bf16'``) as the JAX package has it: the
 parameters stay f32, and each block computes in its input's dtype. ``Conv``
 and ``ConvTranspose`` cast their weight and bias to that dtype at use (the
 library adds the bias before it rounds the output, where the JAX ``Conv``
-rounds first and adds in bf16); ``BatchNorm`` in eval mode normalises in f32
-and returns the input's dtype. Training in bf16 is not ported yet.
+rounds first and adds in bf16), so their parameters' gradients arrive f32;
+``BatchNorm`` normalises in f32 and returns the input's dtype, in both
+modes. In train mode on bf16 (Flax's ``BatchNorm(dtype=bf16,
+param_dtype=f32)``) the batch statistics are f32 reductions of the bf16
+input and the running statistics are updated in f32; the library's fused
+batch norm takes the variance in a stable form where Flax takes E[x^2] -
+E[x]^2 (clipped at 0), a difference of f32 rounding only
+(``tests/test_torch_bf16_train.py`` measures it).
 """
 
 from __future__ import annotations
@@ -28,8 +34,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
-
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 
 
 def _zero_init(conv: nn.Module, zero_init: bool) -> None:
@@ -92,15 +96,20 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x.float()).to(x.dtype)
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_TRAINING)
+        # The library's batch norm with f32 parameters reduces the statistics
+        # in f32 and normalises in f32, for a bf16 input too, rounding the
+        # output once. With momentum 1 it hands back the batch mean and
+        # unbiased variance, from which the running statistics take the
+        # biased variance in f32.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
+            self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            self.eps)
+        return y
 
 
 class ConvBNReLU(nn.Sequential):

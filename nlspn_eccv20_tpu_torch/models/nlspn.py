@@ -49,8 +49,10 @@ sigmoid; the GRU's state, ``encode_aff``'s input and ``encode_dep``'s plane
 (``pred / max_depth``) are bf16, so ``dep_encode_front`` and
 ``decode_aff_tail`` run their bf16 kernels; ``decode_aff_tail`` returns
 f32, and ``dep_p``, the affinities, the confidence and every step stay f32,
-as do ``pred`` and ``pred_init``. Only inference: a bf16 forward under
-autograd raises ``NotImplementedError``.
+as do ``pred`` and ``pred_init``. It trains too, as the JAX package trains
+in bf16: train-mode BatchNorm reduces its statistics in f32, the loss is
+f32, and under autograd the two bf16 kernels run K2-bf16 / K3-bf16 forward
+and K4-bf16 / K5-bf16 backward; every parameter's gradient arrives f32.
 """
 
 from __future__ import annotations

@@ -21,8 +21,13 @@ On a bf16 ``x`` (``precision='bf16'``) it runs K2-bf16,
 and biases rounded to bf16 as the kernel stages them), summing in f32 and
 rounding y1 and the output to bf16 where the TPU kernel does; the output is
 planar f32 holding bf16 values, as the TPU kernel stores it. Its plain
-version is ``decode_aff_tail_plain_bf16``. bf16 has no backward yet: under
-autograd a bf16 ``x`` raises ``NotImplementedError``.
+version is ``decode_aff_tail_plain_bf16``. Under autograd a bf16 ``x`` runs
+``DecodeAffTailFunction`` too: K2-bf16 writes its y1 (rounded to bf16, held
+in f32) and the backward is K4-bf16, ``decode_aff_tail_bwd_bf16`` (the
+TPU backward at ``dt = bfloat16``; the same CUDA source), whose plain
+version is ``decode_aff_tail_bwd_plain_bf16``: it rounds the cotangent, the
+weights, dY1 and dx to bf16 where ``_bwd_kernel`` does, and returns a bf16
+dx and f32 weight gradients.
 """
 
 from __future__ import annotations
@@ -33,7 +38,6 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +45,7 @@ _SIGNATURES = {"dec_aff_tail_f32": [_P] * 7 + [_I] * 6 + [_P],
                "dec_aff_tail_bf16": [_P] * 7 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {
     "dec_aff_tail_bwd_f32": [_P] * 9 + [_I] * 5 + [_P],
+    "dec_aff_tail_bwd_bf16": [_P] * 9 + [_I] * 5 + [_P],
     "dec_aff_tail_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
 }
 MID_CHANNELS = 16          # deconv1's output width, fixed by the model
@@ -91,15 +96,22 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
+def decode_aff_tail_plain_bf16_y1(x, w1, b1, w2, b2):
+    """``decode_aff_tail_plain_bf16``'s output and its intermediate y1
+    (rounded to bf16, held in f32), which K2-bf16 writes for K4-bf16."""
+    y1 = _bf16(F.relu(F.conv_transpose2d(_bf16(x).permute(0, 3, 1, 2), _bf16(w1),
+                                         _bf16(b1), 2, 1, 1)))
+    out = _bf16(F.conv_transpose2d(y1, _bf16(w2), _bf16(b2), 2, 1, 1)).contiguous()
+    return out, y1
+
+
 def decode_aff_tail_plain_bf16(x, w1, b1, w2, b2):
     """K2-bf16's plain version: x, the weights and the biases rounded to
     bf16, each transposed conv summed in f32 with its bias added in f32, y1
     rounded to bf16 after its ReLU and the output rounded to bf16, as the
     TPU kernel (``_fwd_kernel``) rounds them. Planar f32 holding bf16
     values."""
-    y1 = _bf16(F.relu(F.conv_transpose2d(_bf16(x).permute(0, 3, 1, 2), _bf16(w1),
-                                         _bf16(b1), 2, 1, 1)))
-    return _bf16(F.conv_transpose2d(y1, _bf16(w2), _bf16(b2), 2, 1, 1)).contiguous()
+    return decode_aff_tail_plain_bf16_y1(x, w1, b1, w2, b2)[0]
 
 
 def decode_aff_tail_bwd_plain(g, x, w1, w2, y1):
@@ -112,6 +124,27 @@ def decode_aff_tail_bwd_plain(g, x, w1, w2, y1):
     _, vjp1 = torch.func.vjp(lambda a, w: _deconv(a.permute(0, 3, 1, 2), w), x, w1)
     dx, dw1 = vjp1(d_y1)
     return dx.contiguous(), dw1, d_y1.sum((0, 2, 3)), dw2, g.sum((0, 2, 3))
+
+
+def decode_aff_tail_bwd_plain_bf16(g, x, w1, w2, y1):
+    """K4-bf16's plain version, on its inputs (x bf16, y1 the bf16 values
+    K2-bf16 writes, g f32): ``decode_aff_tail_bwd_plain`` rounding where the
+    TPU kernel (``_bwd_kernel`` at ``dt = bfloat16``) rounds: g, w1 and w2
+    to bf16 first, dY1 to bf16 after its f32 sum and ReLU mask, dx to bf16
+    after its f32 sum (returned bf16). The weight and bias gradients are f32
+    sums of the rounded operands, db2 of the rounded g. The mask is
+    [y1 > 0], where the TPU kernel takes [P > 0] on the f32 value before
+    rounding: the two differ only where 0 < P <= 2^-134
+    (``csrc/dec_aff_tail_bwd.cu`` bounds that case)."""
+    g = _bf16(g)
+    _, vjp2 = torch.func.vjp(_deconv, y1, _bf16(w2))
+    d_y1, dw2 = vjp2(g)
+    d_y1 = _bf16(d_y1 * (y1 > 0))
+    _, vjp1 = torch.func.vjp(lambda a, w: _deconv(a.permute(0, 3, 1, 2), w),
+                             x.float(), _bf16(w1))
+    dx, dw1 = vjp1(d_y1)
+    return (dx.to(torch.bfloat16).contiguous(), dw1, d_y1.sum((0, 2, 3)), dw2,
+            g.sum((0, 2, 3)))
 
 
 def _check_inputs(x, w1, b1, w2, b2):
@@ -154,9 +187,13 @@ def _launch_fwd(x, w1, b1, w2, b2, y1: Optional[torch.Tensor] = None):
 
 
 def decode_aff_tail_fwd_y1(x, w1, b1, w2, b2):
-    """K2's output and the intermediate y1 (B, 16, 2Hg, 2Wg) that K4
-    reads. On a CPU tensor it runs ``decode_aff_tail_plain_y1``."""
+    """K2's output and the intermediate y1 (B, 16, 2Hg, 2Wg) f32 that K4
+    reads (K2-bf16's and K4-bf16's on a bf16 ``x``: y1 holds bf16 values).
+    On a CPU tensor it runs ``decode_aff_tail_plain_y1`` (or
+    ``decode_aff_tail_plain_bf16_y1``)."""
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return decode_aff_tail_plain_bf16_y1(x, w1, b1, w2, b2)
         return decode_aff_tail_plain_y1(x, w1, b1, w2, b2)
     bsz, hg, wg, _ = x.shape
     y1 = torch.empty((bsz, MID_CHANNELS, 2 * hg, 2 * wg), device=x.device,
@@ -168,9 +205,28 @@ def decode_aff_tail_bwd(g, x, w1, w2, y1):
     """K4: (dx, dw1, db1, dw2, db2) at cotangent ``g`` (B, K, 4Hg, 4Wg), from
     the forward's input and its intermediate ``y1``. On a CPU tensor it
     runs ``decode_aff_tail_bwd_plain``; on a CUDA tensor it launches the
-    kernel or raises."""
+    kernel or raises. A bf16 ``x`` goes to ``decode_aff_tail_bwd_bf16``."""
+    if x.dtype == torch.bfloat16:
+        return decode_aff_tail_bwd_bf16(g, x, w1, w2, y1)
     if x.device.type == "cpu":
         return decode_aff_tail_bwd_plain(g, x, w1, w2, y1)
+    return _launch_bwd(g, x, w1, w2, y1)
+
+
+def decode_aff_tail_bwd_bf16(g, x, w1, w2, y1):
+    """K4-bf16: ``decode_aff_tail_bwd`` on a bf16 ``x``, with the y1 that
+    K2-bf16 wrote and an f32 ``g``. Returns dx bf16 and the weight and bias
+    gradients f32. On a CPU tensor it runs
+    ``decode_aff_tail_bwd_plain_bf16``; on a CUDA tensor it launches the
+    kernel or raises."""
+    if x.device.type == "cpu":
+        return decode_aff_tail_bwd_plain_bf16(g, x, w1, w2, y1)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"decode_aff_tail_bwd_bf16 x: expected bfloat16, got {x.dtype}")
+    return _launch_bwd(g, x, w1, w2, y1)
+
+
+def _launch_bwd(g, x, w1, w2, y1):
     bsz, hg, wg, c = x.shape
     k = w2.shape[1]
     dev = x.device
@@ -182,28 +238,28 @@ def decode_aff_tail_bwd(g, x, w1, w2, y1):
     dw1 = torch.empty_like(w1)
     m = MID_CHANNELS
     dw2b = torch.empty(m * k * 9 + m + k, device=dev, dtype=torch.float32)
+    bf16 = x.dtype == torch.bfloat16
     with torch.cuda.device(dev):
         lib = build.load("dec_aff_tail_bwd", _BWD_SIGNATURES)
         scratch = torch.empty(lib.dec_aff_tail_bwd_scratch_floats(bsz, hg, wg, c, k),
                               device=dev, dtype=torch.float32)
-        err = lib.dec_aff_tail_bwd_f32(
+        err = (lib.dec_aff_tail_bwd_bf16 if bf16 else lib.dec_aff_tail_bwd_f32)(
             x.data_ptr(), y1.data_ptr(), g.data_ptr(), w1.data_ptr(),
             w2.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2b.data_ptr(),
             scratch.data_ptr(), bsz, hg, wg, c, k,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "decode_aff_tail_bwd")
-    decode_aff_tail_bwd.launches += 1
+    (decode_aff_tail_bwd_bf16 if bf16 else decode_aff_tail_bwd).launches += 1
     dw2 = dw2b[:m * k * 9].view(m, k, 3, 3)
     return dx, dw1, dw2b[m * k * 9:m * k * 9 + m], dw2, dw2b[m * k * 9 + m:]
 
 
 class DecodeAffTailFunction(torch.autograd.Function):
-    """K2 forward, K4 backward (their plain versions on CPU tensors)."""
+    """K2 forward, K4 backward (their plain versions on CPU tensors); on a
+    bf16 ``x`` K2-bf16 and K4-bf16."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_TRAINING)
         out, y1 = decode_aff_tail_fwd_y1(x, w1, b1, w2, b2)
         ctx.save_for_backward(x, w1, w2, y1)
         return out
@@ -235,10 +291,11 @@ def decode_aff_tail_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     f32 (the kernel rounds them to bf16). Returns planar (B, K, 4Hg, 4Wg)
     f32 holding bf16 values. On a CPU tensor it runs
     ``decode_aff_tail_plain_bf16``; on a CUDA tensor it launches the kernel
-    or raises. Forward only: under autograd it raises."""
+    or raises. Under autograd it runs ``DecodeAffTailFunction``, whose
+    backward is K4-bf16."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(BF16_TRAINING)
+        return DecodeAffTailFunction.apply(x, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return decode_aff_tail_plain_bf16(x, w1, b1, w2, b2)
     if x.dtype != torch.bfloat16:
@@ -249,6 +306,7 @@ def decode_aff_tail_bf16(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 decode_aff_tail.launches = 0
 decode_aff_tail_bf16.launches = 0
 decode_aff_tail_bwd.launches = 0
+decode_aff_tail_bwd_bf16.launches = 0
 
 
 def decode_aff_tail_case(gen: torch.Generator, device, b: int, hg: int,
@@ -275,28 +333,33 @@ def decode_aff_tail_case(gen: torch.Generator, device, b: int, hg: int,
 
 
 def decode_aff_tail_bwd_case(gen: torch.Generator, device, b: int, hg: int,
-                             wg: int, k: int, c: int = 256):
-    """Inputs on which K4 is checked and timed on the card, from ``gen``:
-    ``decode_aff_tail_case``'s x and weights, the forward's y1, and g, zero
-    below row 228 of the output when the grid is NYU's 58 rows (the model
-    trims the 232 rows to 228). Returns (args of ``decode_aff_tail_bwd``
-    and its plain version, library): the library call is cuDNN's backward
-    of the same two convs (aten.convolution_backward, what autograd runs
-    for them), a yardstick that the port itself never calls."""
+                             wg: int, k: int, c: int = 256,
+                             dtype: torch.dtype = torch.float32):
+    """Inputs on which K4 (K4-bf16 with ``dtype=torch.bfloat16``) is
+    checked and timed on the card, from ``gen``: ``decode_aff_tail_case``'s
+    x (in ``dtype``) and weights, the forward's y1, and g, zero below row
+    228 of the output when the grid is NYU's 58 rows (the model trims the
+    232 rows to 228). Returns (args of ``decode_aff_tail_bwd`` and its plain
+    version, library): the library call is cuDNN's backward of the same two
+    convs (aten.convolution_backward, what autograd runs for them; in bf16
+    on bf16 tensors and weights), a yardstick that the port itself never
+    calls."""
     m = MID_CHANNELS
     (x, w1, b1, w2, b2), _ = decode_aff_tail_case(gen, device, b, hg, wg, k, c)
+    x = x.to(dtype)
     _, y1 = decode_aff_tail_fwd_y1(x, w1, b1, w2, b2)
     g = torch.randn((b, k, 4 * hg, 4 * wg), generator=gen).to(device)
     if hg == 58:
         g[:, :, 228:] = 0.0
-    xn = x.permute(0, 3, 1, 2).contiguous()
+    xn, yn, gn = (t.to(dtype) for t in (x.permute(0, 3, 1, 2).contiguous(), y1, g))
+    w1n, w2n = w1.to(dtype), w2.to(dtype)
     conv_bwd = torch.ops.aten.convolution_backward
 
     def library():
-        d_y1, d_w2, d_b2 = conv_bwd(g, y1, w2, [k], [2, 2], [1, 1], [1, 1],
+        d_y1, d_w2, d_b2 = conv_bwd(gn, yn, w2n, [k], [2, 2], [1, 1], [1, 1],
                                     True, [1, 1], 1, [True, True, True])
-        d_y1 = torch.ops.aten.threshold_backward(d_y1, y1, 0.0)
-        return conv_bwd(d_y1, xn, w1, [m], [2, 2], [1, 1], [1, 1], True,
+        d_y1 = torch.ops.aten.threshold_backward(d_y1, yn, 0.0)
+        return conv_bwd(d_y1, xn, w1n, [m], [2, 2], [1, 1], [1, 1], True,
                         [1, 1], 1, [True, True, True]) + (d_w2, d_b2)
 
     return (g, x, w1, w2, y1), library

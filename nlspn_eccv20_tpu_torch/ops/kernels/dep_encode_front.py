@@ -19,8 +19,14 @@ On a bf16 plane (``precision='bf16'``) it runs K3-bf16,
 and biases rounded to bf16 as the kernel stages them), summing in f32 and
 rounding conv0's output and the output to bf16 where the TPU kernel does;
 the output is NHWC bf16, which ``encode_dep``'s stock conv2 reads as it is.
-Its plain version is ``dep_encode_front_plain_bf16``. bf16 has no backward
-yet: under autograd a bf16 plane raises ``NotImplementedError``.
+Its plain version is ``dep_encode_front_plain_bf16``. Under autograd a bf16
+plane runs ``DepEncodeFrontFunction`` too: K3-bf16 forward, and K5-bf16,
+``dep_encode_front_bwd_bf16`` (the TPU backward at ``dt = bfloat16``; the
+same CUDA source), backward, whose plain version is
+``dep_encode_front_bwd_plain_bf16``: it rounds the weights, conv0's output,
+dP0 and the plane's gradient to bf16 where ``_bwd_kernel`` does, and
+returns a bf16 plane gradient (rounded once, as the JAX model's cast back
+to the bf16 plane leaves it) and f32 weight gradients.
 """
 
 from __future__ import annotations
@@ -30,7 +36,6 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING
 from nlspn_eccv20_tpu_torch.ops.kernels import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -38,6 +43,7 @@ _SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P],
                "dep_encode_front_bf16": [_P] * 6 + [_I] * 4 + [_P]}
 _BWD_SIGNATURES = {
     "dep_encode_front_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
+    "dep_encode_front_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
     "dep_encode_front_bwd_scratch_floats": ([_I] * 4, ctypes.c_longlong),
 }
 MID_CHANNELS = 16          # conv0's output width, fixed by the model
@@ -92,6 +98,32 @@ def dep_encode_front_bwd_plain(g, xplane, w0, b0, w1, out):
     return dx[:, 0], dw0, d_p0.sum((0, 2, 3)), dw1, gm.sum((0, 2, 3))
 
 
+def dep_encode_front_bwd_plain_bf16(g, xplane, w0, b0, w1, out):
+    """K5-bf16's plain version, on its inputs (the plane, g and out bf16):
+    ``dep_encode_front_bwd_plain`` rounding where the TPU kernel
+    (``_bwd_kernel`` at ``dt = bfloat16``) rounds: the weights and b0 to
+    bf16, conv0's output recomputed from them in f32 (its ReLU mask taken
+    there) and rounded to bf16, g to bf16 (it arrives bf16), dP0 to bf16
+    after its f32 sum and mask, the plane's gradient to bf16 once after its
+    f32 sum (returned bf16). The weight and bias gradients are f32 sums of
+    the rounded operands. The mask [out > 0] is taken on K3-bf16's rounded
+    output, where the TPU kernel takes it before rounding: the two differ
+    only where 0 < out <= 2^-134 (``csrc/dec_aff_tail_bwd.cu`` bounds that
+    case)."""
+    x4 = xplane.float()[:, None]
+    w0r, w1r = _bf16(w0), _bf16(w1)
+    pf = F.relu(F.conv2d(x4, w0r, _bf16(b0), 2, 1))
+    p0 = _bf16(pf)
+    gm = (_bf16(g) * (out > 0)).permute(0, 3, 1, 2)
+    _, vjp1 = torch.func.vjp(_conv, p0, w1r)
+    d_p0, dw1 = vjp1(gm)
+    d_p0 = _bf16(d_p0 * (pf > 0))
+    _, vjp0 = torch.func.vjp(_conv, x4, w0r)
+    dx, dw0 = vjp0(d_p0)
+    return (dx[:, 0].to(torch.bfloat16), dw0, d_p0.sum((0, 2, 3)), dw1,
+            gm.sum((0, 2, 3)))
+
+
 def _check_inputs(xplane, w0, b0, w1, b1):
     c1 = w1.shape[0]
     dev = xplane.device
@@ -131,16 +163,38 @@ def dep_encode_front_bwd(g, xplane, w0, b0, w1, out):
     """K5: (dx, dw0, db0, dw1, db1) at cotangent ``g`` (NHWC, as ``out``),
     from the forward's input and its output ``out``. On a CPU tensor it
     runs ``dep_encode_front_bwd_plain``; on a CUDA tensor it launches the
-    kernel or raises."""
+    kernel or raises. A bf16 plane goes to ``dep_encode_front_bwd_bf16``."""
+    if xplane.dtype == torch.bfloat16:
+        return dep_encode_front_bwd_bf16(g, xplane, w0, b0, w1, out)
     if xplane.device.type == "cpu":
         return dep_encode_front_bwd_plain(g, xplane, w0, b0, w1, out)
+    return _launch_bwd(g, xplane, w0, b0, w1, out)
+
+
+def dep_encode_front_bwd_bf16(g, xplane, w0, b0, w1, out):
+    """K5-bf16: ``dep_encode_front_bwd`` on a bf16 plane, with K3-bf16's
+    bf16 output and a bf16 ``g``. Returns the plane's gradient bf16 and the
+    weight and bias gradients f32. On a CPU tensor it runs
+    ``dep_encode_front_bwd_plain_bf16``; on a CUDA tensor it launches the
+    kernel or raises."""
+    if xplane.device.type == "cpu":
+        return dep_encode_front_bwd_plain_bf16(g, xplane, w0, b0, w1, out)
+    if xplane.dtype != torch.bfloat16:
+        raise ValueError(
+            f"dep_encode_front_bwd_bf16 x: expected bfloat16, got {xplane.dtype}")
+    return _launch_bwd(g, xplane, w0, b0, w1, out)
+
+
+def _launch_bwd(g, xplane, w0, b0, w1, out):
     bsz, h, w = xplane.shape
     c1 = w1.shape[0]
     dev = xplane.device
     _check_inputs(xplane, w0, b0, w1, None)
     shape = _out_shape(xplane, c1)
-    build.check_tensor(g, "dep_encode_front_bwd g", shape, dev)
-    build.check_tensor(out, "dep_encode_front_bwd out", shape, dev)
+    bf16 = xplane.dtype == torch.bfloat16
+    dtype = xplane.dtype if bf16 else None
+    build.check_tensor(g, "dep_encode_front_bwd g", shape, dev, dtype)
+    build.check_tensor(out, "dep_encode_front_bwd out", shape, dev, dtype)
     m = MID_CHANNELS
     dx = torch.empty_like(xplane)
     dw0b = torch.empty(m * 9 + m, device=dev, dtype=torch.float32)
@@ -149,25 +203,29 @@ def dep_encode_front_bwd(g, xplane, w0, b0, w1, out):
         lib = build.load("dep_encode_front_bwd", _BWD_SIGNATURES)
         scratch = torch.empty(lib.dep_encode_front_bwd_scratch_floats(bsz, h, w, c1),
                               device=dev, dtype=torch.float32)
-        err = lib.dep_encode_front_bwd_f32(
+        err = (lib.dep_encode_front_bwd_bf16 if bf16 else lib.dep_encode_front_bwd_f32)(
             xplane.data_ptr(), g.data_ptr(), out.data_ptr(), w0.data_ptr(),
             b0.data_ptr(), w1.data_ptr(), dx.data_ptr(), dw0b.data_ptr(),
             dw1b.data_ptr(), scratch.data_ptr(), bsz, h, w, c1,
             torch.cuda.current_stream().cuda_stream)
     build.check_launch(err, "dep_encode_front_bwd")
-    dep_encode_front_bwd.launches += 1
+    (dep_encode_front_bwd_bf16 if bf16 else dep_encode_front_bwd).launches += 1
     return (dx, dw0b[:m * 9].view(m, 1, 3, 3), dw0b[m * 9:],
             dw1b[:c1 * m * 9].view(c1, m, 3, 3), dw1b[c1 * m * 9:])
 
 
 class DepEncodeFrontFunction(torch.autograd.Function):
-    """K3 forward, K5 backward (their plain versions on CPU tensors)."""
+    """K3 forward, K5 backward (their plain versions on CPU tensors); on a
+    bf16 plane K3-bf16 and K5-bf16."""
 
     @staticmethod
     def forward(ctx, xplane, w0, b0, w1, b1):
-        if xplane.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_TRAINING)
-        fwd = dep_encode_front_plain if xplane.device.type == "cpu" else _launch_fwd
+        if xplane.device.type != "cpu":
+            fwd = _launch_fwd
+        elif xplane.dtype == torch.bfloat16:
+            fwd = dep_encode_front_plain_bf16
+        else:
+            fwd = dep_encode_front_plain
         out = fwd(xplane, w0, b0, w1, b1)
         ctx.save_for_backward(xplane, w0, b0, w1, out)
         return out
@@ -198,11 +256,11 @@ def dep_encode_front_bf16(xplane: torch.Tensor, w0: torch.Tensor, b0: torch.Tens
     """K3-bf16: ``dep_encode_front`` on a bf16 plane, the weights and biases
     f32 (the kernel rounds them to bf16). Returns NHWC bf16. On a CPU
     tensor it runs ``dep_encode_front_plain_bf16``; on a CUDA tensor it
-    launches the kernel or raises. Forward only: under autograd it
-    raises."""
+    launches the kernel or raises. Under autograd it runs
+    ``DepEncodeFrontFunction``, whose backward is K5-bf16."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xplane, w0, b0, w1, b1)):
-        raise NotImplementedError(BF16_TRAINING)
+        return DepEncodeFrontFunction.apply(xplane, w0, b0, w1, b1)
     if xplane.device.type == "cpu":
         return dep_encode_front_plain_bf16(xplane, w0, b0, w1, b1)
     if xplane.dtype != torch.bfloat16:
@@ -213,6 +271,7 @@ def dep_encode_front_bf16(xplane: torch.Tensor, w0: torch.Tensor, b0: torch.Tens
 dep_encode_front.launches = 0
 dep_encode_front_bf16.launches = 0
 dep_encode_front_bwd.launches = 0
+dep_encode_front_bwd_bf16.launches = 0
 
 
 def dep_encode_front_case(gen: torch.Generator, device, b: int, h: int, w: int,
@@ -235,13 +294,15 @@ def dep_encode_front_case(gen: torch.Generator, device, b: int, h: int, w: int,
 
 
 def dep_encode_front_bwd_case(gen: torch.Generator, device, b: int, h: int,
-                              w: int, c: int = 256):
-    """Inputs on which K5 is checked and timed on the card, from ``gen``: an
+                              w: int, c: int = 256,
+                              dtype: torch.dtype = torch.float32):
+    """Inputs on which K5 (K5-bf16 with ``dtype=torch.bfloat16``: the plane,
+    g and out bf16) is checked and timed on the card, from ``gen``: an
     h x w plane and C1 = c. The plane and conv0's weights are multiples of
-    1/64, so that conv0's sums are exact in any order: K5 recomputes conv0
-    as K3 does, its plain version through cuDNN, and both then take the
-    same ReLU mask. Returns (args of ``dep_encode_front_bwd`` and its plain
-    version, library), as ``decode_aff_tail_bwd_case``."""
+    1/64 (bf16 values too), so that conv0's sums are exact in any order: K5
+    recomputes conv0 as K3 does, its plain version through cuDNN, and both
+    then take the same ReLU mask. Returns (args of ``dep_encode_front_bwd``
+    and its plain version, library), as ``decode_aff_tail_bwd_case``."""
     def sixty_fourths(*shape, lo, hi):
         return (torch.randint(lo, hi + 1, shape, generator=gen) / 64).to(device)
     m = MID_CHANNELS
@@ -249,20 +310,22 @@ def dep_encode_front_bwd_case(gen: torch.Generator, device, b: int, h: int,
     w0, b0 = sixty_fourths(m, 1, 3, 3, lo=-21, hi=21), sixty_fourths(m, lo=-6, hi=6)
     w1 = (torch.randn((c, m, 3, 3), generator=gen) / 12).to(device)
     b1 = (torch.randn((c,), generator=gen) * 0.1).to(device)
+    plane = plane.to(dtype)
     out = dep_encode_front(plane, w0, b0, w1, b1)
-    g = torch.randn(out.shape, generator=gen).to(device)
+    g = torch.randn(out.shape, generator=gen).to(device).to(dtype)
     p4 = plane[:, None]
-    p0 = F.relu(F.conv2d(p4, w0, b0, 2, 1))
+    w0n, b0n, w1n = (t.to(dtype) for t in (w0, b0, w1))
+    p0 = F.relu(F.conv2d(p4, w0n, b0n, 2, 1))
     out_n = out.permute(0, 3, 1, 2).contiguous()
     g_n = g.permute(0, 3, 1, 2).contiguous()
     conv_bwd = torch.ops.aten.convolution_backward
 
     def library():
         gm = torch.ops.aten.threshold_backward(g_n, out_n, 0.0)
-        d_p0, d_w1, d_b1 = conv_bwd(gm, p0, w1, [c], [2, 2], [1, 1], [1, 1],
+        d_p0, d_w1, d_b1 = conv_bwd(gm, p0, w1n, [c], [2, 2], [1, 1], [1, 1],
                                     False, [0, 0], 1, [True, True, True])
         d_p0 = torch.ops.aten.threshold_backward(d_p0, p0, 0.0)
-        return conv_bwd(d_p0, p4, w0, [m], [2, 2], [1, 1], [1, 1], False,
+        return conv_bwd(d_p0, p4, w0n, [m], [2, 2], [1, 1], [1, 1], False,
                         [0, 0], 1, [True, True, True]) + (d_w1, d_b1)
 
     return (g, plane, w0, b0, w1, out), library

@@ -9,10 +9,14 @@ memory, the device's busy time and idle share over the profiled window,
 the device time by group (the port's forward and backward kernels,
 convolutions, the optimizer, the rest), and the top kernels by device
 time, and writes the chrome trace into ``--trace-dir`` (default
-``build/``). TF32 stays off, as in ``chip_smoke.py``; cuDNN runs in
-benchmark mode, as ``Engine.train_step`` scopes it. Needs the CUDA card:
+``build/``). ``--precision bf16`` trains the same configuration in bf16
+(f32 weights and Adam, bf16 compute; K2-K5 in their bf16 forms, whose
+groups carry "(bf16)"). TF32 stays off, as in ``chip_smoke.py``; cuDNN
+runs in benchmark mode, as ``Engine.train_step`` scopes it. Needs the CUDA
+card:
 
-    python -m nlspn_eccv20_tpu_torch.tools.profile_train [--offset | --loop] [--trace-dir DIR]
+    python -m nlspn_eccv20_tpu_torch.tools.profile_train [--offset | --loop] \
+        [--precision f32|bf16] [--trace-dir DIR]
 """
 
 from __future__ import annotations
@@ -51,23 +55,28 @@ WARMUP, TIMED, ITERS = 3, 11, 3   # steps: warm-up, CUDA-event timed, profiled
 
 
 def group_of(name: str) -> str:
+    """The group of a CUDA kernel; the port's kernels instantiated for
+    bf16 get their own group, marked "(bf16)"."""
+    bf16 = " (bf16)" if "bfloat16" in name else ""
     for frag, group in BWD_KERNELS.items():
         if frag in name:
-            return group
+            return group + bf16
     low = name.lower()
     if "adam" in low or "multi_tensor" in low or "foreach" in low:
         return "optimizer (Adam)"
-    return serve_group(name)
+    group = serve_group(name)
+    return group + bf16 if group.endswith("_kernel") else group
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default="build")
+    ap.add_argument("--precision", default="f32", choices=("f32", "bf16"))
     add_config_options(ap)
     args = ap.parse_args(argv)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = config_of(args)
+    cfg = config_of(args).replace(precision=args.precision)
     eng = Engine(cfg, steps_per_epoch=100)      # the CUDA card or raise
     randomize_(eng.model, torch.Generator().manual_seed(4))
     eng.init_state()
@@ -112,7 +121,7 @@ def main(argv=None) -> int:
     busy_ms = sum(busy.values()) / 1e3 / ITERS
     report = {
         "device": torch.cuda.get_device_name(0),
-        "offset": cfg.offset, "loop": args.loop, "batch": b,
+        "offset": cfg.offset, "loop": args.loop, "precision": cfg.precision, "batch": b,
         "patch": [cfg.patch_height, cfg.patch_width],
         "step_ms_median": sorted(step_ms)[TIMED // 2],
         "step_ms_min": min(step_ms),
@@ -130,7 +139,8 @@ def main(argv=None) -> int:
     }
     print(json.dumps(report, indent=1), flush=True)
     os.makedirs(args.trace_dir, exist_ok=True)
-    name = f"trace_train{'_offset' if args.offset else '_loop' if args.loop else ''}_b12.json"
+    name = (f"trace_train{'_offset' if args.offset else '_loop' if args.loop else ''}"
+            f"{'_bf16' if cfg.precision == 'bf16' else ''}_b12.json")
     prof.export_chrome_trace(os.path.join(args.trace_dir, name))
     return 0
 

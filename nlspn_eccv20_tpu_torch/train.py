@@ -1,12 +1,13 @@
 """Training / evaluation engine on one device (counterpart of
 ``nlspn_eccv20_tpu/train.py``'s ``Engine``, without the mesh).
 
-One train step (f32 only: with ``precision='bf16'`` it raises
-``NotImplementedError``; ``eval_step`` runs in bf16): the model in train mode with ``need_inter=False`` (the loss
+One train step, in f32 or in bf16 (``precision='bf16'``: f32 parameters
+and optimizer, bf16 compute, f32 gradients, no loss scaling, as the JAX
+package trains): the model in train mode with ``need_inter=False`` (the loss
 reads only the final prediction), the weighted loss summed over the batch
-and divided by the batch size, backward through the kernels' autograd
-Functions (K1b, or K8 with ``offset``, K4 and K5 on the card), then the
-optimizer with the per-step LR schedule. cuDNN runs in benchmark mode for
+and divided by the batch size, in f32, backward through the kernels'
+autograd Functions (K1b, or K8 with ``offset``, K4 and K5 on the card; K4-bf16
+and K5-bf16 in bf16), then the optimizer with the per-step LR schedule. cuDNN runs in benchmark mode for
 the step's own calls only; the process-wide flag is left as it is.
 
 The initial weights are drawn from a generator seeded with ``cfg.seed``
@@ -31,7 +32,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING, Config
+from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.device import cudnn_benchmark_mode
 from nlspn_eccv20_tpu_torch.losses import get_loss
 from nlspn_eccv20_tpu_torch.metrics import evaluate, evaluate_per_sample
@@ -97,8 +98,6 @@ class Engine:
         step used, ``output`` the model's output (detached); with
         ``cfg.offset`` also ``off_max``, max |offset| (for
         ``check_offset_telemetry``)."""
-        if self.cfg.precision != "f32":
-            raise NotImplementedError(BF16_TRAINING)
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
         gbatch = batch["rgb"].shape[0]

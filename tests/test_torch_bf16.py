@@ -22,13 +22,15 @@ its planes one bf16 add at a time; the port's 1x1 conv sums in f32) and, at
 batch 1 only, the heads' stage 2, whose JAX tap-major route sums its nine
 taps in bf16 where the port's conv sums in f32.
 
-Then the dtypes along the path, and the entry points: ``Predictor`` and
-``Engine.eval_step`` in bf16; ``Engine.train_step``, ``main``'s training
-and the kernels under autograd raise ``NotImplementedError``.
+Then the dtypes along the path, and the entry points: ``Predictor``,
+``Engine.eval_step`` and ``Engine.train_step`` in bf16, ``main``'s training
+in bf16, and the kernels under autograd on a bf16 input (their bf16
+backwards, held against the JAX package in ``tests/test_torch_bf16_train.py``).
 """
 
 import dataclasses
 import functools
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -42,8 +44,10 @@ import nlspn_eccv20_tpu_torch.models.nlspn as nlspn_mod
 from nlspn_eccv20_tpu.config import Config as JaxConfig
 from nlspn_eccv20_tpu.models import get_model as jax_get_model
 from nlspn_eccv20_tpu_torch import main as cli_main
-from nlspn_eccv20_tpu_torch.config import BF16_TRAINING, Config, parse_args
+from nlspn_eccv20_tpu_torch.config import Config, parse_args
 from nlspn_eccv20_tpu_torch.models import get_model
+from nlspn_eccv20_tpu_torch.ops.kernels import dec_aff_tail as dat_mod
+from nlspn_eccv20_tpu_torch.ops.kernels import dep_encode_front as def_mod
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     decode_aff_tail, decode_aff_tail_plain, decode_aff_tail_plain_bf16)
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
@@ -144,19 +148,31 @@ def test_dep_encode_front_plain_bf16_matches_the_tpu_kernel(monkeypatch, b, h, w
     assert not torch.equal(out.float(), dep_encode_front_plain(t(x), *args[1:]))
 
 
-def test_bf16_kernels_under_autograd_raise():
-    """A bf16 tensor that requires grad never reaches the f32 backward."""
+def test_bf16_kernels_under_autograd_raise(monkeypatch):
+    """A bf16 tensor that requires grad no longer raises: it reaches the
+    autograd Function and, on the CPU, its plain bf16 backward, never the
+    f32 one (which raises here if it is called)."""
+    seen = []
+    for mod, f32_bwd, bf16_bwd in ((dat_mod, "decode_aff_tail_bwd_plain",
+                                    "decode_aff_tail_bwd_plain_bf16"),
+                                   (def_mod, "dep_encode_front_bwd_plain",
+                                    "dep_encode_front_bwd_plain_bf16")):
+        monkeypatch.setattr(mod, f32_bwd, lambda *a: pytest.fail("the f32 backward ran"))
+        real = getattr(mod, bf16_bwd)
+        monkeypatch.setattr(mod, bf16_bwd, lambda *a, _r=real, _n=bf16_bwd: (
+            seen.append(_n), _r(*a))[1])
     x, w1, b1, w2, b2 = _tail_inputs(1, 3, 4, 16, 8)
     xb = torch.from_numpy(x).bfloat16().requires_grad_()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        decode_aff_tail(xb, _convt_w(w1), t(b1), _convt_w(w2), t(b2))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        decode_aff_tail(xb.detach(), _convt_w(w1).requires_grad_(), t(b1),
-                        _convt_w(w2), t(b2))
+    decode_aff_tail(xb, _convt_w(w1), t(b1), _convt_w(w2), t(b2)).sum().backward()
+    assert xb.grad.dtype == torch.bfloat16
+    w1g = _convt_w(w1).requires_grad_()
+    decode_aff_tail(xb.detach(), w1g, t(b1), _convt_w(w2), t(b2)).sum().backward()
+    assert w1g.grad.dtype == torch.float32
     p, w0, b0, w1, b1 = _front_inputs(1, 8, 8, 16)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        dep_encode_front(torch.from_numpy(p).bfloat16().requires_grad_(), _conv_w(w0),
-                         t(b0), _conv_w(w1), t(b1))
+    pb = torch.from_numpy(p).bfloat16().requires_grad_()
+    dep_encode_front(pb, _conv_w(w0), t(b0), _conv_w(w1), t(b1)).float().sum().backward()
+    assert pb.grad.dtype == torch.bfloat16
+    assert seen == ["decode_aff_tail_bwd_plain_bf16"] * 2 + ["dep_encode_front_bwd_plain_bf16"]
 
 
 # ---- the whole bf16 model against the JAX bf16 model ----
@@ -284,6 +300,8 @@ def test_predictor_serves_bf16_and_one_checkpoint_loads_into_both(tmp_path):
 
 
 def test_engine_evaluates_in_bf16_and_does_not_train_in_bf16():
+    """The Engine evaluates in bf16 and (since bf16 training was ported)
+    trains a step in bf16 too: f32 gradients, f32 weights after the step."""
     cfg = Config(**dict(TINY, prop_time=2, precision="bf16"))
     eng = Engine(cfg, device="cpu")
     eng.init_state()
@@ -291,15 +309,36 @@ def test_engine_evaluates_in_bf16_and_does_not_train_in_bf16():
     res = eng.eval_step(batch)
     assert res["output"]["pred"].dtype == torch.float32
     assert torch.isfinite(res["metric"]).all() and torch.isfinite(res["loss_val"]).all()
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        eng.train_step(batch)
+    before = {k: v.clone() for k, v in eng.model.state_dict().items()}
+    aux = eng.train_step(batch)
+    assert aux["loss"].dtype == torch.float32 and torch.isfinite(aux["loss"])
+    assert aux["output"]["pred"].dtype == torch.float32
+    for name, p in eng.model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        assert torch.isfinite(p.grad).all() and p.dtype == torch.float32, name
+    assert eng.step == 1
+    assert not torch.equal(before["conv1_rgb.0.weight"], eng.model.conv1_rgb[0].weight)
 
 
-def test_main_trains_not_in_bf16(tmp_path):
+def test_main_trains_not_in_bf16(tmp_path, monkeypatch):
+    """``main --precision bf16`` trains (since bf16 training was ported):
+    one epoch on the synthetic scenes, a checkpoint of f32 weights that an
+    f32 Predictor loads. TensorBoard, which is optional, is left out: its
+    import alone takes longer than the run."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
     cfg = parse_args(["--platform", "cpu", "--precision", "bf16", "--data_name",
                       "Synthetic", "--test_pipeline", "--epochs", "1", "--batch_size",
-                      "2", "--patch_height", "32", "--patch_width", "48",
-                      "--experiments_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="bf16 training") as e:
-        cli_main.main(cfg)
-    assert str(e.value) == BF16_TRAINING
+                      "2", "--patch_height", "32", "--patch_width", "48", "--prop_time",
+                      "2", "--GRU_hidden_dim", "16", "--GRU_input_dim", "16",
+                      "--num_sample", "50", "--num_threads", "2", "--experiments_dir",
+                      str(tmp_path)])
+    cli_main.main(cfg)
+    ckpts = list(tmp_path.rglob("model_*.pt"))
+    assert len(ckpts) == 1
+    net = torch.load(ckpts[0], weights_only=True)["net"]
+    assert all(v.dtype != torch.bfloat16 for v in net.values())
+    rgbs, deps = _requests(n=1)
+    f32 = Predictor(cfg.replace(precision="f32", platform=None), checkpoint=str(ckpts[0]),
+                    device="cpu")
+    out = f32.predict_batch(rgbs, deps)[0]
+    assert out.shape == deps[0].shape and np.isfinite(out).all()

@@ -173,17 +173,18 @@ def test_config_round_trips_and_validates_like_jax():
 
 @pytest.mark.parametrize("kw", [{"precision": "bf16"}])
 def test_unported_options_raise(kw):
-    """bf16 serves (get_model builds) but does not train yet."""
-    from nlspn_eccv20_tpu_torch.train import Engine
+    """What the port still lacks raises: the op library's
+    ``small_conv3x3_planar`` (K9, which no model runs) at ``kw``'s
+    precision. The model itself builds at it (it serves and trains in bf16:
+    ``tests/test_torch_bf16.py``)."""
+    from nlspn_eccv20_tpu_torch.ops import small_conv3x3_planar
 
-    eng = Engine(Config(**TINY, **kw), device="cpu")
-    eng.init_state()
-    s = sample(1, 32, 32)
-    batch = {"rgb": torch.from_numpy(nchw(s["rgb"])),
-             "dep": torch.from_numpy(nchw(s["dep"])),
-             "gt": torch.from_numpy(nchw(s["dep"])) + 1.0}
-    with pytest.raises(NotImplementedError):
-        eng.train_step(batch)
+    get_model(Config(**TINY, **kw), device="cpu")
+    dt = {"bf16": torch.bfloat16}[kw["precision"]]
+    x = torch.zeros((1, 4, 8, 8), dtype=dt)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        small_conv3x3_planar(x, x, torch.zeros((2, 8, 3, 3), dtype=dt),
+                             torch.zeros(2, dtype=dt))
 
 
 def test_training_forward_reaches_every_parameter():
