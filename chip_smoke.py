@@ -106,12 +106,18 @@ Phases (any failure exits non-zero and prints no result):
      26 and at B=1 with K 1, its library time cuDNN's backward of the
      concat conv; each twice for equal bits, its bound that of its design
      (bytes, or 3 TF32 passes on the tensor cores) with its f32 FMA bound
-     printed beside it; then the op-library path with the
+     printed beside it; their bf16 forms K9-bf16 small_conv3x3_bf16 (the
+     same four shapes) and K9b-bf16 small_conv3x3_bwd_bf16 (B=12 and B=1
+     of 228x304, B=2 of 57x75 with K 26) against their plain versions,
+     which round per tap as the TPU kernel does, each twice for equal
+     bits, timed beside cuDNN's bf16 conv over the concat or its backward
+     and the bf16 bound; then the op-library path with the
      counters at 0: the heads identity (K9 with the fused stage-2 weights
      on the default model's and the offset model's stage-1 outputs and fe1
      equals their three *_dec0 convs, K 10 and 26), one autograd step
      through small_conv3x3_planar (K9 and K9b against the plain
-     gradients), ModulatedDeformConvPack, DeformConvPack and
+     gradients) and one in bf16 (K9-bf16 and K9b-bf16; bf16 activations,
+     f32 parameters, each gradient in its leaf's dtype), ModulatedDeformConvPack, DeformConvPack and
      DeformRoIPoolingPack forward and backward on the card against the
      same modules on the CPU, conv3x3_s2 / convt3x3_s2 against F.conv2d /
      F.conv_transpose2d, and propagate_step(impl="pallas") launching K1
@@ -227,9 +233,11 @@ exactly), K11d with a random E <= 1e-5 (sums of 304 products in another
 order, and its split drops products below 2^-21 of each), deconv0 channels-last against NCHW <= 1e-4,
 whole forward <= 2e-4 (PARITY.md's forward bar), whole train step:
 loss <= 1e-4 and each parameter's gradient ||kernels - plain|| / ||plain||
-<= 5e-3 (PARITY.md's gradient bar); the bf16 kernels (K2-K5 bf16) <= 2^-7
-(one bf16 ulp: a sum in another order can round to the neighbouring bf16
-value), the bf16 forward <= 1e-2 of max |pred|, the bf16 train step as
+<= 5e-3 (PARITY.md's gradient bar); the bf16 kernels (K2-K5, K9, K9b
+bf16) <= 2^-7 (one bf16 ulp: a sum in another order can round to the
+neighbouring bf16 value), a bf16 input gradient not bit-equal on at most
+1e-3 of its elements, an f32 weight or bias gradient of a bf16 kernel
+<= 5e-4, the bf16 forward <= 1e-2 of max |pred|, the bf16 train step as
 phase 15 says (a rounding tie flips a ReLU mask, and bf16 itself moves a
 gradient by up to 0.1-0.4 relative L2 against f32).
 The kernel line's launches are each kernel's count on its path: the
@@ -240,7 +248,7 @@ default serving run's for decode_aff_tail_bf16 and dep_encode_front_bf16,
 the bf16 default training run's for decode_aff_tail_bwd_bf16 and
 dep_encode_front_bwd_bf16,
 the op-library
-path's for small_conv3x3 and small_conv3x3_bwd, the devtools path's for
+path's for small_conv3x3, small_conv3x3_bwd and their bf16 forms, the devtools path's for
 deform_windowed, deform_colgather and gather_probe (gather_probe: equal bits),
 the two microbenchmark main()s' for K11a-d.
 """
@@ -322,8 +330,10 @@ def main() -> int:
         prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_bwd_plain, prop_step_case,
         prop_step_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
-        fuse_heads_dec0, small_conv3x3_bwd, small_conv3x3_bwd_plain,
-        small_conv3x3_plain, small_conv3x3_planar)
+        fuse_heads_dec0, small_conv3x3_bf16, small_conv3x3_bwd, small_conv3x3_bwd_bf16,
+        small_conv3x3_bwd_case, small_conv3x3_bwd_plain, small_conv3x3_bwd_plain_bf16,
+        small_conv3x3_case, small_conv3x3_plain, small_conv3x3_plain_bf16,
+        small_conv3x3_planar)
     from nlspn_eccv20_tpu_torch import ops as oplib
     from nlspn_eccv20_tpu_torch.devtools import exp_deform2, exp_deform3
     from nlspn_eccv20_tpu_torch.devtools.exp_deform2 import (probe_gather,
@@ -1335,6 +1345,63 @@ def main() -> int:
         del xa, xb, xcat, outs
     torch.cuda.empty_cache()
 
+    # K9-bf16 and K9b-bf16 (the TPU kernels at dt = bfloat16) against their
+    # plain versions, which round as the TPU kernels do: the forward each
+    # tap's f32 sum before the taps are added, the backward dx once. One ulp
+    # cannot tell a forward that rounds once from one that rounds per tap
+    # (one rounding puts ~40% of the outputs an ulp off), so the share of
+    # outputs not bit-equal is held too
+    bf16 = torch.bfloat16
+    ulp = 2.0 ** -7           # one bf16 ulp, relative to the largest plain output
+    fwd_share_bar = 1e-2
+    for b, h, w, k in ((1, H, W, 10), (4, H, W, 10), (TRAIN_B, REQ_H, REQ_W, 10),
+                       (2, 57, 75, 26)):
+        shape = "" if (h, w, k) == (H, W, 10) else f" {h}x{w} K={k}"
+        args, library = small_conv3x3_case(gen, dev, b, h, w, k, CA, CB, dtype=bf16)
+        out, ref = small_conv3x3_bf16(*args), small_conv3x3_plain_bf16(*args)
+        torch.cuda.synchronize()
+        if not same_bits(lambda: small_conv3x3_bf16(*args)):
+            raise AssertionError(f"small_conv3x3_bf16 B={b}{shape}: two runs, other bits")
+        err, rel = rel_err(out.float(), ref.float())
+        share = (out != ref).float().mean().item()
+        log(f"[kernel] small_conv3x3_bf16 B={b}{shape}: equal bits in two runs; {share:.3e} "
+            f"of the outputs not bit-equal to the plain version (per-tap rounding; bar "
+            f"{fwd_share_bar:.0e})")
+        if not share <= fwd_share_bar:
+            raise AssertionError(f"small_conv3x3_bf16 B={b}{shape}: {share:.3e} of the outputs "
+                                 f"not bit-equal > {fwd_share_bar:.0e}")
+        record("small_conv3x3_bf16", b, err, rel, ulp,
+               time_ms(lambda: small_conv3x3_bf16(*args)),
+               time_ms(lambda: small_conv3x3_plain_bf16(*args)), time_ms(library),
+               bound(nbytes(*args, out), conv_flops(b, h, w, CA + CB, k), "bf16_tflops"),
+               shape=shape)
+        del args, out, ref
+    for b, h, w, k in ((TRAIN_B, REQ_H, REQ_W, 10), (1, REQ_H, REQ_W, 10), (2, 57, 75, 26)):
+        shape = "" if (h, w, k) == (REQ_H, REQ_W, 10) else f" {h}x{w} K={k}"
+        args, library = small_conv3x3_bwd_case(gen, dev, b, h, w, k, CA, CB, dtype=bf16)
+        outs, refs = small_conv3x3_bwd_bf16(*args), small_conv3x3_bwd_plain_bf16(*args)
+        torch.cuda.synchronize()
+        tag = f"small_conv3x3_bwd_bf16 B={b}{shape}"
+        if not same_bits(lambda: small_conv3x3_bwd_bf16(*args)):
+            raise AssertionError(f"{tag}: two runs gave other bits")
+        errs = [rel_err(o.float(), r.float()) for o, r in zip(outs, refs)]
+        share = max((o != r).float().mean().item() for o, r in zip(outs[:2], refs[:2]))
+        log(f"[kernel] {tag}: equal bits in two runs; relative error of dxa, dxb, dw, db "
+            f"{[f'{r:.2e}' for _, r in errs]} (bars 2^-7, 2^-7, 5e-4, 5e-4); {share:.3e} of "
+            f"dx not bit-equal to the plain version (bar 1e-3)")
+        if not share <= 1e-3 or not errs[1][1] <= ulp:
+            raise AssertionError(f"{tag}: dx {share:.3e} not bit-equal, dxb rel {errs[1][1]:.3e}")
+        for name, (_, r) in zip(("dw", "db"), errs[2:]):
+            if not r <= 5e-4:
+                raise AssertionError(f"{tag}: {name} relative error {r:.3e} > 5e-4")
+        record("small_conv3x3_bwd_bf16", b, max(e for e, _ in errs), errs[0][1], ulp,
+               time_ms(lambda: small_conv3x3_bwd_bf16(*args)),
+               time_ms(lambda: small_conv3x3_bwd_plain_bf16(*args)), time_ms(library),
+               bound(nbytes(*args, *outs), 2 * conv_flops(b, h, w, CA + CB, k), "bf16_tflops"),
+               main_b=TRAIN_B, shape=shape)
+        del args, outs, refs
+    torch.cuda.empty_cache()
+
     def check_close(tag, got, want, tol):
         err, rel = rel_err(got, want)
         if not rel <= tol or not torch.isfinite(got).all():
@@ -1400,7 +1467,8 @@ def main() -> int:
 
     def op_library():
         """The op library's path on the card; returns the K9 counts."""
-        for fn in (small_conv3x3_planar, small_conv3x3_bwd):
+        for fn in (small_conv3x3_planar, small_conv3x3_bwd, small_conv3x3_bf16,
+                   small_conv3x3_bwd_bf16):
             fn.launches = 0
         heads_identity(Config(), "")
         heads_identity(Config(offset=True), " offset")
@@ -1414,8 +1482,24 @@ def main() -> int:
         want = small_conv3x3_bwd_plain(g, *[t.detach() for t in leaves[:3]])
         for name, leaf, ref in zip(("dxa", "dxb", "dw", "db"), leaves, want):
             check_close(f"small_conv3x3_planar autograd {name}", leaf.grad, ref, 1e-4)
+        # and one in bf16 (K9-bf16 forward, K9b-bf16 backward): bf16
+        # activations, f32 parameters as the port's bf16 models keep them
+        leaves16 = [t.detach().to(dt).requires_grad_(True)
+                    for t, dt in zip(leaves, (bf16, bf16, torch.float32, torch.float32))]
+        out16 = small_conv3x3_planar(*leaves16)
+        if out16.dtype != bf16:
+            raise AssertionError(f"small_conv3x3_planar on bf16: a {out16.dtype} output")
+        out16.backward(g.to(bf16))
+        want16 = small_conv3x3_bwd_plain_bf16(g, *[t.detach() for t in leaves16[:3]])
+        for name, leaf, ref in zip(("dxa", "dxb", "dw", "db"), leaves16, want16):
+            if leaf.grad.dtype != leaf.dtype:
+                raise AssertionError(f"bf16 autograd {name}: {leaf.grad.dtype} gradient")
+            check_close(f"small_conv3x3_planar bf16 autograd {name}", leaf.grad.float(),
+                        ref.float(), ulp if name.startswith("dx") else 5e-4)
         counts = {"small_conv3x3": small_conv3x3_planar.launches,
-                  "small_conv3x3_bwd": small_conv3x3_bwd.launches}
+                  "small_conv3x3_bwd": small_conv3x3_bwd.launches,
+                  "small_conv3x3_bf16": small_conv3x3_bf16.launches,
+                  "small_conv3x3_bwd_bf16": small_conv3x3_bwd_bf16.launches}
         log(f"[oplib] K9 launches on the op-library path: {counts}")
         for k, n in counts.items():
             if n == 0:
@@ -1904,8 +1988,6 @@ def main() -> int:
 
     # ---- 14. bf16 serving ----
     t_bf16 = time.perf_counter()
-    bf16 = torch.bfloat16
-    ulp = 2.0 ** -7           # one bf16 ulp, relative to the largest plain output
     k2_bf16_splits = set()
 
     def check_bf16(kname, b, shape, kernel, plain, library, args, out_of, flops):
@@ -2419,6 +2501,10 @@ def main() -> int:
                           "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:158"),
         "small_conv3x3_bwd": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3_bwd.cu",
                               "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:188"),
+        "small_conv3x3_bf16": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3_bf16.cu",
+                               "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:158"),
+        "small_conv3x3_bwd_bf16": ("nlspn_eccv20_tpu_torch/csrc/small_conv3x3_bwd_bf16.cu",
+                                   "nlspn_eccv20_tpu/ops/pallas/small_conv3x3.py:188"),
         "deform_windowed": ("nlspn_eccv20_tpu_torch/csrc/deform_windowed.cu",
                             "devtools/exp_deform_prop_kernel.py:95"),
         "deform_colgather": ("nlspn_eccv20_tpu_torch/csrc/deform_colgather.cu",

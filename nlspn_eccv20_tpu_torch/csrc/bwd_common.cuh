@@ -11,10 +11,11 @@
 // second kernel adds the partials in a fixed order: the result is the same
 // bits from run to run, as on the TPU. No atomics.
 //
-// bf16 (the kernels' bf16 forms, precision='bf16'): the wide tensor A of
-// the weight gradient may be bf16. Its raw words are staged by cp.async (which
-// cannot convert) and widened to f32 as they are read; the sums stay f32.
-// The transpose can round the weights to bf16 as it lays them out.
+// bf16 (the kernels' bf16 forms, precision='bf16'): the weight gradient
+// runs on the bf16 tensor cores (wgrad_s2_mma_kernel): A and P (both bf16,
+// or both f32 holding bf16 values) are bf16 operands, their products
+// exact, their sums f32. The transpose can round the
+// weights to bf16 as it lays them out.
 
 #pragma once
 
@@ -24,6 +25,7 @@
 #include <type_traits>
 
 #include "cp_async.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace bwd {
 
@@ -55,22 +57,6 @@ __device__ __forceinline__ T narrow(float v) {
 __device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-// Four values stored from f32 to T at dst: one 16-byte store for float, one
-// 8-byte store for bf16 (dst aligned to that).
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, float a, float b, float c, float d) {
-  if constexpr (std::is_same_v<T, float>) {
-    *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
-  } else {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-    uint2 v;
-    v.x = *reinterpret_cast<const unsigned*>(&lo);
-    v.y = *reinterpret_cast<const unsigned*>(&hi);
-    *reinterpret_cast<uint2*>(dst) = v;
-  }
-}
-
 // ---- weight gradient of a k3/s2/p1 convolution --------------------------
 //
 //   dW[c][m][ty][tx] = sum_{b,i,j} A[b][i][j][c] * P[b][m][2i-1+ty][2j-1+tx]
@@ -80,9 +66,10 @@ __device__ __forceinline__ void store4(T* dst, float a, float b, float c, float 
 // ConvTranspose2d(C -> M) one.
 //
 // It is a split-K product of (C x N) by (N x 9M), N = B Ha Wa pixels: 3.8
-// GFLOP at NYU b=12 and C = 256, so bound by the FP32 cores (57 us at 67
-// TFLOP/s). A block is (group of WG_C = 128 channels, slice s of N); slice
-// s is the flat pixel range [N s / S, N (s + 1) / S), walked as row
+// GFLOP at NYU b=12 and C = 256, so in f32 bound by the FP32 cores (57 us
+// at 67 TFLOP/s; the bf16 forms take wgrad_s2_mma_kernel, below). A block
+// is (group of WG_C = 128 channels, slice s of N); slice s is the flat
+// pixel range [N s / S, N (s + 1) / S), walked as row
 // segments of at most SEG pixels. S is chosen from N and C
 // (wgrad_s2_slices): two blocks on each SM at b=12. Per segment the block
 // stages A's pixels (SEG x WG_C, 16-byte copies) and the three rows of P
@@ -95,40 +82,30 @@ __device__ __forceinline__ void store4(T* dst, float a, float b, float c, float 
 // segment: per pixel 2 float4 loads of A and 6 words of P for 72 FMAs. The
 // block's sums go to part[s], staged through shared memory so that the
 // stores are whole float4s; reduce_partials adds the slices in a fixed
-// order. A bf16 A (TA = __nv_bfloat16) is staged as its raw words, rows of
-// A_PITCH_H values, 16-byte copies of 8 channels: a thread's 8 channels are
-// one 16-byte load, widened in registers.
+// order.
 
 constexpr int WG_C = 128;              // channels per block
 constexpr int WG_NT = WG_C / 8 * M;    // 256 threads: (octet, m)
 constexpr int SEG = 32;                // pixels per row segment
 constexpr int A_PITCH = WG_C + 4;      // keeps float4 rows 16-byte aligned
-constexpr int A_PITCH_H = WG_C + 8;    // bf16 rows: 272 bytes, 16-byte aligned
+constexpr int A_PITCH_H = WG_C + 8;    // bf16 rows (the tensor-core form): 272 bytes
 constexpr int P_COLS = 2 * SEG + 1;
 constexpr int P_M = 3 * P_COLS;        // 195 = 3 mod 32: 16 m, 16 banks
 constexpr int CARD_SMS = 132;          // H100 SXM
 constexpr int WG_MIN_PIXELS = 64;      // pixels a slice takes at least
 
 // floats of a buffer's A rows, and of a whole buffer (A rows, then P)
-template <typename TA>
-__host__ __device__ constexpr int wg_a_floats() {
-  return std::is_same_v<TA, float> ? SEG * A_PITCH : SEG * A_PITCH_H / 2;
-}
-template <typename TA>
-__host__ __device__ constexpr int wg_buf() { return wg_a_floats<TA>() + M * P_M; }
-template <typename TA>
-__host__ __device__ constexpr int wg_smem() { return 2 * wg_buf<TA>() * (int)sizeof(float); }
-static_assert(2 * wg_buf<__nv_bfloat16>() >= WG_C / 2 * M * 9 &&
-              (wg_buf<__nv_bfloat16>() * 4) % 16 == 0,
-              "the output stage fits, and bf16 buffers stay 16-byte aligned");
+constexpr int WG_A_FLOATS = SEG * A_PITCH;
+constexpr int WG_BUF = WG_A_FLOATS + M * P_M;
+constexpr int WG_SMEM = 2 * WG_BUF * (int)sizeof(float);
+static_assert(2 * WG_BUF >= WG_C / 2 * M * 9 && (WG_BUF * 4) % 16 == 0,
+              "the output stage fits, and the buffers stay 16-byte aligned");
 
-template <typename TA>
 __global__ void __launch_bounds__(WG_NT, 2)
-wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
+wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
                 float* __restrict__ part, int B, int Ha, int Wa, int C,
                 int Hp, int Wp, int S) {
-  constexpr bool F32 = std::is_same_v<TA, float>;
-  constexpr int WG_BUF = wg_buf<TA>(), A_FLOATS = wg_a_floats<TA>();
+  constexpr int A_FLOATS = WG_A_FLOATS;
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * WG_C;
@@ -139,40 +116,24 @@ wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
   // the segment being staged: image b, row i, first column j, pixels len
   const long long row0 = beg / Wa;
   int j = (int)(beg - row0 * Wa), i = (int)(row0 % Ha), b = (int)(row0 / Ha);
-  const bool vec = (C & (F32 ? 3 : 7)) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
+  const bool vec = (C & 3) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
 
   // issues the copies of the segment (b, i, j, len) into buffer buf
   auto stage = [&](int buf, int len) {
     float* as = smem + buf * WG_BUF;
     float* ps = as + A_FLOATS;
-    const TA* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
-    if constexpr (F32) {
-      if (vec) {
-        for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
-          const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
-          const bool ok = c0 + cc < C;
-          cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
-        }
-      } else {
-        for (int e = tid; e < len * WG_C; e += WG_NT) {
-          const int px = e / WG_C, cc = e % WG_C;
-          const bool ok = c0 + cc < C;
-          cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
-        }
+    const float* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
+    if (vec) {
+      for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
+        const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
+        const bool ok = c0 + cc < C;
+        cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
       }
     } else {
-      __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(as);
-      if (vec) {
-        for (int e = tid; e < len * (WG_C / 8); e += WG_NT) {
-          const int px = e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
-          const bool ok = c0 + cc < C;
-          cpa::copy16(ah + px * A_PITCH_H + cc, ok ? asrc + px * C + cc : A, ok);
-        }
-      } else {  // plain loads: the buffer is not read before the next barrier
-        for (int e = tid; e < len * WG_C; e += WG_NT) {
-          const int px = e / WG_C, cc = e % WG_C;
-          ah[px * A_PITCH_H + cc] = c0 + cc < C ? asrc[px * C + cc] : __float2bfloat16_rn(0.0f);
-        }
+      for (int e = tid; e < len * WG_C; e += WG_NT) {
+        const int px = e / WG_C, cc = e % WG_C;
+        const bool ok = c0 + cc < C;
+        cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
       }
     }
     const float* pb = P + (long long)b * M * Hp * Wp;
@@ -221,7 +182,6 @@ wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
     cpa::wait<1>();
     __syncthreads();
     const float* ap = smem + buf * WG_BUF + 8 * oct;
-    const __nv_bfloat16* aph = reinterpret_cast<const __nv_bfloat16*>(smem + buf * WG_BUF) + 8 * oct;
     const float* pr = smem + buf * WG_BUF + A_FLOATS + m * P_M;
     float w0[3];  // the window's left column: P cols 2 px - 1 + {0, 1, 2}
 #pragma unroll
@@ -235,16 +195,10 @@ wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
         w2[r] = pr[r * P_COLS + 2 * px + 2];
       }
       float av[8];
-      if constexpr (F32) {
-        const float4 a0 = *reinterpret_cast<const float4*>(ap + px * A_PITCH);
-        const float4 a1 = *reinterpret_cast<const float4*>(ap + px * A_PITCH + 4);
-        av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
-        av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
-      } else {
-        const uint4 u = *reinterpret_cast<const uint4*>(aph + px * A_PITCH_H);
-        av[0] = lo_bf16(u.x), av[1] = hi_bf16(u.x), av[2] = lo_bf16(u.y), av[3] = hi_bf16(u.y);
-        av[4] = lo_bf16(u.z), av[5] = hi_bf16(u.z), av[6] = lo_bf16(u.w), av[7] = hi_bf16(u.w);
-      }
+      const float4 a0 = *reinterpret_cast<const float4*>(ap + px * A_PITCH);
+      const float4 a1 = *reinterpret_cast<const float4*>(ap + px * A_PITCH + 4);
+      av[0] = a0.x, av[1] = a0.y, av[2] = a0.z, av[3] = a0.w;
+      av[4] = a1.x, av[5] = a1.y, av[6] = a1.z, av[7] = a1.w;
 #pragma unroll
       for (int k = 0; k < 8; ++k)
 #pragma unroll
@@ -281,6 +235,246 @@ wgrad_s2_kernel(const TA* __restrict__ A, const float* __restrict__ P,
   }
 }
 
+// ---- the same weight gradient on the bf16 tensor cores ------------------
+//
+// The bf16 forms (K4-bf16 and K5-bf16) take this pass: the same slices,
+// segments and partials as wgrad_s2_kernel, the products on bf16 wgmma
+// (wgmma_bf16.cuh) instead of the FP32 cores. Their operands are bf16
+// values already, so the products are exact and only the order of the f32
+// sums differs: K4-bf16's x and dY1 are bf16 buffers (T = __nv_bfloat16),
+// K5-bf16's gm and p0 f32 buffers holding bf16 values (T = float; its
+// passes that write them are f32 code, outside this pass).
+//
+//   D (C x 144) += A^T (C x pixels) . Pcol (pixels x 144),  column m 9 + tap
+//
+// is dW (C, M, 3, 3) as it is laid out. A block of 256 threads owns 128
+// channels, a warpgroup 64 of them (M = 64), a warp 16; N = 144, all of a
+// channel's (m, tap); the reduction runs over the segment's pixels in
+// k-steps of 16. Per segment, after its copies have landed: A's rows as
+// bf16 (staged raw by 16-byte cp.async copies for bf16; f32 is staged as
+// it is and rounded, exactly, into one bf16 tile), its rows past the
+// segment zeroed; Pcol built from the staged P rows as bf16 K-major core
+// matrices (the stride-2 im2col: column (m, tap) of pixel px is
+// P[m][ty][2 px + tx] of the staged rows, zero past the segment). bf16 P
+// rows are staged from the even column 2 j - 2 as 4-byte words (2 SEG + 2
+// values), which needs an even Wp (K4's W1 = 2 Wg). A's
+// fragments come from the pixel-major tile by ldmatrix.trans (A is the
+// transposed operand); a segment is always two k-steps (the second of a
+// short one sums zeros), one commit group, summed in the tensor core
+// across the slice (a slice holds at most a few dozen k-steps). The 72
+// sums a thread go to part[s] as float2s.
+
+constexpr int WGM_N = M * 9;                  // 144 columns: (m, tap)
+constexpr int WGM_STEP = WGM_N / 8 * 256;     // bytes of a k-step's Pcol
+constexpr int WGM_ATILE = SEG * A_PITCH_H * 2;   // bytes of a bf16 A tile
+constexpr int P_COLS_H = 2 * SEG + 2;         // bf16 P: a staged row from col 2 j - 2
+constexpr int P_M_H = 3 * P_COLS_H;           // 198 bf16 an m
+
+template <typename T>
+__host__ __device__ constexpr int wgm_a_bytes() {
+  return std::is_same_v<T, float> ? SEG * A_PITCH * 4 : WGM_ATILE;
+}
+template <typename T>
+__host__ __device__ constexpr int wgm_p_bytes() {
+  return std::is_same_v<T, float> ? M * P_M * 4 : M * P_M_H * 2;
+}
+template <typename T>
+__host__ __device__ constexpr int wgm_buf() { return wgm_a_bytes<T>() + wgm_p_bytes<T>(); }
+template <typename T>
+__host__ __device__ constexpr int wgm_smem() {
+  return 2 * wgm_buf<T>() + (std::is_same_v<T, float> ? WGM_ATILE : 0) + 2 * WGM_STEP;
+}
+static_assert(wgm_buf<float>() % 16 == 0 && wgm_buf<__nv_bfloat16>() % 16 == 0 &&
+              WGM_ATILE % 16 == 0, "16-byte aligned regions");
+
+template <typename T>
+__global__ void __launch_bounds__(WG_NT, 2)
+wgrad_s2_mma_kernel(const T* __restrict__ A, const T* __restrict__ P,
+                    float* __restrict__ part, int B, int Ha, int Wa, int C,
+                    int Hp, int Wp, int S) {
+  constexpr bool F32 = std::is_same_v<T, float>;
+  constexpr int BUF = wgm_buf<T>(), A_BYTES = wgm_a_bytes<T>();
+  extern __shared__ __align__(128) unsigned char smb[];
+  unsigned short* at = reinterpret_cast<unsigned short*>(smb + 2 * BUF);  // f32 A, rounded
+  unsigned short* bt = reinterpret_cast<unsigned short*>(smb + 2 * BUF + (F32 ? WGM_ATILE : 0));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = blockIdx.x * WG_C;
+  const int s = blockIdx.y;
+  const long long N = (long long)B * Ha * Wa;
+  const long long beg = N * s / S;
+  int left = (int)(N * (s + 1) / S - beg);  // pixels of the slice not staged
+  // the segment being staged: image b, row i, first column j
+  const long long row0 = beg / Wa;
+  int j = (int)(beg - row0 * Wa), i = (int)(row0 % Ha), b = (int)(row0 / Ha);
+  const bool vec = (C & (F32 ? 3 : 7)) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
+
+  // issues the copies of the segment (b, i, j, len) into buffer buf
+  auto stage = [&](int buf, int len) {
+    unsigned char* base = smb + buf * BUF;
+    const T* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
+    if constexpr (F32) {
+      float* as = reinterpret_cast<float*>(base);
+      if (vec) {
+        for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
+          const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
+          const bool ok = c0 + cc < C;
+          cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+        }
+      } else {
+        for (int e = tid; e < len * WG_C; e += WG_NT) {
+          const int px = e / WG_C, cc = e % WG_C;
+          const bool ok = c0 + cc < C;
+          cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
+        }
+      }
+    } else {
+      __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(base);
+      if (vec) {
+        for (int e = tid; e < len * (WG_C / 8); e += WG_NT) {
+          const int px = e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
+          const bool ok = c0 + cc < C;
+          cpa::copy16(ah + px * A_PITCH_H + cc, ok ? asrc + px * C + cc : A, ok);
+        }
+      } else {  // plain loads: the buffer is not read before the next barrier
+        for (int e = tid; e < len * WG_C; e += WG_NT) {
+          const int px = e / WG_C, cc = e % WG_C;
+          ah[px * A_PITCH_H + cc] = c0 + cc < C ? asrc[px * C + cc] : __float2bfloat16_rn(0.0f);
+        }
+      }
+    }
+    const T* pb = P + (long long)b * M * Hp * Wp;
+    const int y0 = 2 * i - 1;
+    if constexpr (F32) {
+      float* ps = reinterpret_cast<float*>(base + A_BYTES);
+      for (int e = tid; e < M * P_M; e += WG_NT) {
+        const int q = e % P_COLS, r = (e / P_COLS) % 3, m = e / P_M;
+        const int y = y0 + r, x = 2 * j - 1 + q;
+        const bool ok = y >= 0 && y < Hp && x >= 0 && x < Wp;
+        cpa::copy4(ps + e, ok ? pb + (m * Hp + y) * Wp + x : P, ok);
+      }
+    } else {  // words of two columns from 2 j - 2: Wp even, so a word is in or out
+      __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(base + A_BYTES);
+      for (int e = tid; e < M * P_M_H / 2; e += WG_NT) {
+        const int q = 2 * (e % (P_COLS_H / 2)), r = (e / (P_COLS_H / 2)) % 3;
+        const int m = e / (P_M_H / 2);
+        const int y = y0 + r, x = 2 * j - 2 + q;
+        const bool ok = y >= 0 && y < Hp && x >= 0 && x < Wp;
+        cpa::copy4(ps + 2 * e, ok ? pb + (m * Hp + y) * Wp + x : P, ok);
+      }
+    }
+  };
+  auto seg_len = [&]() { return min(min(SEG, Wa - j), left); };
+  auto advance = [&](int len) {
+    left -= len;
+    j += len;
+    if (j == Wa) {
+      j = 0;
+      if (++i == Ha) {
+        i = 0;
+        ++b;
+      }
+    }
+  };
+
+  // this warp's 16 channels of the block's 128, and its ldmatrix row:
+  // lane L gives row L % 8 of matrix L / 8 (pixels + 8 for matrices 2, 3;
+  // channels + 8 for 1, 3)
+  const int cw = 64 * (warp >> 2) + 16 * (warp & 3);
+  const int lrow = (lane & 7) + 8 * (lane >> 4), lcol = cw + 8 * ((lane >> 3) & 1);
+  float acc[WGM_N / 2];
+#pragma unroll
+  for (int e = 0; e < WGM_N / 2; ++e) acc[e] = 0.0f;
+  hold(acc);
+
+  int len = seg_len();
+  if (len > 0) {
+    stage(0, len);
+    advance(len);
+  }
+  cpa::commit();
+  for (int buf = 0; len > 0; buf ^= 1) {
+    const int nlen = seg_len();
+    if (nlen > 0) {
+      stage(buf ^ 1, nlen);
+      advance(nlen);
+    }
+    cpa::commit();
+    cpa::wait<1>();
+    __syncthreads();
+    unsigned char* base = smb + buf * BUF;
+    unsigned short* ah = F32 ? at : reinterpret_cast<unsigned short*>(base);
+    if constexpr (F32) {   // A as bf16: exact, its values are bf16 already
+      const float* as = reinterpret_cast<const float*>(base);
+#pragma unroll 1
+      for (int e = tid; e < SEG * (WG_C / 4); e += WG_NT) {
+        const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
+        uint2 v = make_uint2(0u, 0u);
+        if (px < len) {
+          const float4 f = *reinterpret_cast<const float4*>(as + px * A_PITCH + cc);
+          v = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+        }
+        *reinterpret_cast<uint2*>(ah + px * A_PITCH_H + cc) = v;
+      }
+    } else {   // rows past the segment: zeros, not stale or unset words
+#pragma unroll 1
+      for (int e = tid; e < (SEG - len) * (WG_C / 8); e += WG_NT) {
+        const int px = len + e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
+        *reinterpret_cast<uint4*>(ah + px * A_PITCH_H + cc) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    // Pcol: column n = m 9 + tap of pixel px at q 4608 + (n / 8) 256 + (kk / 8)
+    // 128 + (n % 8) 16 + (kk % 8) 2 bytes (px = 16 q + kk), pixels in pairs
+#pragma unroll 1
+    for (int e = tid; e < WGM_N * SEG / 2; e += WG_NT) {
+      const int n = e / (SEG / 2), px = 2 * (e - n * (SEG / 2));
+      const int m = n / 9, tap = n - 9 * m;
+      uint32_t word;
+      if constexpr (F32) {
+        const float* src = reinterpret_cast<const float*>(base + A_BYTES) + m * P_M +
+                           (tap / 3) * P_COLS + 2 * px + tap % 3;
+        word = pack_bf16(px < len ? src[0] : 0.0f, px + 1 < len ? src[2] : 0.0f);
+      } else {  // staged col 2 j - 2 + 1 is the f32 form's col 0
+        const unsigned short* src = reinterpret_cast<const unsigned short*>(base + A_BYTES) +
+                                    m * P_M_H + (tap / 3) * P_COLS_H + 1 + 2 * px + tap % 3;
+        word = pack_raw(px < len ? src[0] : 0, px + 1 < len ? src[2] : 0);
+      }
+      const int q = px >> 4, kk = px & 15;
+      *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(bt) + q * WGM_STEP +
+                                   (n >> 3) * 256 + (kk >> 3) * 128 + (n & 7) * 16 +
+                                   (kk & 7) * 2) = word;
+    }
+    fence_async_smem();
+    __syncthreads();
+    uint32_t a0[4], a1[4];
+    ldmatrix_x4_trans(a0, ah + lrow * A_PITCH_H + lcol);
+    ldmatrix_x4_trans(a1, ah + (16 + lrow) * A_PITCH_H + lcol);
+    wgmma_fence();
+    wgmma_bf16<WGM_N>(acc, a0, kmajor_desc_b16(bt, 128, 256));
+    wgmma_bf16<WGM_N>(acc, a1, kmajor_desc_b16(bt + WGM_STEP / 2, 128, 256));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+    hold(a0);
+    hold(a1);
+    __syncthreads();  // the buffer is restaged, and A and Pcol rebuilt
+    len = nlen;
+  }
+
+  // part[s] = dW (C, M, 9): acc[4jj + 2h + e] is channel c0 + cw + gid + 8h,
+  // column 8 jj + 2 tig + e
+  float* out = part + s * (long long)C * WGM_N;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = c0 + cw + gid + 8 * h;
+    if (c >= C) continue;
+#pragma unroll
+    for (int jj = 0; jj < WGM_N / 8; ++jj)
+      *reinterpret_cast<float2*>(out + (long long)c * WGM_N + 8 * jj + 2 * tig) =
+          make_float2(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+  }
+}
+
 // Slices of N: two blocks on each SM of the card, each at least
 // WG_MIN_PIXELS pixels.
 inline int wgrad_s2_slices(long long n_pixels, int C) {
@@ -294,18 +488,31 @@ inline long long wgrad_s2_partial_floats(long long n_pixels, int C) {
   return (long long)wgrad_s2_slices(n_pixels, C) * C * M * 9;
 }
 
-// A (B, Ha, Wa, C), f32 or bf16, P (B, M, Hp, Wp): part gets
-// wgrad_s2_slices partials of dW. Returns the first launch error, if any.
-template <typename TA>
-inline cudaError_t wgrad_s2(const TA* A, const float* P, float* part, int B,
+// A (B, Ha, Wa, C) and P (B, M, Hp, Wp), both f32 or both bf16 (then Wp
+// even): part gets wgrad_s2_slices partials of dW, on the bf16 tensor
+// cores for bf16 or where mma (the bf16 forms: f32 A and P hold bf16
+// values), else on the FP32 cores. Returns the first launch error, if any.
+template <typename T>
+inline cudaError_t wgrad_s2(const T* A, const T* P, float* part, int B,
                             int Ha, int Wa, int C, int Hp, int Wp,
-                            cudaStream_t stream) {
+                            cudaStream_t stream, bool mma = false) {
   const int S = wgrad_s2_slices((long long)B * Ha * Wa, C);
-  const cudaError_t err = cudaFuncSetAttribute(
-      wgrad_s2_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg_smem<TA>());
+  const dim3 grid((C + WG_C - 1) / WG_C, S);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    if (!mma) {
+      err = cudaFuncSetAttribute(wgrad_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 WG_SMEM);
+      if (err != cudaSuccess) return err;
+      wgrad_s2_kernel<<<grid, WG_NT, WG_SMEM, stream>>>(A, P, part, B, Ha, Wa, C, Hp, Wp, S);
+      return cudaGetLastError();
+    }
+  }
+  err = cudaFuncSetAttribute(wgrad_s2_mma_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, wgm_smem<T>());
   if (err != cudaSuccess) return err;
-  wgrad_s2_kernel<TA><<<dim3((C + WG_C - 1) / WG_C, S), WG_NT, wg_smem<TA>(), stream>>>(
-      A, P, part, B, Ha, Wa, C, Hp, Wp, S);
+  wgrad_s2_mma_kernel<T><<<grid, WG_NT, wgm_smem<T>(), stream>>>(A, P, part, B, Ha, Wa, C,
+                                                                 Hp, Wp, S);
   return cudaGetLastError();
 }
 

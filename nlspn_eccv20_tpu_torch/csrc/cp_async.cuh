@@ -11,9 +11,10 @@
 
 namespace cpa {
 
-// shared[dst] = valid ? *src : 0. src must be a valid address even when
+// shared[dst] = valid ? *src : 0, 4 bytes (a float or two bf16 values):
+// dst and src 4-byte aligned. src must be a valid address even when
 // !valid (it is not read then).
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0));

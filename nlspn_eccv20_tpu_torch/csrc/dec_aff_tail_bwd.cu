@@ -39,10 +39,16 @@
 //   5. bwd::reduce_partials: the partials of 1 and 4 added in a fixed order.
 // The weight gradients are summed without atomics, so the result is the
 // same bits from run to run, as the TPU kernel's sequential grid gives.
-// Plain f32 FMAs: no tensor cores.
+// The f32 form runs plain f32 FMAs: no tensor cores.
 //
 // bf16 form (K4-bf16, dec_aff_tail_bwd_bf16, precision='bf16'): the same
-// passes with T = __nv_bfloat16 for x and dx, rounding where the TPU kernel
+// passes with T = __nv_bfloat16 for x and dx, except that its two products
+// run on the bf16 tensor cores (wgmma_bf16.cuh): dx as dx_mma_kernel (3'.
+// below, in place of 2. and 3.) and dW1 as bwd::wgrad_s2_mma_kernel. Both
+// are sums of products of two bf16 values, exact in f32, so the tensor
+// cores compute what the FP32 cores did, in another order of f32 sums; on
+// the FP32 cores they took 141 and 126 us of the 375 us at b=12. Rounding
+// where the TPU kernel
 // (_bwd_kernel at dt = bfloat16) rounds: g to bf16 before any product (the
 // f32 cotangent of K2-bf16's output is not rounded yet), w1 and w2 to bf16,
 // dY1 to bf16 after its f32 sum and mask, dx to bf16 after its f32 sum; dW1,
@@ -60,8 +66,10 @@
 // positive P is at least 2^-133, the least positive bf16. Inputs that small
 // do not occur in the model, whose activations and weights are O(1e-3..1e2).
 // The staged g and w2 are rounded in shared memory once their copies have
-// landed; x is staged as raw bf16 words and widened as it is read
-// (bwd_common.cuh). y1 and dY1 stay f32 buffers holding bf16 values.
+// landed; x is staged as raw bf16 words (bwd_common.cuh). y1 stays an f32
+// buffer holding bf16 values (K2-bf16 writes it so). dY1 is a bf16 buffer,
+// half the f32 form's bytes, which both tensor-core passes stage as raw
+// words.
 
 #include <cuda_runtime.h>
 
@@ -100,7 +108,7 @@ constexpr int dy1_smem_bytes() {
 template <typename T, int K>
 __global__ void __launch_bounds__(NT_A)
 dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
-           const float* __restrict__ w2, float* __restrict__ dy1,
+           const float* __restrict__ w2, T* __restrict__ dy1,
            float* __restrict__ part, int H1, int W1) {
   extern __shared__ __align__(16) float smem[];
   float* gs = smem;                    // [k][GR][GC]
@@ -173,17 +181,30 @@ dy1_kernel(const float* __restrict__ g, const float* __restrict__ y1,
     }
     // dY1 = [y1 > 0] dy1, and the thread's sums for db1
     float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    const int rr = R0 + r;
+    float d[4][PQ];
+    const int rr = R0 + r, c0 = C0 + PQ * cg;
 #pragma unroll
     for (int j = 0; j < PQ; ++j) {
-      const int q = r * TC + PQ * cg + j, cc = C0 + PQ * cg + j;
-      const float4 y = *reinterpret_cast<const float4*>(ys + q * M + 4 * mq);
+      const float4 y = *reinterpret_cast<const float4*>(ys + (r * TC + PQ * cg + j) * M + 4 * mq);
       const float yv[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float d = yv[i] > 0.0f ? bwd::round_to<T>(acc[j][i]) : 0.0f;
-        sum[i] += d;
-        if (rr < H1 && cc < W1) dy1[(((long)b * M + 4 * mq + i) * H1 + rr) * W1 + cc] = d;
+        d[i][j] = yv[i] > 0.0f ? bwd::round_to<T>(acc[j][i]) : 0.0f;
+        sum[i] += d[i][j];
+      }
+    }
+    if (rr < H1 && c0 < W1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        T* row = dy1 + (((long)b * M + 4 * mq + i) * H1 + rr) * W1 + c0;
+        if (!std::is_same_v<T, float> && (W1 & 3) == 0) {  // 4 bf16, 8-byte aligned
+          *reinterpret_cast<uint2*>(row) =
+              make_uint2(pack_bf16(d[i][0], d[i][1]), pack_bf16(d[i][2], d[i][3]));
+        } else {
+#pragma unroll
+          for (int j = 0; j < PQ; ++j)
+            if (c0 + j < W1) row[j] = bwd::narrow<T>(d[i][j]);
+        }
       }
     }
     *reinterpret_cast<float4*>(red1[tid]) = make_float4(sum[0], sum[1], sum[2], sum[3]);
@@ -263,11 +284,10 @@ constexpr int D_M = DR * D_PITCH; // floats per m
 static_assert(M % MC == 0, "chunks tile the m");
 
 // w1t is w1 laid out (M * 9, C): the taps' rows of weights, channels last.
-// dx is written as T, each value rounded once from its f32 sum.
-template <typename T>
+// The f32 form's dx (the bf16 form's is dx_mma_kernel, below).
 __global__ void __launch_bounds__(NT_B, 3)
 dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
-          T* __restrict__ dx, int Hg, int Wg, int C, int H1, int W1,
+          float* __restrict__ dx, int Hg, int Wg, int C, int H1, int W1,
           int n_groups) {
   __shared__ __align__(16) float w1s[2][MC * 9 * CG];  // [m * 9 + tap][channel]
   __shared__ __align__(16) float ds[2][MC * D_M];       // [m][DR][D_PITCH]
@@ -368,7 +388,7 @@ dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
   }
   const int oy = oy0 + row;
   if (oy >= Hg) return;
-  T* orow = dx + ((long)b * Hg + oy) * Wg * C;
+  float* orow = dx + ((long)b * Hg + oy) * Wg * C;
 #pragma unroll
   for (int j = 0; j < PXT; ++j) {
     const int ox = ox0 + PXT * half + j;
@@ -376,17 +396,171 @@ dx_kernel(const float* __restrict__ dy1, const float* __restrict__ w1t,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int c = co0 + 32 * h + 4 * o;
-      T* out = orow + (long)ox * C + c;
+      float* out = orow + (long)ox * C + c;
       if (vec && c + 3 < C) {
-        bwd::store4(out, acc[j][4 * h], acc[j][4 * h + 1], acc[j][4 * h + 2],
-                    acc[j][4 * h + 3]);
+        *reinterpret_cast<float4*>(out) = make_float4(acc[j][4 * h], acc[j][4 * h + 1],
+                                                      acc[j][4 * h + 2], acc[j][4 * h + 3]);
       } else {
 #pragma unroll
         for (int k = 0; k < 4; ++k)
-          if (c + k < C) out[k] = bwd::narrow<T>(acc[j][4 * h + k]);
+          if (c + k < C) out[k] = acc[j][4 * h + k];
       }
     }
   }
+}
+
+// ---- 3'. the bf16 form's dx on the tensor cores ----
+//
+// K4-bf16 runs dx as an implicit GEMM on bf16 wgmma (wgmma_bf16.cuh): M =
+// base pixels, 64 a block (a 4 x 16 tile, a warp a row), N = 128 channels
+// (a block's group), the reduction over (tap, m) in nine k-steps, one tap
+// of the 16 dY1 channels each. Blocks are persistent: each copies its
+// group's weights once (w1 rounded to bf16 by prep_w1_kernel into the
+// K-major core matrices wgmma reads, [tap][N / 8][2][8][8]) and walks the
+// tiles j, j + gridDim.y, ..., the next tile's dY1 patch (all 16 m, rows
+// 2 oy0 - 1 .. 2 oy0 + 7, bf16) coming in by cp.async while this one
+// computes: 16-byte copies where W1 is a multiple of 8, else 4-byte words
+// from the even column 2 ox0 - 2 (W1 = 2 Wg is even). A (64 x 16) is built
+// in registers from the staged patch, a word of two m a pixel; an m's
+// patch is MX_DMH bf16, so m and m + 2 lie MX_DMH words apart (440 = 24
+// mod 32) and the four m pairs of a warp's loads fall in distinct banks. The nine fragments are built
+// first and their products issued as one commit group. dx is rounded to
+// bf16 from the f32 sums and written as words of two channels.
+constexpr int MX_TH = 4, MX_TW = 16;        // base-pixel tile: M = 64
+constexpr int MX_NT = 128;                  // one warpgroup
+constexpr int MX_NC = 128;                  // channels a block: N
+constexpr int MX_DR = 2 * MX_TH + 1;        // 9 patch rows
+constexpr int MX_PITCH = 48;                // bf16 a patch row: col X at 2 ox0 - 8 + index
+constexpr int MX_DMH = MX_DR * MX_PITCH + 8;   // bf16 a staged m
+constexpr int MX_WB = 9 * M * MX_NC;        // bf16 of a group's weights
+constexpr int MX_SMEM = MX_WB * 2 + 2 * M * MX_DMH * 2;   // 65,024 bytes: two blocks an SM
+static_assert(MX_DMH % 8 == 0 && MX_DMH % 32 == 24, "16-byte rows; m pairs in distinct banks");
+constexpr int MX_BLOCKS_PER_SM = 2;
+
+// w1p[group][tap][N x 16]: (c, m) = w1[128 group + c][m][tap] rounded to bf16
+// at (c / 8) 128 + (m / 8) 64 + (c % 8) 8 + m % 8, zero past C
+__global__ void __launch_bounds__(256)
+prep_w1_kernel(const float* __restrict__ w1, __nv_bfloat16* __restrict__ w1p, int C,
+               int n_groups) {
+  const int i = blockIdx.x * 256 + threadIdx.x;
+  if (i >= n_groups * MX_WB) return;
+  const int grp = i / MX_WB, r = i - grp * MX_WB, tap = r / (M * MX_NC), e = r % (M * MX_NC);
+  const int cl = (e >> 7) * 8 + ((e >> 3) & 7), m = ((e >> 6) & 1) * 8 + (e & 7);
+  const int c = grp * MX_NC + cl;
+  w1p[i] = __float2bfloat16_rn(c < C ? __ldg(w1 + ((long)c * M + m) * 9 + tap) : 0.0f);
+}
+
+__global__ void __launch_bounds__(MX_NT, MX_BLOCKS_PER_SM)
+dx_mma_kernel(const __nv_bfloat16* __restrict__ dy1, const __nv_bfloat16* __restrict__ w1p,
+              __nv_bfloat16* __restrict__ dx, int B, int Hg, int Wg, int C, int H1, int W1) {
+  extern __shared__ __align__(128) unsigned char mx_smem[];
+  unsigned short* ws = reinterpret_cast<unsigned short*>(mx_smem);       // [tap][N x 16]
+  unsigned short* ds = ws + MX_WB;                      // [2][m][MX_DR][MX_PITCH], MX_DMH an m
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int co0 = blockIdx.x * MX_NC;
+  const int tiles_x = (Wg + MX_TW - 1) / MX_TW, tiles_y = (Hg + MX_TH - 1) / MX_TH;
+  const int per_image = tiles_x * tiles_y, tiles = B * per_image;
+
+  // issues the copies of tile t's dY1 patch into buffer buf
+  auto stage = [&](int t, int buf) {
+    const int b = t / per_image, r = t - b * per_image;
+    const int oy0 = (r / tiles_x) * MX_TH, ox0 = (r % tiles_x) * MX_TW;
+    const __nv_bfloat16* dsrc = dy1 + (long)b * M * H1 * W1;
+    unsigned short* dst = ds + buf * M * MX_DMH;
+    if ((W1 & 7) == 0) {  // 16-byte copies of 8 columns, each wholly in or out of the row
+      constexpr int Q = MX_PITCH / 8;
+      for (int e = tid; e < M * MX_DR * Q; e += MX_NT) {
+        const int q = e % Q, rr = (e / Q) % MX_DR, m = e / (MX_DR * Q);
+        const int Y = 2 * oy0 - 1 + rr, X = 2 * ox0 - 8 + 8 * q;
+        const bool ok = Y >= 0 && Y < H1 && X >= 0 && X < W1;
+        cpa::copy16(dst + m * MX_DMH + rr * MX_PITCH + 8 * q,
+                    ok ? dsrc + ((long)m * H1 + Y) * W1 + X : dy1, ok);
+      }
+    } else {  // words of cols 2 ox0 - 2 + 2 c, + 1 (W1 even: each wholly in or out)
+      constexpr int Q = (DC + 1) / 2;
+      for (int e = tid; e < M * MX_DR * Q; e += MX_NT) {
+        const int c = e % Q, rr = (e / Q) % MX_DR, m = e / (MX_DR * Q);
+        const int Y = 2 * oy0 - 1 + rr, X = 2 * ox0 - 2 + 2 * c;
+        const bool ok = Y >= 0 && Y < H1 && X >= 0 && X < W1;
+        cpa::copy4(dst + m * MX_DMH + rr * MX_PITCH + 6 + 2 * c,
+                   ok ? dsrc + ((long)m * H1 + Y) * W1 + X : dy1, ok);
+      }
+    }
+  };
+
+  const uint4* wsrc = reinterpret_cast<const uint4*>(w1p + (long)blockIdx.x * MX_WB);
+  for (int e = tid; e < MX_WB / 8; e += MX_NT)
+    cpa::copy16(reinterpret_cast<uint4*>(ws) + e, wsrc + e, true);
+  const int step = gridDim.y;
+  int t = blockIdx.y;
+  if (t < tiles) stage(t, 0);
+  cpa::commit();
+  for (int buf = 0; t < tiles; t += step, buf ^= 1) {
+    if (t + step < tiles) stage(t + step, buf ^ 1);
+    cpa::commit();
+    cpa::wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    // this thread's A words: m 2 tig, +1 (+ 8 for a[2], a[3]) of pixel gid
+    // (+ 8: 16 patch columns on, for a[1], a[3]) of tile row `warp`
+    const unsigned short* pr =
+        ds + buf * M * MX_DMH + 2 * tig * MX_DMH + 2 * warp * MX_PITCH + 2 * gid + 7;
+    uint32_t a[9][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const unsigned short* p = pr + (tap / 3) * MX_PITCH + tap % 3;
+      a[tap][0] = pack_raw(p[0], p[MX_DMH]);
+      a[tap][1] = pack_raw(p[16], p[MX_DMH + 16]);
+      a[tap][2] = pack_raw(p[8 * MX_DMH], p[9 * MX_DMH]);
+      a[tap][3] = pack_raw(p[8 * MX_DMH + 16], p[9 * MX_DMH + 16]);
+    }
+    float acc[MX_NC / 2];
+#pragma unroll
+    for (int e = 0; e < MX_NC / 2; ++e) acc[e] = 0.0f;
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      wgmma_bf16<MX_NC>(acc, a[tap], kmajor_desc_b16(ws + tap * M * MX_NC, 128, 256));
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) hold(a[tap]);
+
+    // acc[4j + 2h + e]: pixel gid + 8h of tile row `warp`, channel co0 + 8j + 2 tig + e
+    const int b = t / per_image, r = t - b * per_image;
+    const int oy = (r / tiles_x) * MX_TH + warp;
+    if (oy < Hg) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ox = (r % tiles_x) * MX_TW + gid + 8 * h;
+        if (ox >= Wg) continue;
+        __nv_bfloat16* orow = dx + (((long)b * Hg + oy) * Wg + ox) * C;
+#pragma unroll
+        for (int j = 0; j < MX_NC / 8; ++j) {
+          const int c = co0 + 8 * j + 2 * tig;
+          if (c >= C) break;
+          if ((C & 1) == 0) {
+            *reinterpret_cast<uint32_t*>(orow + c) = pack_bf16(acc[4 * j + 2 * h],
+                                                                acc[4 * j + 2 * h + 1]);
+          } else {
+            orow[c] = __float2bfloat16_rn(acc[4 * j + 2 * h]);
+            if (c + 1 < C) orow[c + 1] = __float2bfloat16_rn(acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer is restaged two tiles on
+  }
+}
+
+// persistent blocks of dx_mma_kernel a channel group
+inline int mx_blocks(int B, int Hg, int Wg, int n_groups) {
+  const long tiles = (long)B * ((Hg + MX_TH - 1) / MX_TH) * ((Wg + MX_TW - 1) / MX_TW);
+  const long want = (long)MX_BLOCKS_PER_SM * bwd::CARD_SMS / n_groups;
+  return (int)(tiles < want ? tiles : (want > 0 ? want : 1));
 }
 
 struct Layout {  // the scratch buffer, in floats
@@ -401,10 +575,14 @@ Layout layout(int B, int Hg, int Wg, int C, int K) {
   l.np = M * K * 9 + M + K;
   l.blocks_a = ((W1 + TC - 1) / TC) * ((H1 + TR - 1) / TR) * B;
   l.slices = bwd::wgrad_s2_slices(n, C);
-  l.dy1 = 0;
+  l.dy1 = 0;  // f32 (B, M, H1, W1); the bf16 form's dY1 takes its first half
   l.part_a = l.dy1 + bwd::align4((long)B * M * H1 * W1);
   l.w1t = l.part_a + bwd::align4((long)l.blocks_a * l.np);
-  l.part_w = l.w1t + bwd::align4((long)C * M * 9);
+  // w1 laid out (M 9, C), or for the bf16 form rounded into prep_w1_kernel's
+  // groups (MX_WB bf16 each)
+  const long groups_floats = (long)((C + MX_NC - 1) / MX_NC) * MX_WB / 2;
+  l.part_w = l.w1t + bwd::align4((long)C * M * 9 > groups_floats ? (long)C * M * 9
+                                                                 : groups_floats);
   l.tmp = l.part_w + bwd::align4(bwd::wgrad_s2_partial_floats(n, C));
   const long t1 = bwd::reduce_scratch_floats(l.blocks_a, l.np);
   const long t2 = bwd::reduce_scratch_floats(l.slices, C * M * 9);
@@ -420,7 +598,7 @@ int launch(const T* x, const float* y1, const float* g, const float* w1,
   cudaStream_t s = (cudaStream_t)stream;
   const Layout l = layout(B, Hg, Wg, C, K);
   const int H1 = 2 * Hg, W1 = 2 * Wg;
-  float* dy1 = scratch + l.dy1;
+  T* dy1 = reinterpret_cast<T*>(scratch + l.dy1);
   const dim3 grid_a((W1 + TC - 1) / TC, (H1 + TR - 1) / TR, B);
   cudaError_t err;
   if (K == 8) {
@@ -435,12 +613,23 @@ int launch(const T* x, const float* y1, const float* g, const float* w1,
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  bwd::transpose(w1, scratch + l.w1t, 1, C, M * 9, s, RND);  // (C, M 9) -> (M 9, C)
-  const int n_groups = (C + CG - 1) / CG;
-  const dim3 grid_b((Wg + TOW - 1) / TOW, (Hg + TOH - 1) / TOH, B * n_groups);
-  dx_kernel<T><<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
-                                       n_groups);
-  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, s);
+  if constexpr (RND) {
+    __nv_bfloat16* w1p = reinterpret_cast<__nv_bfloat16*>(scratch + l.w1t);
+    const int n_groups = (C + MX_NC - 1) / MX_NC;
+    prep_w1_kernel<<<(n_groups * MX_WB + 255) / 256, 256, 0, s>>>(w1, w1p, C, n_groups);
+    err = cudaFuncSetAttribute(dx_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MX_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    dx_mma_kernel<<<dim3(n_groups, mx_blocks(B, Hg, Wg, n_groups)), MX_NT, MX_SMEM, s>>>(
+        dy1, w1p, dx, B, Hg, Wg, C, H1, W1);
+  } else {
+    bwd::transpose(w1, scratch + l.w1t, 1, C, M * 9, s);  // (C, M 9) -> (M 9, C)
+    const int n_groups = (C + CG - 1) / CG;
+    const dim3 grid_b((Wg + TOW - 1) / TOW, (Hg + TOH - 1) / TOH, B * n_groups);
+    dx_kernel<<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
+                                      n_groups);
+  }
+  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, s, RND);
   if (err != cudaSuccess) return (int)err;
   bwd::reduce_partials(scratch + l.part_a, l.blocks_a, l.np, dw2b, scratch + l.tmp, s);
   bwd::reduce_partials(scratch + l.part_w, l.slices, C * M * 9, dw1, scratch + l.tmp, s);
@@ -460,7 +649,8 @@ extern "C" long long dec_aff_tail_bwd_scratch_floats(int B, int Hg, int Wg,
 // dw1 (as w1) and dw2b = [dW2 (16 K 9) | db1 (16) | db2 (K)]. K must be 8 or
 // 24. Returns cudaGetLastError() after the last launch. The bf16 form takes
 // a bf16 x and writes a bf16 dx; y1 (bf16 values), g, the weights and the
-// gradients of the weights are f32 in both.
+// gradients of the weights are f32 in both. W1 = 2 Wg is even, as the bf16
+// form's word copies of dY1 need.
 extern "C" int dec_aff_tail_bwd_f32(const float* x, const float* y1,
                                     const float* g, const float* w1,
                                     const float* w2, float* dx, float* dw1,

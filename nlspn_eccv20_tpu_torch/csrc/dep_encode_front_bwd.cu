@@ -47,7 +47,7 @@
 //   5. bwd::reduce_partials: the partials of 2 (db1), 3 and 4 added in a
 //      fixed order.
 // No atomics: the result is the same bits from run to run. Any H and W, as
-// the forward. Plain f32 FMAs: no tensor cores.
+// the forward. Plain f32 FMAs: no tensor cores (but the bf16 form's pass 4).
 //
 // bf16 form (K5-bf16, dep_encode_front_bwd_bf16, precision='bf16'): the
 // same passes with T = __nv_bfloat16 for the plane x, g, out and dx,
@@ -66,7 +66,9 @@
 // 8-byte copies where out's f32 copy would lie, and the thread that copied
 // a quad widens and masks it after its own wait; the plane is read with
 // plain loads and widened. p0, dP0 and gm stay f32 buffers holding bf16
-// values.
+// values. Pass 4 runs on the bf16 tensor cores (bwd::wgrad_s2_mma_kernel:
+// gm and p0 are bf16 values, so its products are exact), the other passes
+// on the FP32 cores as in f32.
 
 #include <cuda_runtime.h>
 
@@ -519,7 +521,7 @@ int launch(const T* x, const T* g, const T* out, const float* w0, const float* b
   }
   const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
   dx0_kernel<T><<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, scratch + l.part_b, H, W);
-  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s);
+  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s, RND);
   if (err != cudaSuccess) return (int)err;
   bwd::reduce_partials(scratch + l.part_b, l.blocks_b, NPB, dw0b, scratch + l.tmp, s);
   bwd::reduce_partials(scratch + l.part_w, l.slices, C1 * M * 9, dw1b, scratch + l.tmp, s);

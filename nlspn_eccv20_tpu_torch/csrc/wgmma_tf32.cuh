@@ -1,6 +1,7 @@
 // Error-compensated 3xTF32 products on Hopper's tensor cores (wgmma), at
 // f32 accuracy, shared by K9 (small_conv3x3.cu) and K9b
-// (small_conv3x3_bwd.cu).
+// (small_conv3x3_bwd.cu); its fences, commit groups, waits and register
+// holds also serve the bf16 products (wgmma_bf16.cuh).
 //
 // Each f32 operand v is split into hi = v with its low 13 bits cleared
 // (truncated, never rounded up: rounding can carry the largest f32 to

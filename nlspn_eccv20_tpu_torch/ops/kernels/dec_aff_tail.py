@@ -75,6 +75,70 @@ def tail_stages(c: int, s: int) -> List[Tuple[int, int]]:
     return [(r * n // s, (r + 1) * n // s) for r in range(s)]
 
 
+# ---- K4-bf16's tensor-core passes, mirrored for the CPU tests ----
+# (csrc/dec_aff_tail_bwd.cu's dx_mma_kernel and csrc/bwd_common.cuh's
+# weight-gradient slices, which K5-bf16 shares)
+CARD_SMS = 132                 # H100 SXM
+MX_TILE, MX_NC = (4, 16), 128  # dx: base-pixel tile (M = 64), channels a block (N)
+MX_BLOCKS_PER_SM = 2
+WG_C, WG_SEG, WG_MIN_PIXELS = 128, 32, 64   # dW: channels a block; pixels a segment, a slice
+MX_DMH = 9 * 48 + 8            # bf16 of a staged dY1 m: 9 patch rows of 48, padded
+
+
+def wgrad_s2_slices(n_pixels: int, c: int) -> int:
+    """``bwd::wgrad_s2_slices``: two blocks of 128 channels on each SM of
+    the card, each slice at least 64 pixels."""
+    groups = -(-c // WG_C)
+    want = -(-2 * CARD_SMS // groups)
+    most = n_pixels // WG_MIN_PIXELS
+    return want if want < most else max(most, 1)
+
+
+def wgrad_s2_segments(b: int, ha: int, wa: int, slices: int, s: int):
+    """The row segments (image, row, first column, length) that slice ``s``
+    of ``slices`` walks, in order, as ``wgrad_s2_kernel`` and
+    ``wgrad_s2_mma_kernel`` stage them: the flat pixel range [N s / S, N (s
+    + 1) / S), N = b ha wa, cut at row ends and every 32 pixels. The
+    tensor-core form sums each segment in two k-steps of 16 pixels, zeros
+    past its length."""
+    n = b * ha * wa
+    beg, left = n * s // slices, n * (s + 1) // slices - n * s // slices
+    row, j = divmod(beg, wa)
+    segs = []
+    while left > 0:
+        ln = min(WG_SEG, wa - j, left)
+        segs.append((row // ha, row % ha, j, ln))
+        left -= ln
+        j += ln
+        if j == wa:
+            row, j = row + 1, 0
+    return segs
+
+
+def tail_bwd_plan_bf16(b: int, hg: int, wg: int, c: int):
+    """K4-bf16's two tensor-core passes as they launch: dx over ``dx_tiles``
+    4x16 tiles of the base grid, grid (``dx_groups`` of 128 channels,
+    ``dx_blocks`` persistent blocks), block j walking tiles j, j +
+    dx_blocks, ..., ``dx_smem`` bytes (the group's 36,864 bytes of rounded
+    weights and two buffers of the 16 bf16 dY1 planes' 9 x 48 patch); dW1
+    over ``slices`` split-K slices of the b hg wg pixels, grid
+    (``wg_groups`` of 128 channels, slices), ``wg_smem`` bytes for bf16 x
+    and dY1 (``wg_smem_f32`` for K5-bf16's f32 gm and p0), reduced in
+    ``bwd::reduce_partials``' order."""
+    rows, cols = -(-hg // MX_TILE[0]), -(-wg // MX_TILE[1])
+    tiles = b * rows * cols
+    groups = -(-c // MX_NC)
+    p_bf16, p_f32 = MID_CHANNELS * 3 * (2 * WG_SEG + 2) * 2, MID_CHANNELS * 3 * (2 * WG_SEG + 1) * 4
+    step = MID_CHANNELS * 9 // 8 * 256
+    a_bf16, a_f32 = WG_SEG * (WG_C + 8) * 2, WG_SEG * (WG_C + 4) * 4
+    return {"dx_tiles": tiles, "dx_grid_tiles": (rows, cols), "dx_groups": groups,
+            "dx_blocks": max(1, min(tiles, MX_BLOCKS_PER_SM * CARD_SMS // groups)),
+            "dx_smem": 9 * MID_CHANNELS * MX_NC * 2 + 2 * MID_CHANNELS * MX_DMH * 2,
+            "slices": wgrad_s2_slices(b * hg * wg, c), "wg_groups": -(-c // WG_C),
+            "wg_smem": 2 * (a_bf16 + p_bf16) + 2 * step,
+            "wg_smem_f32": 2 * (a_f32 + p_f32) + a_bf16 + 2 * step}
+
+
 def _deconv(y, w):
     return F.conv_transpose2d(y, w, None, 2, 1, 1)
 

@@ -27,14 +27,28 @@ Neither model routes through it; it is an op-library primitive, and
 
 ``small_conv3x3_planar`` is differentiable: under autograd it runs
 ``SmallConv3x3Function``, whose backward is K9b on a CUDA tensor and
-``small_conv3x3_bwd_plain`` on a CPU tensor. float32 only: bf16 is ROADMAP
-§A's bf16 item, for every kernel at once.
+``small_conv3x3_bwd_plain`` on a CPU tensor.
+
+On a bf16 ``xa`` it runs K9-bf16, ``small_conv3x3_bf16`` (CUDA source
+``csrc/small_conv3x3_bf16.cu``), and under autograd its backward K9b-bf16,
+``small_conv3x3_bwd_bf16`` (``csrc/small_conv3x3_bwd_bf16.cu``): the TPU
+kernels at ``dt = bfloat16``. xb is cast to xa's dtype, the weights and the
+bias (f32 or bf16) are rounded to bf16. The forward rounds each tap's f32
+sum over the channels to bf16, sums the nine rounded taps and the bias in
+f32 and rounds again, as ``_fwd_kernel`` does (one rounding of the whole
+sum differs on about 40% of the outputs at the heads' widths); the
+backward rounds g, sums dx in f32 and rounds it once, and returns f32 dW
+and db, which autograd casts to the leaves' dtypes. Their plain versions,
+``small_conv3x3_plain_bf16`` and ``small_conv3x3_bwd_plain_bf16``, repeat
+that arithmetic in PyTorch (per-tap 1x1 products, never one bf16 conv) for
+the CPU and for the card's checks; nothing on the card's path uses them.
 
 For the CPU tests, ``fwd_plan`` and ``bwd_plan`` mirror the kernels'
-launches, and ``small_conv3x3_split_plain`` and
-``small_conv3x3_bwd_split_plain`` their arithmetic (the TF32 split, in the
-kernels' order); ``small_conv3x3_case`` and ``small_conv3x3_bwd_case``
-build the inputs on which the card times both kernels.
+launches (``fwd_plan_bf16`` and ``bwd_plan_bf16`` the bf16 forms'), and
+``small_conv3x3_split_plain`` and ``small_conv3x3_bwd_split_plain`` their
+arithmetic (the TF32 split, in the kernels' order); ``small_conv3x3_case``
+and ``small_conv3x3_bwd_case`` build the inputs on which the card times
+both kernels, in f32 or bf16.
 """
 
 from __future__ import annotations
@@ -57,7 +71,16 @@ _BWD_SIGNATURES = {
     "small_conv3x3_bwd_f32": [_P] * 8 + [_I] * 6 + [_P],
     "small_conv3x3_bwd_scratch_floats": ([_I] * 6, ctypes.c_longlong),
 }
+_BF16_SIGNATURES = {
+    "small_conv3x3_bf16": [_P] * 6 + [_I] * 6 + [_P],
+    "small_conv3x3_bf16_scratch_floats": ([_I] * 3, ctypes.c_longlong),
+}
+_BWD_BF16_SIGNATURES = {
+    "small_conv3x3_bwd_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "small_conv3x3_bwd_bf16_scratch_floats": ([_I] * 6, ctypes.c_longlong),
+}
 MAX_K = 32                 # outputs the kernels' register tiles hold
+BF16 = torch.bfloat16
 
 
 def small_conv3x3_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
@@ -73,6 +96,42 @@ def small_conv3x3_bwd_plain(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     _, vjp = torch.func.vjp(small_conv3x3_plain, xa, xb, w,
                             w.new_zeros(w.shape[0]))
     return vjp(g)
+
+
+def small_conv3x3_plain_bf16(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor) -> torch.Tensor:
+    """K9-bf16's arithmetic, the TPU kernel's at ``dt = bfloat16``: x, the
+    weights and the bias rounded to bf16; per tap a 1x1 product over all
+    Ca + Cb channels summed in f32 and rounded to bf16; the nine rounded
+    taps added in f32 in tap order, then the bias, and rounded. Returns
+    (B, K, H, W) bf16."""
+    x = torch.cat([xa.to(BF16), xb.to(BF16)], 1).float()
+    wr = w.to(BF16).float()
+    h, wd = x.shape[2:]
+    xp = F.pad(x, (1, 1, 1, 1))
+    total = None
+    for ty in range(3):
+        for tx in range(3):
+            tap = F.conv2d(xp[:, :, ty:ty + h, tx:tx + wd], wr[:, :, ty:ty + 1, tx:tx + 1])
+            tap = tap.to(BF16).float()
+            total = tap if total is None else total + tap
+    return (total + b.to(BF16).float()[:, None, None]).to(BF16)
+
+
+def small_conv3x3_bwd_plain_bf16(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+                                 w: torch.Tensor):
+    """K9b-bf16's arithmetic, the TPU backward's at ``dt = bfloat16``: g and
+    the weights rounded to bf16; dx the f32 sum of their products rounded
+    once to bf16; dW the f32 sum over the pixels of the bf16 x times the
+    rounded g; db the f32 sum of the rounded g. Returns (dxa, dxb) bf16 and
+    (dw, db) f32."""
+    x = torch.cat([xa.to(BF16), xb.to(BF16)], 1).float()
+    gr = g.to(BF16).float()
+    _, vjp = torch.func.vjp(lambda xx, ww: F.conv2d(xx, ww, None, padding=1), x,
+                            w.to(BF16).float())
+    dx, dw = vjp(gr)
+    ca = xa.shape[1]
+    return dx[:, :ca].to(BF16), dx[:, ca:].to(BF16), dw, gr.sum((0, 2, 3))
 
 
 def fuse_heads_dec0(dec0: Sequence[Tuple[torch.Tensor, torch.Tensor]],
@@ -95,11 +154,6 @@ def fuse_heads_dec0(dec0: Sequence[Tuple[torch.Tensor, torch.Tensor]],
 
 
 def _check_args(xa, xb, w, b):
-    for t in (xa, xb, w, b):
-        if t.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "small_conv3x3_planar: bf16 is not ported yet (ROADMAP.md §A, "
-                "the bf16 item); pass float32")
     bsz, ca, h, wd = xa.shape
     k = w.shape[0]
     if xb.dim() != 4 or xb.shape[0] != bsz or xb.shape[2:] != (h, wd):
@@ -141,11 +195,80 @@ def _launch_fwd(xa, xb, w, b):
     return out
 
 
+def _f32(t):
+    return t if t.dtype == torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def small_conv3x3_bf16(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """K9-bf16: the forward on a bf16 xa, (B, K, H, W) bf16. On a CPU
+    tensor it runs ``small_conv3x3_plain_bf16``; on a CUDA tensor it
+    launches the kernel or raises. xb is cast to bf16; w and b may be f32
+    or bf16 (the kernel rounds them)."""
+    if xa.device.type == "cpu":
+        return small_conv3x3_plain_bf16(xa, xb, w, b)
+    bsz, ca, h, wd = xa.shape
+    xb = xb.to(BF16)
+    cb, k = xb.shape[1], w.shape[0]
+    dev = xa.device
+    w, b = _f32(w), _f32(b)
+    build.check_tensor(xa, "small_conv3x3_bf16 xa", dtype=BF16)
+    build.check_tensor(xb, "small_conv3x3_bf16 xb", (bsz, None, h, wd), dev, dtype=BF16)
+    build.check_tensor(w, "small_conv3x3_bf16 w", (None, None, 3, 3), dev)
+    build.check_tensor(b, "small_conv3x3_bf16 b", (k,), dev)
+    out = torch.empty((bsz, k, h, wd), device=dev, dtype=BF16)
+    with torch.cuda.device(dev):
+        lib = build.load("small_conv3x3_bf16", _BF16_SIGNATURES)
+        scratch = torch.empty(lib.small_conv3x3_bf16_scratch_floats(ca, cb, k),
+                              device=dev, dtype=torch.float32)
+        err = lib.small_conv3x3_bf16(
+            xa.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), bsz, h, wd, ca, cb, k, torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "small_conv3x3_bf16")
+    small_conv3x3_bf16.launches += 1
+    return out
+
+
+def small_conv3x3_bwd_bf16(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+                           w: torch.Tensor):
+    """K9b-bf16: (dxa, dxb) bf16 and (dw, db) f32 at cotangent ``g`` (B, K,
+    H, W), rounded to bf16 first, for a bf16 xa. On a CPU tensor it runs
+    ``small_conv3x3_bwd_plain_bf16``; on a CUDA tensor it launches the
+    kernel or raises."""
+    if xa.device.type == "cpu":
+        return small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
+    bsz, ca, h, wd = xa.shape
+    g, xb, w = g.to(BF16).contiguous(), xb.to(BF16), _f32(w)
+    cb, k = xb.shape[1], w.shape[0]
+    dev = xa.device
+    build.check_tensor(xa, "small_conv3x3_bwd_bf16 xa", dtype=BF16)
+    build.check_tensor(xb, "small_conv3x3_bwd_bf16 xb", (bsz, None, h, wd), dev, dtype=BF16)
+    build.check_tensor(w, "small_conv3x3_bwd_bf16 w", (None, None, 3, 3), dev)
+    build.check_tensor(g, "small_conv3x3_bwd_bf16 g", (bsz, k, h, wd), dev, dtype=BF16)
+    n_w = k * (ca + cb) * 9
+    dxa, dxb = torch.empty_like(xa), torch.empty_like(xb)
+    dwb = torch.empty(n_w + k, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        lib = build.load("small_conv3x3_bwd_bf16", _BWD_BF16_SIGNATURES)
+        scratch = torch.empty(
+            lib.small_conv3x3_bwd_bf16_scratch_floats(bsz, h, wd, ca, cb, k),
+            device=dev, dtype=torch.float32)
+        err = lib.small_conv3x3_bwd_bf16(
+            g.data_ptr(), xa.data_ptr(), xb.data_ptr(), w.data_ptr(), dxa.data_ptr(),
+            dxb.data_ptr(), dwb.data_ptr(), scratch.data_ptr(), bsz, h, wd, ca, cb, k,
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch(err, "small_conv3x3_bwd_bf16")
+    small_conv3x3_bwd_bf16.launches += 1
+    return dxa, dxb, dwb[:n_w].view(w.shape), dwb[n_w:]
+
+
 def small_conv3x3_bwd(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
                       w: torch.Tensor):
     """K9b: (dxa, dxb, dw, db) at cotangent ``g`` (B, K, H, W). On a CPU
     tensor it runs ``small_conv3x3_bwd_plain``; on a CUDA tensor it launches
-    the kernel or raises."""
+    the kernel or raises. A bf16 xa takes K9b-bf16 (``small_conv3x3_bwd_bf16``)."""
+    if xa.dtype == BF16:
+        return small_conv3x3_bwd_bf16(g, xa, xb, w)
     if xa.device.type == "cpu":
         return small_conv3x3_bwd_plain(g, xa, xb, w)
     bsz, ca, h, wd = xa.shape
@@ -170,19 +293,30 @@ def small_conv3x3_bwd(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     return dxa, dxb, dwb[:n_w].view(w.shape), dwb[n_w:]
 
 
+def _forward(xa, xb, w, b):
+    if xa.dtype == BF16:
+        return small_conv3x3_bf16(xa, xb, w, b)
+    if xa.device.type == "cpu":
+        return small_conv3x3_plain(xa, xb, w, b)
+    return _launch_fwd(xa, xb, w, b)
+
+
 class SmallConv3x3Function(torch.autograd.Function):
-    """K9 forward, K9b backward (their plain versions on CPU tensors)."""
+    """K9 forward, K9b backward, or on a bf16 xa K9-bf16 and K9b-bf16
+    (their plain versions on CPU tensors). The bf16 form's f32 dW and db
+    and its bf16 dxb are cast to the dtypes of w, b and xb."""
 
     @staticmethod
     def forward(ctx, xa, xb, w, b):
         ctx.save_for_backward(xa, xb, w)
-        if xa.device.type == "cpu":
-            return small_conv3x3_plain(xa, xb, w, b)
-        return _launch_fwd(xa, xb, w, b)
+        ctx.b_dtype = b.dtype
+        return _forward(xa, xb, w, b)
 
     @staticmethod
     def backward(ctx, g):
-        return small_conv3x3_bwd(g.contiguous(), *ctx.saved_tensors)
+        xa, xb, w = ctx.saved_tensors
+        dxa, dxb, dw, db = small_conv3x3_bwd(g.contiguous(), xa, xb, w)
+        return dxa, dxb.to(xb.dtype), dw.to(w.dtype), db.to(ctx.b_dtype)
 
 
 def small_conv3x3_planar(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
@@ -191,17 +325,18 @@ def small_conv3x3_planar(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
     outputs: xa (B, Ca, H, W), xb (B, Cb, H, W), w (K, Ca + Cb, 3, 3) in
     torch Conv2d layout, b (K,), K <= 32. Returns (B, K, H, W), equal to
     ``F.conv2d(torch.cat([xa, xb], 1), w, b, padding=1)``; the concat is
-    never built on the card. float32; bf16 raises."""
+    never built on the card. On a bf16 xa the result is bf16 and rounded
+    per tap as the TPU kernel rounds (``small_conv3x3_bf16``)."""
     _check_args(xa, xb, w, b)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (xa, xb, w, b)):
         return SmallConv3x3Function.apply(xa, xb, w, b)
-    if xa.device.type == "cpu":
-        return small_conv3x3_plain(xa, xb, w, b)
-    return _launch_fwd(xa, xb, w, b)
+    return _forward(xa, xb, w, b)
 
 
 small_conv3x3_planar.launches = 0
 small_conv3x3_bwd.launches = 0
+small_conv3x3_bf16.launches = 0
+small_conv3x3_bwd_bf16.launches = 0
 
 HEADS_CA, HEADS_CB = 192, 64   # the heads' stage 2: three 64-wide heads, fe1
 
@@ -453,28 +588,104 @@ def _case_tensors(gen, device, b, h, w, k, ca, cb):
 
 
 def small_conv3x3_case(gen: torch.Generator, device, b: int, h: int, w: int,
-                       k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB):
-    """Inputs on which K9 is timed on the card, from ``gen``: N(0, 1)
-    activations (b, ca, h, w) and (b, cb, h, w), a weight scaled to unit
-    output variance and a bias. Returns ((xa, xb, w, bias), library): the
-    library call is the plain version, ``F.conv2d`` over the concat."""
+                       k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB,
+                       dtype: torch.dtype = torch.float32):
+    """Inputs on which K9 (K9-bf16 with ``dtype`` bf16) is timed on the
+    card, from ``gen``: N(0, 1) activations (b, ca, h, w) and (b, cb, h, w)
+    in ``dtype``, an f32 weight scaled to unit output variance and an f32
+    bias (the port's bf16 models keep f32 parameters). Returns ((xa, xb, w,
+    bias), library): the library call is ``F.conv2d`` over the concat (the
+    f32 plain version; in bf16 cuDNN's bf16 conv, its weights rounded
+    beforehand)."""
     xa, xb, wk, bk, _ = _case_tensors(gen, device, b, h, w, k, ca, cb)
+    if dtype == BF16:
+        xa, xb = xa.to(BF16), xb.to(BF16)
+        wl, bl = wk.to(BF16), bk.to(BF16)
+        return (xa, xb, wk, bk), lambda: F.conv2d(torch.cat([xa, xb], 1), wl, bl, padding=1)
     return (xa, xb, wk, bk), lambda: small_conv3x3_plain(xa, xb, wk, bk)
 
 
 def small_conv3x3_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
-                           k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB):
-    """Inputs on which K9b is timed on the card, from ``gen``, as
-    ``small_conv3x3_case``'s with an N(0, 1) cotangent g (b, k, h, w).
-    Returns ((g, xa, xb, w), library): the library call is cuDNN's backward
-    of the concat conv (``aten.convolution_backward``, what autograd runs
-    for it; the concat is built beforehand, its backward is two views)."""
+                           k: int = 10, ca: int = HEADS_CA, cb: int = HEADS_CB,
+                           dtype: torch.dtype = torch.float32):
+    """Inputs on which K9b (K9b-bf16 with ``dtype`` bf16) is timed on the
+    card, from ``gen``, as ``small_conv3x3_case``'s with an N(0, 1)
+    cotangent g (b, k, h, w) in ``dtype``. Returns ((g, xa, xb, w),
+    library): the library call is cuDNN's backward of the concat conv
+    (``aten.convolution_backward``, what autograd runs for it; the concat
+    is built beforehand, its backward is two views), in bf16 with the
+    weights rounded beforehand."""
     xa, xb, wk, _, g = _case_tensors(gen, device, b, h, w, k, ca, cb)
+    if dtype == BF16:
+        xa, xb, g = xa.to(BF16), xb.to(BF16), g.to(BF16)
     xcat = torch.cat([xa, xb], 1)
+    wl = wk.to(dtype)
 
     def library():
         dx, dw, db = torch.ops.aten.convolution_backward(
-            g, xcat, wk, [k], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True])
+            g, xcat, wl, [k], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [True, True, True])
         return dx[:, :ca], dx[:, ca:], dw, db
 
     return (g, xa, xb, wk), library
+
+
+# ---- K9-bf16's and K9b-bf16's designs, mirrored for the CPU tests ----
+# (csrc/small_conv3x3_bf16.cu and csrc/small_conv3x3_bwd_bf16.cu)
+BF_TILE = (4, 32)              # K9-bf16's block tile: a warpgroup 4 rows x 16 columns
+BF_CH, BF_RP, BF_PS = 16, 48, 296   # channels a chunk; bf16 a staged row, a plane
+BF_STAGES = 3
+BF_DX_TILE, BF_DX_RP = (8, 16), 20  # K9b-bf16's dx tile; bf16 a staged g row
+BF_WG_TILE, BF_WG_RP = (4, 16), 20  # its dW tile (a k-step a row); a staged g row
+
+
+def fwd_plan_bf16(b: int, h: int, w: int, ca: int, cb: int, k: int):
+    """K9-bf16's launch as ``csrc/small_conv3x3_bf16.cu`` plans it: ``n`` =
+    K rounded up to 8 (wgmma's N), nine accumulators of n/2 floats a thread
+    (one a tap), a block tile of ``tile`` pixels and its one-pixel halo,
+    ``chunks`` of 16 channels (a k-step a tap) in three stages of ``smem``
+    bytes (the x tile as raw bf16 in planes of ``BF_PS``, its rows columns
+    x0 - 8 .. x0 + 39 in 16-byte pieces where ``vec``, and the chunk's
+    weights), no channel splits; ``scratch`` floats hold the rounded
+    weights; ``min_blocks`` blocks an SM (one where 144 accumulators would
+    not leave two)."""
+    n = -(-k // 8) * 8
+    chunks = -(-(ca + cb) // BF_CH)
+    min_blocks = 2 if n <= 16 else 1
+    return {"n": n, "tile": BF_TILE, "grid": (-(-w // BF_TILE[1]), -(-h // BF_TILE[0]), b),
+            "chunks": chunks, "accumulators": 9 * n // 2,
+            "smem": BF_STAGES * (BF_CH * BF_PS + 9 * 16 * n) * 2,
+            "scratch": chunks * 9 * 16 * n // 2, "vec": w % 8 == 0,
+            "threads": 256, "min_blocks": min_blocks,
+            "regs": min(255, 65536 // (256 * min_blocks))}
+
+
+def bwd_plan_bf16(b: int, h: int, w: int, ca: int, cb: int, k: int, sms: int = CARD_SMS):
+    """K9b-bf16's launches as ``csrc/small_conv3x3_bwd_bf16.cu`` plans them:
+    K9b's (``bwd_plan``) with k-steps of 16 (tap, k) rows. dx: grid
+    (``dx_chunks`` of ``dx_nc`` channels, ``dx_blocks`` persistent blocks)
+    over 8x16 tiles, ``dx_smem`` bytes (the chunk's rounded weights, two
+    buffers of g's K planes as raw bf16 with their halo, the offsets). dW:
+    grid (``mchunks`` x ``cchunks``, ``slices``) over 4x16 tiles, four
+    k-steps a tile, ``wg_smem`` bytes (three tiles of x and g in flight,
+    the zeros that padding rows of the 9K side read)."""
+    c, nks = ca + cb, -(-9 * k // 16)
+
+    def dx_smem(nc):
+        return nks * 16 * nc * 2 + 2 * k * (BF_DX_TILE[0] + 2) * BF_DX_RP * 2 + nks * 16 * 4
+
+    dx_nc = 128 if 2 * (dx_smem(128) + 1024) <= CARD_SMEM else 64
+    dx_per_sm = 2 if 2 * (dx_smem(dx_nc) + 1024) <= CARD_SMEM else 1
+    dx_tiles = _tiles(b, h, w, BF_DX_TILE)
+    dx_chunks = -(-c // dx_nc)
+    mchunks, cchunks = -(-9 * k // WG_MR), -(-c // WG_NC)
+    wg_tiles = _tiles(b, h, w, BF_WG_TILE)
+    return {"ksteps": nks, "dx_nc": dx_nc, "dx_chunks": dx_chunks, "dx_tiles": dx_tiles,
+            "dx_blocks": max(1, min(dx_tiles, dx_per_sm * sms // dx_chunks)),
+            "dx_smem": dx_smem(dx_nc), "dx_per_sm": dx_per_sm, "mchunks": mchunks,
+            "cchunks": cchunks, "wg_tiles": wg_tiles,
+            "slices": max(1, min(wg_tiles, BWD_MIN_BLOCKS * sms // (mchunks * cchunks),
+                                 RED_CHUNK)),
+            "wg_smem": 3 * (WG_NC * 64 + k * (BF_WG_TILE[0] + 2) * BF_WG_RP) * 2
+                       + 4 * BF_WG_RP * 2 + k * BF_WG_TILE[0] * 4,
+            "gvec": w % 2 == 0, "xvec": w % 8 == 0,
+            "threads": BWD_THREADS, "regs": 65536 // (BWD_THREADS * BWD_MIN_BLOCKS)}

@@ -33,7 +33,11 @@ K9 also at the serving shapes, b=1 and b=4 of 256x320; the devtools'
 K10b ``deform_colgather`` at NYU's b=12 of 228x304 and KITTI's b=1 of
 240x1216, and K10a ``deform_windowed`` at the same two and with 5x5
 neighbours at b=1 of 228x304, on the experiment's offsets clip(N(0,
-1.5^2), -4, 4)) it
+1.5^2), -4, 4); and the bf16 forms ``K4-bf16``, ``K5-bf16``, ``K9-bf16`` and
+``K9b-bf16``: K4-bf16 at b=12 and b=1 of the base grid with K=8 and K=24,
+K5-bf16 at b=12 and b=1 of 228x304, K9-bf16 at b=1 and b=4 of 256x320, b=12
+of 228x304 and b=2 of 57x75 with K=26, K9b-bf16 at b=12 and b=1 of 228x304
+and b=2 of 57x75 with K=26, their yardsticks cuDNN's bf16 calls) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
@@ -99,7 +103,9 @@ SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["d
            "K8": ["deform_prop_bwd"], "K9": ["small_conv3x3"], "K9b": ["small_conv3x3_bwd"],
            "K10a": ["deform_windowed"], "K10b": ["deform_colgather"],
            "K11a": ["interleave_asm"],
-           "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"]}
+           "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"],
+           "K4-bf16": ["dec_aff_tail_bwd"], "K5-bf16": ["dep_encode_front_bwd"],
+           "K9-bf16": ["small_conv3x3_bf16"], "K9b-bf16": ["small_conv3x3_bwd_bf16"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
 # K, C; K2's y1: the intermediate written, as in training), K5's and K3's
 # plane (options: C1), K8's and K6b's plane (options: kernel, converge)
@@ -141,7 +147,13 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K9", 1, 256, 320, {"k": 10}), ("K9", 4, 256, 320, {"k": 10}),
          ("K10b", 12, 228, 304, {}), ("K10b", 1, 240, 1216, {}),
          ("K10a", 12, 228, 304, {}), ("K10a", 1, 240, 1216, {}),
-         ("K10a", 1, 228, 304, {"kernel": 5})]
+         ("K10a", 1, 228, 304, {"kernel": 5}),
+         *(("K4-bf16", b, 58, 76, {"k": k}) for b in (12, 1) for k in (8, 24)),
+         ("K5-bf16", 12, 228, 304, {}), ("K5-bf16", 1, 228, 304, {}),
+         ("K9-bf16", 1, 256, 320, {"k": 10}), ("K9-bf16", 4, 256, 320, {"k": 10}),
+         *((k, b, h, w, {"k": kk}) for k in ("K9-bf16", "K9b-bf16")
+           for b, h, w, kk in ((12, 228, 304, 10), (2, 57, 75, 26))),
+         ("K9b-bf16", 1, 228, 304, {"k": 10})]
 # (K11's height and width are those of the padded phase planes; K9's and
 # K9b's options: K, the outputs, beside the heads' Ca = 192 and Cb = 64;
 # K10a's: the stencil)
@@ -172,6 +184,8 @@ def passes_us(fn):
 
 
 def run_case(gen, dev, kname, b, h, w, opts):
+    if kname.endswith("-bf16"):   # the bf16 form, through the same entry points
+        opts = {**opts, "dtype": torch.bfloat16}
     if kname in ("K1b", "K7", "K1"):
         case = {"K1b": prop_step_bwd_case, "K7": deform_prop_case,
                 "K1": prop_step_case}[kname]
@@ -189,18 +203,21 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K6b":
         args, kw, library = prop_loop_bwd_case(gen, dev, b, h, w, **opts)
         kernel = lambda: prop_loop_bwd(*args, **kw)
-    elif kname == "K4":
-        args, library = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"])
+    elif kname in ("K4", "K4-bf16"):
+        args, library = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"],
+                                                 dtype=opts.get("dtype", torch.float32))
         kernel = lambda: decode_aff_tail_bwd(*args)
-    elif kname == "K5":
-        args, library = dep_encode_front_bwd_case(gen, dev, b, h, w)
+    elif kname in ("K5", "K5-bf16"):
+        args, library = dep_encode_front_bwd_case(gen, dev, b, h, w,
+                                                  dtype=opts.get("dtype", torch.float32))
         kernel = lambda: dep_encode_front_bwd(*args)
     elif kname == "K8":
         args, kw, library = deform_prop_bwd_case(gen, dev, b, h, w, **opts)
         kernel = lambda: deform_prop_bwd(*args, **kw)
-    elif kname in ("K9", "K9b"):
-        case = small_conv3x3_case if kname == "K9" else small_conv3x3_bwd_case
-        fn = small_conv3x3_planar if kname == "K9" else small_conv3x3_bwd
+    elif kname in ("K9", "K9b", "K9-bf16", "K9b-bf16"):
+        fwd = kname.startswith("K9-") or kname == "K9"
+        case = small_conv3x3_case if fwd else small_conv3x3_bwd_case
+        fn = small_conv3x3_planar if fwd else small_conv3x3_bwd
         args, library = case(gen, dev, b, h, w, **opts)
         kernel = lambda: fn(*args)
     elif kname == "K10b":
@@ -216,6 +233,7 @@ def run_case(gen, dev, kname, b, h, w, opts):
     else:
         args, library = dep_encode_front_case(gen, dev, b, h, w, **opts)
         kernel = lambda: dep_encode_front(*args)
+    opts = {k: v for k, v in opts.items() if k != "dtype"}
     row = {"name": kname, "batch": b, "shape": [h, w], **opts,
            "ms": 1e3 * measure(kernel, calls=20, warmup=1),
            "library_ms": 1e3 * measure(library, calls=20, warmup=1)}

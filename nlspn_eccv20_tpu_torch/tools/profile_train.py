@@ -45,10 +45,13 @@ BWD_KERNELS = {"prop_step_bwd_kernel": "K1b prop_step_bwd",
                "deform_bwd_feat_kernel": "K8 deform_prop_bwd (d_feat)",
                "dy1_kernel": "K4 decode_aff_tail_bwd: dy1 pass",
                "dx_kernel": "K4 decode_aff_tail_bwd: dx pass",
+               "dx_mma_kernel": "K4 decode_aff_tail_bwd: dx pass on the tensor cores",
+               "prep_w1_kernel": "K4 decode_aff_tail_bwd: w1 layout",
                "finish_dp0_kernel": "K5 dep_encode_front_bwd: dp0 split sums",
                "dp0_kernel": "K5 dep_encode_front_bwd: dp0 pass",
                "dx0_kernel": "K5 dep_encode_front_bwd: dx0 pass",
                "bwd::wgrad_s2_kernel": "K4/K5 weight gradient (bwd_common)",
+               "bwd::wgrad_s2_mma_kernel": "K4/K5 weight gradient on the tensor cores (bwd_common)",
                "bwd::reduce_chunks_kernel": "K4/K5 partial-sum reduction (bwd_common)",
                "bwd::transpose_kernel": "K4/K5 weight layout (bwd_common)"}
 WARMUP, TIMED, ITERS = 3, 11, 3   # steps: warm-up, CUDA-event timed, profiled

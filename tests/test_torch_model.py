@@ -173,18 +173,22 @@ def test_config_round_trips_and_validates_like_jax():
 
 @pytest.mark.parametrize("kw", [{"precision": "bf16"}])
 def test_unported_options_raise(kw):
-    """What the port still lacks raises: the op library's
-    ``small_conv3x3_planar`` (K9, which no model runs) at ``kw``'s
-    precision. The model itself builds at it (it serves and trains in bf16:
-    ``tests/test_torch_bf16.py``)."""
+    """Nothing of ``kw``'s precision is left unported, so nothing raises:
+    the model builds at it (it serves and trains in bf16:
+    ``tests/test_torch_bf16.py``) and the op library's
+    ``small_conv3x3_planar`` (K9, which no model runs) runs its bf16 form,
+    bf16 out (``tests/test_torch_small_conv3x3_bf16.py`` holds it against
+    the JAX kernel)."""
     from nlspn_eccv20_tpu_torch.ops import small_conv3x3_planar
 
     get_model(Config(**TINY, **kw), device="cpu")
     dt = {"bf16": torch.bfloat16}[kw["precision"]]
-    x = torch.zeros((1, 4, 8, 8), dtype=dt)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        small_conv3x3_planar(x, x, torch.zeros((2, 8, 3, 3), dtype=dt),
-                             torch.zeros(2, dtype=dt))
+    x = torch.ones((1, 4, 8, 8), dtype=dt)
+    out = small_conv3x3_planar(x, x, torch.full((2, 8, 3, 3), 0.25, dtype=dt),
+                               torch.zeros(2, dtype=dt))
+    assert out.dtype == dt and out.shape == (1, 2, 8, 8)
+    # at the centre all 9 taps of the 8 channels see ones: 9 x (8 x 0.25)
+    assert out[0, :, 4, 4].tolist() == [18.0, 18.0]
 
 
 def test_training_forward_reaches_every_parameter():

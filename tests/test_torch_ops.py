@@ -401,7 +401,8 @@ def test_every_source_builds_for_sm_90a_into_build():
                      "gather_probe", "interleave_asm", "interleave_onehot",
                      "interleave_strided", "prop_loop", "prop_loop_bwd",
                      "prop_step", "prop_step_bwd", "small_conv3x3",
-                     "small_conv3x3_bwd", "tile_repeat_probe"]
+                     "small_conv3x3_bf16", "small_conv3x3_bwd",
+                     "small_conv3x3_bwd_bf16", "tile_repeat_probe"]
     cmd = " ".join(build.NVCC_FLAGS)
     assert "-gencode arch=compute_90a,code=sm_90a" in cmd
     assert "-shared" in cmd and "-fPIC" in cmd and "-O3" in cmd
@@ -426,7 +427,9 @@ def test_wrappers_declare_pointers_as_void_p():
                 prop_loop, small_conv3x3, exp_deform_prop_kernel,
                 exp_deform3, exp_deform2, microbench_interleave,
                 microbench_asm):
-        for sigs in (mod._SIGNATURES, getattr(mod, "_BWD_SIGNATURES", {})):
+        for sigs in (mod._SIGNATURES, getattr(mod, "_BWD_SIGNATURES", {}),
+                     getattr(mod, "_BF16_SIGNATURES", {}),
+                     getattr(mod, "_BWD_BF16_SIGNATURES", {})):
             for sig in sigs.values():
                 argtypes = sig[0] if isinstance(sig, tuple) else sig
                 if not isinstance(sig, tuple):          # a kernel launch

@@ -154,13 +154,15 @@ def test_fused_heads_equal_the_three_stage2_convs(offset):
 
 
 def test_bf16_and_bad_shapes_raise():
+    """Bad shapes raise, on f32 and on bf16 activations alike (bf16 itself
+    runs: K9-bf16, tests/test_torch_small_conv3x3_bf16.py)."""
     xa, xb, w, b = _port(*_inputs(7, 1, 4, 5, 3, 2, 4))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        small_conv3x3_planar(xa.bfloat16(), xb.bfloat16(), w.bfloat16(), b.bfloat16())
-    with pytest.raises(ValueError, match="K = 33"):
-        small_conv3x3_planar(xa, xb, torch.zeros(33, 5, 3, 3), torch.zeros(33))
-    with pytest.raises(ValueError):
-        small_conv3x3_planar(xa, xb[:, :, :3], w, b)
+    for dt in (torch.float32, torch.bfloat16):
+        xd, xbd = xa.to(dt), xb.to(dt)
+        with pytest.raises(ValueError, match="K = 33"):
+            small_conv3x3_planar(xd, xbd, torch.zeros(33, 5, 3, 3), torch.zeros(33))
+        with pytest.raises(ValueError):
+            small_conv3x3_planar(xd, xbd[:, :, :3], w, b)
     # equal to the plain version, the Function included
     assert torch.equal(SmallConv3x3Function.apply(xa, xb, w, b),
                        small_conv3x3_plain(xa, xb, w, b))

@@ -1,0 +1,301 @@
+"""K9-bf16 and K9b-bf16, the op library's bf16 forms, held against the JAX
+package's TPU kernels at ``dt = bfloat16``, on the CPU.
+
+The port's bf16 plain versions (``small_conv3x3_plain_bf16``,
+``small_conv3x3_bwd_plain_bf16``) repeat the TPU kernels' rounding: the
+forward rounds each tap's f32 sum over the channels to bf16 before the nine
+taps and the bias are summed (``_fwd_kernel``'s ``y9.astype(dt)``), the
+backward rounds g and the weights and rounds dx once. The JAX side runs
+``_fwd_pallas`` and ``_bwd_pallas`` on bf16 activations in interpret mode;
+its runs are cached per shape, so each runs once a process. A bf16 ulp is
+2^-7 of the largest |JAX| value (the bar for the largest difference); the
+share of outputs that are not bit-equal is held apart. The last tests hold
+the tile and slice plans of the CUDA kernels (``fwd_plan_bf16``,
+``bwd_plan_bf16`` and K4-bf16's ``tail_bwd_plan_bf16``) on the CPU; the
+kernels themselves are held against the plain versions on the card by
+``chip_smoke.py``.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import nlspn_eccv20_tpu.ops.pallas.small_conv3x3 as sc
+from nlspn_eccv20_tpu_torch.ops.kernels import small_conv3x3 as port
+from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
+    tail_bwd_plan_bf16, wgrad_s2_segments, wgrad_s2_slices)
+from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
+    BF16, SmallConv3x3Function, bwd_plan_bf16, fwd_plan_bf16, small_conv3x3_bf16,
+    small_conv3x3_bwd, small_conv3x3_bwd_bf16, small_conv3x3_bwd_plain_bf16,
+    small_conv3x3_plain_bf16, small_conv3x3_planar)
+
+ULP = 2.0 ** -7
+# (B, H, W, Ca, Cb, K): an odd shape; the heads' stage 2 (Ca 192 = three
+# 64-wide heads, Cb 64 = fe1) with K 10 and the offset heads' K 26
+SHAPES = [(1, 7, 13, 24, 8, 5), (2, 10, 13, 192, 64, 10), (1, 9, 11, 192, 64, 26)]
+IDS = ["odd", "heads-k10", "heads-k26"]
+
+
+def _inputs(shape, seed=0):
+    """NHWC bf16-valued activations, an HWIO f32 weight, an f32 bias and an
+    f32 planar cotangent, from numpy."""
+    b, h, w, ca, cb, k = shape
+    rng = np.random.default_rng(seed)
+
+    def bf16(a):
+        return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+
+    return (bf16(rng.standard_normal((b, h, w, ca))), bf16(rng.standard_normal((b, h, w, cb))),
+            (rng.standard_normal((3, 3, ca + cb, k)) * (9 * (ca + cb)) ** -0.5).astype(np.float32),
+            (rng.standard_normal(k) * 0.1).astype(np.float32),
+            rng.standard_normal((b, k, h, w)).astype(np.float32))
+
+
+def _port(xa, xb, w, b, g):
+    """The same arrays in the port's layouts: NCHW bf16 activations, OIHW
+    f32 weight."""
+    def nchw(a):
+        return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2))).to(BF16)
+
+    return (nchw(xa), nchw(xb), torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1))),
+            torch.from_numpy(b), torch.from_numpy(g))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_runs(shape):
+    """(forward, (dxa, dxb, dw, db)) of the TPU kernels in interpret mode at
+    bf16, in the port's layouts, as float32 numpy arrays."""
+    xa, xb, w, b, g = _inputs(shape)
+    old = sc.FORCE_PALLAS_INTERPRET
+    sc.FORCE_PALLAS_INTERPRET = True
+    try:
+        xaj, xbj = jnp.asarray(xa, jnp.bfloat16), jnp.asarray(xb, jnp.bfloat16)
+        out = sc._fwd_pallas(xaj, xbj, jnp.asarray(w), jnp.asarray(b))
+        dxa, dxb, dw, db = sc._bwd_pallas(xaj, xbj, jnp.asarray(w), jnp.asarray(b),
+                                          jnp.asarray(g))
+    finally:
+        sc.FORCE_PALLAS_INTERPRET = old
+    assert out.dtype == jnp.bfloat16 and dxa.dtype == jnp.bfloat16 and dw.dtype == jnp.float32
+
+    def f32(a):
+        return np.asarray(jnp.asarray(a, jnp.float32))
+
+    return f32(out), (f32(dxa).transpose(0, 3, 1, 2), f32(dxb).transpose(0, 3, 1, 2),
+                      f32(dw).transpose(3, 2, 0, 1), f32(db))
+
+
+def _scores(port_t, ref):
+    """(largest |difference| / max |ref|, share of elements not bit-equal)."""
+    p = port_t.detach().float().numpy()
+    assert p.shape == ref.shape, (p.shape, ref.shape)
+    return np.max(np.abs(p - ref)) / np.max(np.abs(ref)), float(np.mean(p != ref))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_forward_matches_pallas_kernel(shape):
+    """Within one bf16 ulp of the TPU kernel and bit-equal on at least 99%
+    of the outputs (measured: bit-equal on all of them at these shapes)."""
+    ref, _ = _jax_runs(shape)
+    xa, xb, w, b, _ = _port(*_inputs(shape))
+    n0 = small_conv3x3_bf16.launches
+    out = small_conv3x3_planar(xa, xb, w, b)
+    assert out.dtype == BF16 and out.shape == ref.shape
+    err, share = _scores(out, ref)
+    assert err <= ULP, f"relative error {err:.3e} > 2^-7"
+    assert share <= 0.01, f"{share:.3e} of the outputs not bit-equal"
+    assert small_conv3x3_bf16.launches == n0   # the CPU runs no kernel
+
+
+@pytest.mark.parametrize("shape", SHAPES[1:], ids=IDS[1:])
+def test_one_rounding_conv_fails_the_bit_share_bar(shape):
+    """A bf16 conv that rounds its whole f32 sum once (what a plain bf16
+    conv, and cuDNN's, computes) is within one ulp but not bit-equal on
+    far more than 1% of the outputs at the heads' widths: the bit-share bar
+    above tells it from the TPU kernel's per-tap rounding."""
+    ref, _ = _jax_runs(shape)
+    xa, xb, w, b, _ = _port(*_inputs(shape))
+    once = F.conv2d(torch.cat([xa, xb], 1).float(), w.to(BF16).float(),
+                    b.to(BF16).float(), padding=1).to(BF16)
+    err, share = _scores(once, ref)
+    assert err <= 2 * ULP
+    assert share > 0.2, f"only {share:.3e} of a one-rounding conv's outputs differ"
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_backward_matches_pallas_kernel(shape):
+    """dx within one bf16 ulp and bit-equal on at least 99.9% of its
+    elements; dW and db within 1e-4 of max |JAX| (f32 sums of exact
+    products in another order)."""
+    _, refs = _jax_runs(shape)
+    xa, xb, w, b, g = _port(*_inputs(shape))
+    outs = small_conv3x3_bwd(g, xa, xb, w)
+    assert [t.dtype for t in outs] == [BF16, BF16, torch.float32, torch.float32]
+    for name, got, ref in zip(("dxa", "dxb"), outs[:2], refs[:2]):
+        err, share = _scores(got, ref)
+        assert err <= ULP, f"{name}: relative error {err:.3e} > 2^-7"
+        assert share <= 1e-3, f"{name}: {share:.3e} not bit-equal"
+    for name, got, ref in zip(("dw", "db"), outs[2:], refs[2:]):
+        err, _ = _scores(got, ref)
+        assert err <= 1e-4, f"{name}: relative error {err:.3e} > 1e-4"
+
+
+@pytest.mark.parametrize("wdtype", [torch.float32, BF16])
+def test_dtype_contract_under_autograd(wdtype):
+    """f32 or bf16 weights in, bf16 out; under autograd (the Function on
+    bf16 CPU tensors) dxa and dxb come back bf16 and dW and db in the
+    leaves' own dtypes, equal to the plain backward's f32 sums cast."""
+    xa, xb, w, b, g = _port(*_inputs(SHAPES[0], seed=3))
+    w, b = w.to(wdtype), b.to(wdtype)
+    leaves = [t.clone().requires_grad_(True) for t in (xa, xb, w, b)]
+    out = small_conv3x3_planar(*leaves)
+    assert out.dtype == BF16
+    assert torch.equal(out, small_conv3x3_plain_bf16(xa, xb, w, b))
+    out.backward(g.to(BF16))
+    want = small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad.dtype == leaf.dtype
+        assert torch.equal(leaf.grad, ref.to(leaf.dtype))
+    # the Function itself, and the K9b-bf16 entry point, on CPU tensors
+    assert torch.equal(SmallConv3x3Function.apply(xa, xb, w, b), out.detach())
+    for got, ref in zip(small_conv3x3_bwd_bf16(g, xa, xb, w), want):
+        assert torch.equal(got, ref)
+
+
+def test_f32_xb_is_cast_and_bad_shapes_raise():
+    """xb is cast to xa's dtype, as JAX casts it; shapes are checked as in
+    f32."""
+    xa, xb, w, b, _ = _port(*_inputs(SHAPES[0], seed=5))
+    assert torch.equal(small_conv3x3_planar(xa, xb.float(), w, b),
+                       small_conv3x3_planar(xa, xb, w, b))
+    with pytest.raises(ValueError, match="K = 33"):
+        small_conv3x3_planar(xa, xb, torch.zeros(33, xa.shape[1] + xb.shape[1], 3, 3),
+                             torch.zeros(33))
+    with pytest.raises(ValueError):
+        small_conv3x3_planar(xa, xb[:, :, :3], w, b)
+
+
+# ---- the CUDA kernels' plans, on the CPU ----
+
+PLAN_SHAPES = [(12, 228, 304), (1, 256, 320), (4, 256, 320), (2, 57, 75), (1, 9, 11)]
+
+
+@pytest.mark.parametrize("k", [1, 10, 26, 32])
+@pytest.mark.parametrize("bhw", PLAN_SHAPES)
+def test_forward_plan_covers_and_fits(bhw, k):
+    """K9-bf16: its tiles cover every pixel once; a tile's staged rows
+    (16-byte pieces where W % 8 == 0, else columns x0 - 1 .. x0 + 32) hold
+    every column its nine taps read; the staged plane keeps a warp's four
+    planes in distinct banks; three stages fit its blocks on an SM; the
+    nine accumulators fit the registers."""
+    b, h, w = bhw
+    p = fwd_plan_bf16(b, h, w, 192, 64, k)
+    gx, gy, gz = p["grid"]
+    th, tw = p["tile"]
+    assert gz == b and (gx - 1) * tw < w <= gx * tw and (gy - 1) * th < h <= gy * th
+    assert p["n"] >= k and p["n"] % 8 == 0 and p["chunks"] * port.BF_CH >= 256
+    # staged index i holds image column x0 - 8 + i; the taps read x0 - 1 .. x0 + 32
+    read = set(range(7, 7 + tw + 2))
+    staged = set(range(port.BF_RP)) if p["vec"] else set(range(7, 7 + tw + 2))
+    assert read <= staged and max(staged) < port.BF_RP
+    assert (th + 2) * port.BF_RP <= port.BF_PS and port.BF_PS % 32 == 8
+    assert p["smem"] * p["min_blocks"] + 1024 * p["min_blocks"] <= port.CARD_SMEM
+    assert p["accumulators"] + 8 + 24 <= p["regs"]
+
+
+def _reduce_order(parts):
+    """bwd::reduce_partials' order, in float32 (up to 64 slices, then
+    chunks of 64 in the same order)."""
+    if parts.shape[0] <= port.RED_CHUNK:
+        return port._reduce_partials(parts)
+    chunks = [port._reduce_partials(parts[i:i + port.RED_CHUNK])
+              for i in range(0, parts.shape[0], port.RED_CHUNK)]
+    return _reduce_order(torch.stack(chunks))
+
+
+@pytest.mark.parametrize("k", [1, 10, 26, 32])
+@pytest.mark.parametrize("bhw", PLAN_SHAPES)
+def test_backward_plan_covers_and_fits(bhw, k):
+    """K9b-bf16: the dx blocks' tile walks (j, j + blocks, ...) cover every
+    tile once; the dW slices partition the tiles in order; the 9K rows and
+    channels are covered by the block chunks; shared memory fits two
+    blocks an SM for dW and ``dx_per_sm`` for dx."""
+    b, h, w = bhw
+    p = bwd_plan_bf16(b, h, w, 192, 64, k)
+    assert p["ksteps"] * 16 >= 9 * k > (p["ksteps"] - 1) * 16
+    walks = [t for j in range(p["dx_blocks"]) for t in range(j, p["dx_tiles"], p["dx_blocks"])]
+    assert sorted(walks) == list(range(p["dx_tiles"]))
+    n, s = p["wg_tiles"], p["slices"]
+    bounds = [(n * i // s, n * (i + 1) // s) for i in range(s)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == n and all(
+        a[1] == c[0] and a[0] < a[1] for a, c in zip(bounds, bounds[1:] + [(n, n + 1)]))
+    assert p["mchunks"] * port.WG_MR >= 9 * k and p["cchunks"] * port.WG_NC >= 256
+    assert p["dx_per_sm"] * (p["dx_smem"] + 1024) <= port.CARD_SMEM
+    assert 2 * (p["wg_smem"] + 1024) <= port.CARD_SMEM
+    assert p["dx_nc"] // 2 + 8 + 40 <= 255 and 2 * port.WG_NC // 2 + 8 + 40 <= p["regs"]
+
+
+def test_backward_slice_order_matches_plain():
+    """K9b-bf16's dW and db summed in the kernel's split-K order (each 4x16
+    tile's products, exact, summed apart and added to its slice, the
+    slices added in ``bwd::reduce_partials``' order) stay within 1e-5 of
+    the plain version's f32 sums: the order moves nothing past f32."""
+    shape = (2, 9, 35, 24, 8, 10)
+    xa, xb, w, _, g = _port(*_inputs(shape, seed=11))
+    b, c, h, wd, k = 2, 32, 9, 35, 10
+    p = bwd_plan_bf16(b, h, wd, 24, 8, k, sms=4)
+    th, tw = port.BF_WG_TILE
+    hp, wp = -(-h // th) * th, -(-wd // tw) * tw
+    x = F.pad(torch.cat([xa, xb], 1).float(), (1, 1 + wp - wd, 1, 1 + hp - h)).double()
+    gr = F.pad(g.to(BF16).float(), (0, wp - wd, 0, hp - h)).double()
+    tiles = [(bi, y0, x0) for bi in range(b) for y0 in range(0, hp, th)
+             for x0 in range(0, wp, tw)]
+    assert len(tiles) == p["wg_tiles"]
+    n, s = len(tiles), p["slices"]
+    parts = []
+    for i in range(s):
+        dw, db = torch.zeros(k, c, 3, 3), torch.zeros(k)
+        for bi, y0, x0 in tiles[n * i // s:n * (i + 1) // s]:
+            gt = gr[bi, :, y0:y0 + th, x0:x0 + tw]
+            t = torch.stack([torch.einsum("khw,chw->kc", gt,
+                                          x[bi, :, y0 + ty:y0 + ty + th, x0 + tx:x0 + tx + tw])
+                             for ty in range(3) for tx in range(3)], -1)
+            dw = dw + t.reshape(k, c, 3, 3).float()
+            db = db + gt.sum((1, 2)).float()
+        parts.append(torch.cat([dw.reshape(-1), db]))
+    total = _reduce_order(torch.stack(parts))
+    want = small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
+    n_w = k * c * 9
+    for got, ref in ((total[:n_w].view(k, c, 3, 3), want[2]), (total[n_w:], want[3])):
+        assert ((got - ref).abs().max() / ref.abs().max()).item() <= 1e-5
+
+
+@pytest.mark.parametrize("b,hg,wg,c", [(12, 58, 76, 256), (1, 58, 76, 256), (1, 57, 75, 256),
+                                       (1, 58, 76, 30), (1, 60, 304, 256), (2, 3, 5, 30)])
+def test_k4_bf16_plan_covers_and_fits(b, hg, wg, c):
+    """K4-bf16's tensor-core passes: the dx blocks' walks cover every 4x16
+    tile of the base grid once and the 128-channel groups cover C; the dW1
+    slices' segments partition the b hg wg pixels in order, each inside one
+    row, at most 32 pixels (two k-steps of 16); two blocks of either pass
+    fit an SM (the dW1 pass for K4-bf16's bf16 x and K5-bf16's f32 gm)."""
+    p = tail_bwd_plan_bf16(b, hg, wg, c)
+    rows, cols = p["dx_grid_tiles"]
+    assert (rows - 1) * 4 < hg <= rows * 4 and (cols - 1) * 16 < wg <= cols * 16
+    walks = [t for j in range(p["dx_blocks"]) for t in range(j, p["dx_tiles"], p["dx_blocks"])]
+    assert sorted(walks) == list(range(p["dx_tiles"])) == list(range(b * rows * cols))
+    assert p["dx_groups"] * 128 >= c > (p["dx_groups"] - 1) * 128
+    s = p["slices"]
+    assert s == wgrad_s2_slices(b * hg * wg, c)
+    flat = []
+    for i in range(s):
+        segs = wgrad_s2_segments(b, hg, wg, s, i)
+        assert segs, "an empty slice"
+        for bi, y, x0, ln in segs:
+            assert 1 <= ln <= 32 and x0 + ln <= wg
+            flat.extend((bi * hg + y) * wg + x for x in range(x0, x0 + ln))
+    assert flat == list(range(b * hg * wg))
+    for smem in (p["dx_smem"], p["wg_smem"], p["wg_smem_f32"]):
+        assert 2 * (smem + 1024) <= port.CARD_SMEM
