@@ -171,11 +171,16 @@ Phases (any failure exits non-zero and prints no result):
      K3-bf16 (dep_encode_front_bf16) against their bf16 plain versions at
      the serving shapes (B=1 and B=4 of 256x320), at KITTI's B=1 (K2's
      60x304 base grid, K3's 240x1216 plane), K2 also at B=2 and B=12 and
-     on the odd 57x75 grid, with K=24 and with C = 40 and 30 (every cluster
-     size the wrapper picks, 8, 4, 2 and 1, runs in bf16), K3 with C1 = 96
+     on the odd 57x75 grid, with K=24, with C = 40 and 30 and on 29x38 and
+     40x64 grids (every cluster size its source's plan picks, 8, 4, 2 and 1, runs;
+     the plan that dec_aff_tail_bf16_plan reports held equal to
+     tail_plan_bf16, the mirror the CPU tests check), K3 with C1 = 96
      and on a 230x306 plane; each shape twice for equal bits, within one
-     bf16 ulp of the largest plain output (2^-7 of it), the share of
-     elements not bit-equal printed, timed beside its plain version,
+     bf16 ulp of the largest plain output (2^-7 of it), K2's output and
+     its training form's y1 (decode_aff_tail_fwd_y1) each at most 1e-2 not
+     bit-equal (a rounding per shift, or of a partial sum, puts far more
+     off), K3's share of elements not bit-equal printed, timed beside its
+     plain version,
      cuDNN's two bf16 convs (the library time) and its bound (2-byte
      inputs; bf16 operations at the tensor cores' peak); then the three
      configurations served through a Predictor in bf16 at full width (4
@@ -193,7 +198,9 @@ Phases (any failure exits non-zero and prints no result):
      (dep_encode_front_bwd_bf16) against their bf16 plain versions at the
      train step's B=12 and at B=1 of 228x304, K4 also with K=24 on an odd
      57x75 grid and with C=30, K5 with C1 = 96 and 30 and on a 230x306
-     plane at B=2; each shape twice for equal bits, every output within
+     plane at B=2 (K5-bf16's dP0 plan, dep_encode_front_bwd_bf16_plan,
+     held equal to its mirror front_bwd_plan_bf16 at each shape); each
+     shape twice for equal bits, every output within
      one bf16 ulp of its largest plain value (2^-7 of it), timed beside
      its plain version, cuDNN's bf16 backward of the same two convs (the
      library time) and its bound; then 5 bf16 train steps of each
@@ -313,7 +320,7 @@ def main() -> int:
         decode_aff_tail_bwd_bf16, decode_aff_tail_bwd_case, decode_aff_tail_bwd_plain,
         decode_aff_tail_bwd_plain_bf16, decode_aff_tail_case, decode_aff_tail_fwd_y1,
         decode_aff_tail_plain, decode_aff_tail_plain_bf16, decode_aff_tail_plain_bf16_y1,
-        decode_aff_tail_plain_y1, tail_plan)
+        decode_aff_tail_plain_y1, tail_plan, tail_plan_bf16, tail_plan_bf16_card)
     from nlspn_eccv20_tpu_torch.ops.kernels.deform_prop import (
         deform_prop, deform_prop_bwd, deform_prop_bwd_case, deform_prop_bwd_plain,
         deform_prop_case, deform_prop_fwd_plain, deform_prop_plain, sampling_grid)
@@ -322,7 +329,7 @@ def main() -> int:
         dep_encode_front, dep_encode_front_bf16, dep_encode_front_bwd,
         dep_encode_front_bwd_bf16, dep_encode_front_bwd_case, dep_encode_front_bwd_plain,
         dep_encode_front_bwd_plain_bf16, dep_encode_front_case, dep_encode_front_plain,
-        dep_encode_front_plain_bf16)
+        dep_encode_front_plain_bf16, front_bwd_plan_bf16, front_bwd_plan_bf16_card)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
         prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_case, prop_loop_plain)
@@ -1990,12 +1997,13 @@ def main() -> int:
     t_bf16 = time.perf_counter()
     k2_bf16_splits = set()
 
-    def check_bf16(kname, b, shape, kernel, plain, library, args, out_of, flops):
+    def check_bf16(kname, b, shape, kernel, plain, library, args, out_of, flops,
+                   share_bar=None):
         """A bf16 kernel against its plain version on ``args``: equal bits in
         two runs, within one bf16 ulp of the largest plain output, the share
-        of elements not bit-equal; timed beside its plain version, the
-        library call and its bound (bytes as the tensors lie, bf16
-        operations)."""
+        of elements not bit-equal (at most ``share_bar`` where given); timed
+        beside its plain version, the library call and its bound (bytes as
+        the tensors lie, bf16 operations)."""
         out, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         tag = f"{kname} B={b}{shape}"
@@ -2004,15 +2012,25 @@ def main() -> int:
         err, rel = rel_err(out_of(out), out_of(ref))
         share = (out_of(out) != out_of(ref)).float().mean().item()
         log(f"[bf16] {tag}: equal bits in two runs; {share:.3e} of the elements not "
-            f"bit-equal to the plain version")
+            f"bit-equal to the plain version"
+            + ("" if share_bar is None else f" (bar {share_bar:.0e})"))
+        if share_bar is not None and not share <= share_bar:
+            raise AssertionError(f"{tag}: {share:.3e} of the elements not bit-equal")
         record(kname, b, err, rel, ulp, time_ms(lambda: kernel(*args)),
                time_ms(lambda: plain(*args)), time_ms(library),
                bound(nbytes(*args, out), flops, "bf16_tflops"), shape=shape)
 
     def check_k2_bf16(b, hg, wg, k=8, c=256):
+        """K2-bf16's output, then its training form's (out, y1), each at
+        most 1e-2 not bit-equal; its plan as the source reports it."""
         (x, w1, b1, w2, b2), _ = decode_aff_tail_case(gen, dev, b, hg, wg, k, c)
         args = (x.to(bf16), w1, b1, w2, b2)
-        k2_bf16_splits.add(tail_plan(b, hg, wg, c, sms)[2])
+        plan = tail_plan_bf16(b, hg, wg, c, k, sms)
+        if tail_plan_bf16_card(b, hg, wg, c, k, sms) != plan:
+            raise AssertionError(f"decode_aff_tail_bf16 {b} {hg}x{wg} K={k} C={c}: the "
+                                 f"source's plan {tail_plan_bf16_card(b, hg, wg, c, k, sms)}"
+                                 f", its mirror's {plan}")
+        k2_bf16_splits.add(plan["split"])
         xn, w1b, b1b, w2b, b2b = (x.permute(0, 3, 1, 2).to(bf16).contiguous(),
                                   w1.to(bf16), b1.to(bf16), w2.to(bf16), b2.to(bf16))
 
@@ -2024,7 +2042,18 @@ def main() -> int:
         flops = 2 * b * (taps_t2(hg) * taps_t2(wg) * c * 16
                          + taps_t2(2 * hg) * taps_t2(2 * wg) * 16 * k)
         check_bf16("decode_aff_tail_bf16", b, shape, decode_aff_tail_bf16,
-                   decode_aff_tail_plain_bf16, library, args, lambda t: t, flops)
+                   decode_aff_tail_plain_bf16, library, args, lambda t: t, flops,
+                   share_bar=1e-2)
+        for i, part in enumerate(("out", "y1")):   # the training form
+            got = decode_aff_tail_fwd_y1(*args)[i]
+            want = decode_aff_tail_plain_bf16_y1(*args)[i]
+            share = (got != want).float().mean().item()
+            err = rel_err(got, want)[1]
+            log(f"[bf16] decode_aff_tail_bf16 B={b}{shape} with y1: its {part} within "
+                f"{err:.3e} of max |plain| (bar 2^-7), {share:.3e} not bit-equal (bar 1e-2)")
+            if not (share <= 1e-2 and err <= ulp):
+                raise AssertionError(f"decode_aff_tail_bf16 B={b}{shape}: {part} of the "
+                                     f"training form {err:.3e}, {share:.3e} not bit-equal")
 
     def check_k3_bf16(b, h, w, c=256):
         (plane, w0, b0, w1, b1), _ = dep_encode_front_case(gen, dev, b, h, w, c)
@@ -2151,9 +2180,11 @@ def main() -> int:
         check_k2_bf16(1, 57, 75)
         check_k2_bf16(1, H // 4, W // 4, c=40)
         check_k2_bf16(1, 58, 76, c=30)
+        check_k2_bf16(1, 29, 38)
+        check_k2_bf16(1, 40, 64)
         if k2_bf16_splits != set(SPLITS):
             raise AssertionError(f"decode_aff_tail_bf16: cluster sizes "
-                                 f"{sorted(k2_bf16_splits)} checked, the wrapper picks {SPLITS}")
+                                 f"{sorted(k2_bf16_splits)} checked, its plan picks {SPLITS}")
         check_k3_bf16(1, REQ_H, REQ_W, c=96)
         check_k3_bf16(1, 230, 306)
         log(f"[bf16] kernels: {time.perf_counter() - t_bf16:.1f} s")
@@ -2223,6 +2254,11 @@ def main() -> int:
                        decode_aff_tail_bwd_plain_bf16, library, args, flops)
 
     def check_k5_bf16(b, h, w, c=256):
+        plan = front_bwd_plan_bf16(b, h, w, c)
+        if front_bwd_plan_bf16_card(b, h, w, c) != plan:
+            raise AssertionError(f"dep_encode_front_bwd_bf16 {b} {h}x{w} C1={c}: the "
+                                 f"source's plan {front_bwd_plan_bf16_card(b, h, w, c)}, "
+                                 f"its mirror's {plan}")
         args, library = dep_encode_front_bwd_case(gen, dev, b, h, w, c, dtype=bf16)
         flops = 2 * b * (3 * taps_s2(h) * taps_s2(w) * 16
                          + 2 * taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c)
@@ -2475,7 +2511,7 @@ def main() -> int:
                             "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:284"),
         "dep_encode_front": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front.cu",
                              "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),
-        "decode_aff_tail_bf16": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail.cu",
+        "decode_aff_tail_bf16": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail_bf16.cu",
                                  "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:284"),
         "dep_encode_front_bf16": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front.cu",
                                   "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),

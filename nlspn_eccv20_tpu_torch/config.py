@@ -9,8 +9,13 @@ line parses to the same fields in both.
 ``platform`` is read by ``main`` only: ``None`` or ``'gpu'`` runs on the
 CUDA card, ``'cpu'`` on the CPU with every kernel's plain version; any
 other value raises. Fields that only steer the JAX package's backends
-(``prop_loop``, ``fused_kernels``, ``compile_cache*``, the shard counts)
-are kept for the round trip and are not read by the port. ``prop_impl`` is
+(``prop_loop``, ``fused_kernels``, ``compile_cache*``, ``num_data_shards``)
+are kept for the round trip and are not read by the port. Width sharding
+is not ported: ``train.Engine`` and ``main`` refuse a
+``num_spatial_shards`` that does not divide the one device the port runs
+on, that is any count above 1, with the JAX ``make_mesh``'s ``ValueError``
+("1 devices not divisible by num_spatial_shards=2");
+``num_data_shards`` is accepted as the JAX mesh accepts it on one device. ``prop_impl`` is
 read for one route only: ``'pallas'`` with ``use_GRU=False`` runs the whole
 propagation loop as one ``prop_loop`` kernel, as it takes the JAX package
 to its whole-loop kernel; ``'auto'`` and ``'xla'`` keep a ``prop_step``

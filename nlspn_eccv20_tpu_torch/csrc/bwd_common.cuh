@@ -12,10 +12,8 @@
 // bits from run to run, as on the TPU. No atomics.
 //
 // bf16 (the kernels' bf16 forms, precision='bf16'): the weight gradient
-// runs on the bf16 tensor cores (wgrad_s2_mma_kernel): A and P (both bf16,
-// or both f32 holding bf16 values) are bf16 operands, their products
-// exact, their sums f32. The transpose can round the
-// weights to bf16 as it lays them out.
+// runs on the bf16 tensor cores (wgrad_s2_mma_kernel): A and P are bf16
+// buffers, their products exact, their sums f32.
 
 #pragma once
 
@@ -240,10 +238,8 @@ wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
 // The bf16 forms (K4-bf16 and K5-bf16) take this pass: the same slices,
 // segments and partials as wgrad_s2_kernel, the products on bf16 wgmma
 // (wgmma_bf16.cuh) instead of the FP32 cores. Their operands are bf16
-// values already, so the products are exact and only the order of the f32
-// sums differs: K4-bf16's x and dY1 are bf16 buffers (T = __nv_bfloat16),
-// K5-bf16's gm and p0 f32 buffers holding bf16 values (T = float; its
-// passes that write them are f32 code, outside this pass).
+// buffers (K4-bf16's x and dY1, K5-bf16's gm and p0), so the products are
+// exact and only the order of the f32 sums differs.
 //
 //   D (C x 144) += A^T (C x pixels) . Pcol (pixels x 144),  column m 9 + tap
 //
@@ -251,13 +247,12 @@ wgrad_s2_kernel(const float* __restrict__ A, const float* __restrict__ P,
 // channels, a warpgroup 64 of them (M = 64), a warp 16; N = 144, all of a
 // channel's (m, tap); the reduction runs over the segment's pixels in
 // k-steps of 16. Per segment, after its copies have landed: A's rows as
-// bf16 (staged raw by 16-byte cp.async copies for bf16; f32 is staged as
-// it is and rounded, exactly, into one bf16 tile), its rows past the
-// segment zeroed; Pcol built from the staged P rows as bf16 K-major core
-// matrices (the stride-2 im2col: column (m, tap) of pixel px is
-// P[m][ty][2 px + tx] of the staged rows, zero past the segment). bf16 P
-// rows are staged from the even column 2 j - 2 as 4-byte words (2 SEG + 2
-// values), which needs an even Wp (K4's W1 = 2 Wg). A's
+// bf16 (staged raw by 16-byte cp.async copies), its rows past the segment
+// zeroed; Pcol built from the staged P rows as bf16 K-major core matrices
+// (the stride-2 im2col: column (m, tap) of pixel px is P[m][ty][2 px + tx]
+// of the staged rows, zero past the segment). P rows are staged from the
+// even column 2 j - 2 as 4-byte words (2 SEG + 2 values), which needs an
+// even Wp (K4's W1 = 2 Wg; K5-bf16 pads p0's rows to an even width). A's
 // fragments come from the pixel-major tile by ldmatrix.trans (A is the
 // transposed operand); a segment is always two k-steps (the second of a
 // short one sums zeros), one commit group, summed in the tensor core
@@ -270,33 +265,18 @@ constexpr int WGM_ATILE = SEG * A_PITCH_H * 2;   // bytes of a bf16 A tile
 constexpr int P_COLS_H = 2 * SEG + 2;         // bf16 P: a staged row from col 2 j - 2
 constexpr int P_M_H = 3 * P_COLS_H;           // 198 bf16 an m
 
-template <typename T>
-__host__ __device__ constexpr int wgm_a_bytes() {
-  return std::is_same_v<T, float> ? SEG * A_PITCH * 4 : WGM_ATILE;
-}
-template <typename T>
-__host__ __device__ constexpr int wgm_p_bytes() {
-  return std::is_same_v<T, float> ? M * P_M * 4 : M * P_M_H * 2;
-}
-template <typename T>
-__host__ __device__ constexpr int wgm_buf() { return wgm_a_bytes<T>() + wgm_p_bytes<T>(); }
-template <typename T>
-__host__ __device__ constexpr int wgm_smem() {
-  return 2 * wgm_buf<T>() + (std::is_same_v<T, float> ? WGM_ATILE : 0) + 2 * WGM_STEP;
-}
-static_assert(wgm_buf<float>() % 16 == 0 && wgm_buf<__nv_bfloat16>() % 16 == 0 &&
-              WGM_ATILE % 16 == 0, "16-byte aligned regions");
+constexpr int WGM_A_BYTES = WGM_ATILE;                 // a buffer's A rows
+constexpr int WGM_BUF = WGM_A_BYTES + M * P_M_H * 2;    // and its P rows
+constexpr int WGM_SMEM = 2 * WGM_BUF + 2 * WGM_STEP;
+static_assert(WGM_BUF % 16 == 0 && WGM_ATILE % 16 == 0, "16-byte aligned regions");
 
-template <typename T>
 __global__ void __launch_bounds__(WG_NT, 2)
-wgrad_s2_mma_kernel(const T* __restrict__ A, const T* __restrict__ P,
+wgrad_s2_mma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ P,
                     float* __restrict__ part, int B, int Ha, int Wa, int C,
                     int Hp, int Wp, int S) {
-  constexpr bool F32 = std::is_same_v<T, float>;
-  constexpr int BUF = wgm_buf<T>(), A_BYTES = wgm_a_bytes<T>();
+  constexpr int BUF = WGM_BUF, A_BYTES = WGM_A_BYTES;
   extern __shared__ __align__(128) unsigned char smb[];
-  unsigned short* at = reinterpret_cast<unsigned short*>(smb + 2 * BUF);  // f32 A, rounded
-  unsigned short* bt = reinterpret_cast<unsigned short*>(smb + 2 * BUF + (F32 ? WGM_ATILE : 0));
+  unsigned short* bt = reinterpret_cast<unsigned short*>(smb + 2 * BUF);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int c0 = blockIdx.x * WG_C;
@@ -307,61 +287,35 @@ wgrad_s2_mma_kernel(const T* __restrict__ A, const T* __restrict__ P,
   // the segment being staged: image b, row i, first column j
   const long long row0 = beg / Wa;
   int j = (int)(beg - row0 * Wa), i = (int)(row0 % Ha), b = (int)(row0 / Ha);
-  const bool vec = (C & (F32 ? 3 : 7)) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
+  const bool vec = (C & 7) == 0 && (reinterpret_cast<size_t>(A) & 15) == 0;
 
   // issues the copies of the segment (b, i, j, len) into buffer buf
   auto stage = [&](int buf, int len) {
     unsigned char* base = smb + buf * BUF;
-    const T* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
-    if constexpr (F32) {
-      float* as = reinterpret_cast<float*>(base);
-      if (vec) {
-        for (int e = tid; e < len * (WG_C / 4); e += WG_NT) {
-          const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
-          const bool ok = c0 + cc < C;
-          cpa::copy16(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
-        }
-      } else {
-        for (int e = tid; e < len * WG_C; e += WG_NT) {
-          const int px = e / WG_C, cc = e % WG_C;
-          const bool ok = c0 + cc < C;
-          cpa::copy4(as + px * A_PITCH + cc, ok ? asrc + px * C + cc : A, ok);
-        }
+    const __nv_bfloat16* asrc = A + (((long long)b * Ha + i) * Wa + j) * C + c0;
+    __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(base);
+    if (vec) {
+      for (int e = tid; e < len * (WG_C / 8); e += WG_NT) {
+        const int px = e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
+        const bool ok = c0 + cc < C;
+        cpa::copy16(ah + px * A_PITCH_H + cc, ok ? asrc + px * C + cc : A, ok);
       }
-    } else {
-      __nv_bfloat16* ah = reinterpret_cast<__nv_bfloat16*>(base);
-      if (vec) {
-        for (int e = tid; e < len * (WG_C / 8); e += WG_NT) {
-          const int px = e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
-          const bool ok = c0 + cc < C;
-          cpa::copy16(ah + px * A_PITCH_H + cc, ok ? asrc + px * C + cc : A, ok);
-        }
-      } else {  // plain loads: the buffer is not read before the next barrier
-        for (int e = tid; e < len * WG_C; e += WG_NT) {
-          const int px = e / WG_C, cc = e % WG_C;
-          ah[px * A_PITCH_H + cc] = c0 + cc < C ? asrc[px * C + cc] : __float2bfloat16_rn(0.0f);
-        }
+    } else {  // plain loads: the buffer is not read before the next barrier
+      for (int e = tid; e < len * WG_C; e += WG_NT) {
+        const int px = e / WG_C, cc = e % WG_C;
+        ah[px * A_PITCH_H + cc] = c0 + cc < C ? asrc[px * C + cc] : __float2bfloat16_rn(0.0f);
       }
     }
-    const T* pb = P + (long long)b * M * Hp * Wp;
+    const __nv_bfloat16* pb = P + (long long)b * M * Hp * Wp;
     const int y0 = 2 * i - 1;
-    if constexpr (F32) {
-      float* ps = reinterpret_cast<float*>(base + A_BYTES);
-      for (int e = tid; e < M * P_M; e += WG_NT) {
-        const int q = e % P_COLS, r = (e / P_COLS) % 3, m = e / P_M;
-        const int y = y0 + r, x = 2 * j - 1 + q;
-        const bool ok = y >= 0 && y < Hp && x >= 0 && x < Wp;
-        cpa::copy4(ps + e, ok ? pb + (m * Hp + y) * Wp + x : P, ok);
-      }
-    } else {  // words of two columns from 2 j - 2: Wp even, so a word is in or out
-      __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(base + A_BYTES);
-      for (int e = tid; e < M * P_M_H / 2; e += WG_NT) {
-        const int q = 2 * (e % (P_COLS_H / 2)), r = (e / (P_COLS_H / 2)) % 3;
-        const int m = e / (P_M_H / 2);
-        const int y = y0 + r, x = 2 * j - 2 + q;
-        const bool ok = y >= 0 && y < Hp && x >= 0 && x < Wp;
-        cpa::copy4(ps + 2 * e, ok ? pb + (m * Hp + y) * Wp + x : P, ok);
-      }
+    // words of two columns from 2 j - 2: Wp even, so a word is in or out
+    __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(base + A_BYTES);
+    for (int e = tid; e < M * P_M_H / 2; e += WG_NT) {
+      const int q = 2 * (e % (P_COLS_H / 2)), r = (e / (P_COLS_H / 2)) % 3;
+      const int m = e / (P_M_H / 2);
+      const int y = y0 + r, x = 2 * j - 2 + q;
+      const bool ok = y >= 0 && y < Hp && x >= 0 && x < Wp;
+      cpa::copy4(ps + 2 * e, ok ? pb + (m * Hp + y) * Wp + x : P, ok);
     }
   };
   auto seg_len = [&]() { return min(min(SEG, Wa - j), left); };
@@ -403,25 +357,12 @@ wgrad_s2_mma_kernel(const T* __restrict__ A, const T* __restrict__ P,
     cpa::wait<1>();
     __syncthreads();
     unsigned char* base = smb + buf * BUF;
-    unsigned short* ah = F32 ? at : reinterpret_cast<unsigned short*>(base);
-    if constexpr (F32) {   // A as bf16: exact, its values are bf16 already
-      const float* as = reinterpret_cast<const float*>(base);
+    unsigned short* ah = reinterpret_cast<unsigned short*>(base);
+    // rows past the segment: zeros, not stale or unset words
 #pragma unroll 1
-      for (int e = tid; e < SEG * (WG_C / 4); e += WG_NT) {
-        const int px = e / (WG_C / 4), cc = 4 * (e % (WG_C / 4));
-        uint2 v = make_uint2(0u, 0u);
-        if (px < len) {
-          const float4 f = *reinterpret_cast<const float4*>(as + px * A_PITCH + cc);
-          v = make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
-        }
-        *reinterpret_cast<uint2*>(ah + px * A_PITCH_H + cc) = v;
-      }
-    } else {   // rows past the segment: zeros, not stale or unset words
-#pragma unroll 1
-      for (int e = tid; e < (SEG - len) * (WG_C / 8); e += WG_NT) {
-        const int px = len + e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
-        *reinterpret_cast<uint4*>(ah + px * A_PITCH_H + cc) = make_uint4(0u, 0u, 0u, 0u);
-      }
+    for (int e = tid; e < (SEG - len) * (WG_C / 8); e += WG_NT) {
+      const int px = len + e / (WG_C / 8), cc = 8 * (e % (WG_C / 8));
+      *reinterpret_cast<uint4*>(ah + px * A_PITCH_H + cc) = make_uint4(0u, 0u, 0u, 0u);
     }
     // Pcol: column n = m 9 + tap of pixel px at q 4608 + (n / 8) 256 + (kk / 8)
     // 128 + (n % 8) 16 + (kk % 8) 2 bytes (px = 16 q + kk), pixels in pairs
@@ -429,16 +370,10 @@ wgrad_s2_mma_kernel(const T* __restrict__ A, const T* __restrict__ P,
     for (int e = tid; e < WGM_N * SEG / 2; e += WG_NT) {
       const int n = e / (SEG / 2), px = 2 * (e - n * (SEG / 2));
       const int m = n / 9, tap = n - 9 * m;
-      uint32_t word;
-      if constexpr (F32) {
-        const float* src = reinterpret_cast<const float*>(base + A_BYTES) + m * P_M +
-                           (tap / 3) * P_COLS + 2 * px + tap % 3;
-        word = pack_bf16(px < len ? src[0] : 0.0f, px + 1 < len ? src[2] : 0.0f);
-      } else {  // staged col 2 j - 2 + 1 is the f32 form's col 0
-        const unsigned short* src = reinterpret_cast<const unsigned short*>(base + A_BYTES) +
-                                    m * P_M_H + (tap / 3) * P_COLS_H + 1 + 2 * px + tap % 3;
-        word = pack_raw(px < len ? src[0] : 0, px + 1 < len ? src[2] : 0);
-      }
+      // staged col 1 is image col 2 j - 1, tap 0's column of pixel 0
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(base + A_BYTES) +
+                                  m * P_M_H + (tap / 3) * P_COLS_H + 1 + 2 * px + tap % 3;
+      const uint32_t word = pack_raw(px < len ? src[0] : 0, px + 1 < len ? src[2] : 0);
       const int q = px >> 4, kk = px & 15;
       *reinterpret_cast<uint32_t*>(reinterpret_cast<unsigned char*>(bt) + q * WGM_STEP +
                                    (n >> 3) * 256 + (kk >> 3) * 128 + (n & 7) * 16 +
@@ -488,31 +423,29 @@ inline long long wgrad_s2_partial_floats(long long n_pixels, int C) {
   return (long long)wgrad_s2_slices(n_pixels, C) * C * M * 9;
 }
 
-// A (B, Ha, Wa, C) and P (B, M, Hp, Wp), both f32 or both bf16 (then Wp
-// even): part gets wgrad_s2_slices partials of dW, on the bf16 tensor
-// cores for bf16 or where mma (the bf16 forms: f32 A and P hold bf16
-// values), else on the FP32 cores. Returns the first launch error, if any.
-template <typename T>
-inline cudaError_t wgrad_s2(const T* A, const T* P, float* part, int B,
-                            int Ha, int Wa, int C, int Hp, int Wp,
-                            cudaStream_t stream, bool mma = false) {
+// A (B, Ha, Wa, C) and P (B, M, Hp, Wp), both f32 (on the FP32 cores) or
+// both bf16 (on the bf16 tensor cores; Wp even): part gets wgrad_s2_slices
+// partials of dW. Returns the first launch error, if any.
+inline cudaError_t wgrad_s2(const float* A, const float* P, float* part, int B, int Ha,
+                            int Wa, int C, int Hp, int Wp, cudaStream_t stream) {
   const int S = wgrad_s2_slices((long long)B * Ha * Wa, C);
-  const dim3 grid((C + WG_C - 1) / WG_C, S);
-  cudaError_t err;
-  if constexpr (std::is_same_v<T, float>) {
-    if (!mma) {
-      err = cudaFuncSetAttribute(wgrad_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 WG_SMEM);
-      if (err != cudaSuccess) return err;
-      wgrad_s2_kernel<<<grid, WG_NT, WG_SMEM, stream>>>(A, P, part, B, Ha, Wa, C, Hp, Wp, S);
-      return cudaGetLastError();
-    }
-  }
-  err = cudaFuncSetAttribute(wgrad_s2_mma_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, wgm_smem<T>());
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad_s2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM);
   if (err != cudaSuccess) return err;
-  wgrad_s2_mma_kernel<T><<<grid, WG_NT, wgm_smem<T>(), stream>>>(A, P, part, B, Ha, Wa, C,
-                                                                 Hp, Wp, S);
+  wgrad_s2_kernel<<<dim3((C + WG_C - 1) / WG_C, S), WG_NT, WG_SMEM, stream>>>(
+      A, P, part, B, Ha, Wa, C, Hp, Wp, S);
+  return cudaGetLastError();
+}
+
+inline cudaError_t wgrad_s2(const __nv_bfloat16* A, const __nv_bfloat16* P, float* part,
+                            int B, int Ha, int Wa, int C, int Hp, int Wp,
+                            cudaStream_t stream) {
+  const int S = wgrad_s2_slices((long long)B * Ha * Wa, C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad_s2_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WGM_SMEM);
+  if (err != cudaSuccess) return err;
+  wgrad_s2_mma_kernel<<<dim3((C + WG_C - 1) / WG_C, S), WG_NT, WGM_SMEM, stream>>>(
+      A, P, part, B, Ha, Wa, C, Hp, Wp, S);
   return cudaGetLastError();
 }
 
@@ -521,25 +454,23 @@ inline cudaError_t wgrad_s2(const T* A, const T* P, float* part, int B,
 //   out[n][c][r] = in[n][r][c]     in (nb, R, Cc), out (nb, Cc, R)
 //
 // Lays weights out as a kernel stages them, once a call (36,864 floats at
-// C = 256): then a block copies them with 16-byte copies. With rnd each
-// weight is rounded to bf16 on the way (the bf16 forms take bf16 weights).
+// C = 256): then a block copies them with 16-byte copies.
 
 __global__ void __launch_bounds__(256)
 transpose_kernel(const float* __restrict__ in, float* __restrict__ out, int nb,
-                 int R, int Cc, bool rnd) {
+                 int R, int Cc) {
   const long long o = (long long)blockIdx.x * 256 + threadIdx.x;
   if (o >= (long long)nb * R * Cc) return;
   const int r = (int)(o % R), c = (int)((o / R) % Cc);
   const long long n = o / ((long long)R * Cc);
   const float v = __ldg(in + (n * R + r) * Cc + c);
-  out[o] = rnd ? round_bf16(v) : v;
+  out[o] = v;
 }
 
 inline void transpose(const float* in, float* out, int nb, int R, int Cc,
-                      cudaStream_t stream, bool rnd = false) {
+                      cudaStream_t stream) {
   const long long n = (long long)nb * R * Cc;
-  transpose_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(in, out, nb, R, Cc,
-                                                                     rnd);
+  transpose_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(in, out, nb, R, Cc);
 }
 
 // Floats rounded up to a multiple of 4, so that scratch regions stay

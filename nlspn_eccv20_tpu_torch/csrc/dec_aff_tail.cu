@@ -61,37 +61,17 @@
 // the backward (dec_aff_tail_bwd.cu) reads it instead of recomputing
 // deconv1.
 //
-// bf16 form (dec_aff_tail_bf16, precision='bf16'): the same kernel with
-// T = __nv_bfloat16 for x. cp.async cannot convert, so a stage's x is
-// loaded, widened to f32 and stored into the same channel planes by each
-// thread (no overlap with the compute of the previous stage: a first,
-// simple form); w1 and w2 are still copied as f32 and each thread rounds
-// the words it copied to bf16 once they have landed. Products and sums stay
-// f32 FMAs (a product of two bf16 values is exact in f32). As the TPU kernel
-// does (_fwd_kernel), y1 is rounded to bf16 after the full rank-ordered sum
-// of the cluster's partials, its bias and its ReLU, and each output after
-// its full sum and bias; the output stays planar f32 holding bf16 values,
-// as the TPU kernel stores it. With T = float every rounding is the
-// identity: the f32 kernel's arithmetic is unchanged.
+// The bf16 form (K2-bf16, precision='bf16') has its own source,
+// dec_aff_tail_bf16.cu, on the bf16 tensor cores.
 
 #include <cooperative_groups.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 #include "cp_async.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-// v rounded to T and held in f32: the identity for float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  if constexpr (std::is_same_v<T, float>) return v;
-  else return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 constexpr int M = 16;            // deconv1 output channels
 constexpr int TH = 8;            // base-grid tile rows
@@ -116,9 +96,9 @@ static_assert(NT / CC < XC, "the x copy loop wraps a row at most once a step");
 // the 32 lanes' reads (8 rows x 4 segments of 4 quads) hit 32 banks.
 __device__ __forceinline__ int x_row(int r) { return 17 * r + 12 * (r >> 2); }
 
-template <typename T, int K, int S>
+template <int K, int S>
 __global__ void __launch_bounds__(NT, 4)
-dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
+dec_aff_tail_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, float* __restrict__ out,
                     float* __restrict__ y1out, int Hg, int Wg, int C) {
@@ -143,11 +123,10 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     const int ch = kc * CC + sc;
     const int rows = ch < C ? Hg - a0 : 0, cols = Wg - t0;  // x rows, cols inside
     int r = 0, col = tid / CC, dst = col;
-    const T* src = x + (((long)b * Hg + a0) * Wg + t0 + col) * C + ch;
+    const float* src = x + (((long)b * Hg + a0) * Wg + t0 + col) * C + ch;
     for (int p = tid / CC; p < XR * XC; p += NT / CC) {
       const bool ok = r < rows && col < cols;
-      if constexpr (std::is_same_v<T, float>) cpa::copy4(xs + dst, ok ? src : x, ok);
-      else xs[dst] = ok ? __bfloat162float(*src) : 0.0f;
+      cpa::copy4(xs + dst, ok ? src : x, ok);
       col += NT / CC;
       dst += NT / CC;
       src += (NT / CC) * C;
@@ -163,19 +142,6 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     for (int j = tid; j < CC * WS / 4; j += NT) {
       const bool ok = kc * CC + j / (WS / 4) < C;
       cpa::copy16(ws + 4 * j, ok ? wsrc + 4 * j : w1, ok);
-    }
-  };
-
-  // bf16: each thread rounds the w1 words it copied for a stage (its own
-  // copies are the ones its wait has seen land)
-  auto round_w1 = [&](int buf) {
-    if constexpr (!std::is_same_v<T, float>) {
-      float4* ws = reinterpret_cast<float4*>(smem + buf * STAGE + CC * XP);
-      for (int j = tid; j < CC * WS / 4; j += NT) {
-        const float4 v = ws[j];
-        ws[j] = make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z),
-                            round_to<T>(v.w));
-      }
     }
   };
 
@@ -216,7 +182,6 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     } else {
       cpa::wait<0>();
     }
-    round_w1(buf);
     __syncthreads();
     const float* xs = smem + buf * STAGE;
     const float* ws = xs + CC * XP + 36 * g;
@@ -271,13 +236,6 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     __syncthreads();
   }
   cpa::wait<0>();  // the w2 copies, when this CTA had no stage
-  if constexpr (!std::is_same_v<T, float>) {  // visible to all at the barrier below
-    for (int i = tid; i < M * K * 9; i += NT) {
-      const int m = i / (K * 9), k = (i / 9) % K, tap = i % 9;
-      float* w = w2s + (m * 9 + tap) * K + k;
-      *w = round_to<T>(*w);
-    }
-  }
 
   // ---- this CTA's partial y1 tile [M][YR][YC], where the stages were ----
   float* part = smem;
@@ -308,7 +266,7 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   auto finish = [&](int m, int v, int u, float sum) {
     const bool in = 2 * a0 + v0 + v < 2 * Hg && 2 * t0 + u < 2 * Wg;
     y1s[(m * (NR + 1) + v) * YC + u] =
-        in ? round_to<T>(fmaxf(sum + round_to<T>(__ldg(b1 + m)), 0.0f)) : 0.0f;
+        in ? fmaxf(sum + __ldg(b1 + m), 0.0f) : 0.0f;
   };
   if constexpr (S == 1) {
     __syncthreads();
@@ -359,7 +317,7 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     float o[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float bias = round_to<T>(__ldg(b2 + 4 * kg + j));
+      const float bias = __ldg(b2 + 4 * kg + j);
 #pragma unroll
       for (int p = 0; p < 4; ++p) o[p][j] = bias;
     }
@@ -395,17 +353,17 @@ dec_aff_tail_kernel(const T* __restrict__ x, const float* __restrict__ w1,
         for (int dy = 0; dy < 2; ++dy)
           if (gy + dy < Ho)
             *reinterpret_cast<float2*>(oc + (long)(gy + dy) * Wo + gx) =
-                make_float2(round_to<T>(o[2 * dy][j]), round_to<T>(o[2 * dy + 1][j]));
+                make_float2(o[2 * dy][j], o[2 * dy + 1][j]);
       }
     }
   }
 }
 
-template <typename T, int K, int S>
-int launch(const T* x, const float* w1, const float* b1, const float* w2,
+template <int K, int S>
+int launch(const float* x, const float* w1, const float* b1, const float* w2,
            const float* b2, float* out, float* y1, int B, int Hg, int Wg,
            int C, cudaStream_t stream) {
-  auto kernel = dec_aff_tail_kernel<T, K, S>;
+  auto kernel = dec_aff_tail_kernel<K, S>;
   const size_t smem = sizeof(float) * (REGION + M * 9 * K);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -429,50 +387,33 @@ int launch(const T* x, const float* w1, const float* b1, const float* w2,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <typename T, int K>
-int launch_k(int S, const T* x, const float* w1, const float* b1,
+template <int K>
+int launch_k(int S, const float* x, const float* w1, const float* b1,
              const float* w2, const float* b2, float* out, float* y1, int B,
              int Hg, int Wg, int C, cudaStream_t s) {
   switch (S) {
-    case 1: return launch<T, K, 1>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
-    case 2: return launch<T, K, 2>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
-    case 4: return launch<T, K, 4>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
-    case 8: return launch<T, K, 8>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+    case 1: return launch<K, 1>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+    case 2: return launch<K, 2>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+    case 4: return launch<K, 4>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+    case 8: return launch<K, 8>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-int launch_t(const T* x, const float* w1, const float* b1, const float* w2,
-             const float* b2, float* out, float* y1, int B, int Hg, int Wg,
-             int C, int K, int split, void* stream) {
-  if (split > (C + CC - 1) / CC) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (K == 8) return launch_k<T, 8>(split, x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
-  if (K == 24) return launch_k<T, 24>(split, x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// Each returns cudaGetLastError() after the launch. K must be 8 or 24,
-// split (the cluster size S: CTAs that share a tile's channel stages) 1, 2,
-// 4 or 8, at most ceil(C / 16). w1 must be 16-byte aligned. y1 may be null
-// (no intermediate written). The bf16 form takes a bf16 x; weights, biases,
-// out and y1 are f32 in both.
+// Returns cudaGetLastError() after the launch. K must be 8 or 24, split
+// (the cluster size S: CTAs that share a tile's channel stages) 1, 2, 4 or
+// 8, at most ceil(C / 16). w1 must be 16-byte aligned. y1 may be null (no
+// intermediate written).
 extern "C" int dec_aff_tail_f32(const float* x, const float* w1,
                                 const float* b1, const float* w2,
                                 const float* b2, float* out, float* y1,
                                 int B, int Hg, int Wg, int C, int K, int split,
                                 void* stream) {
-  return launch_t<float>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, K, split, stream);
-}
-
-extern "C" int dec_aff_tail_bf16(const __nv_bfloat16* x, const float* w1,
-                                 const float* b1, const float* w2,
-                                 const float* b2, float* out, float* y1,
-                                 int B, int Hg, int Wg, int C, int K, int split,
-                                 void* stream) {
-  return launch_t<__nv_bfloat16>(x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, K, split,
-                                 stream);
+  if (split > (C + CC - 1) / CC) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K == 8) return launch_k<8>(split, x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+  if (K == 24) return launch_k<24>(split, x, w1, b1, w2, b2, out, y1, B, Hg, Wg, C, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -629,7 +629,7 @@ int launch(const T* x, const float* y1, const float* g, const float* w1,
     dx_kernel<<<grid_b, NT_B, 0, s>>>(dy1, scratch + l.w1t, dx, Hg, Wg, C, H1, W1,
                                       n_groups);
   }
-  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, s, RND);
+  err = bwd::wgrad_s2(x, dy1, scratch + l.part_w, B, Hg, Wg, C, H1, W1, s);
   if (err != cudaSuccess) return (int)err;
   bwd::reduce_partials(scratch + l.part_a, l.blocks_a, l.np, dw2b, scratch + l.tmp, s);
   bwd::reduce_partials(scratch + l.part_w, l.slices, C * M * 9, dw1, scratch + l.tmp, s);

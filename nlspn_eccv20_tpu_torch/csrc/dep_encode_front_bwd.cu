@@ -47,33 +47,58 @@
 //   5. bwd::reduce_partials: the partials of 2 (db1), 3 and 4 added in a
 //      fixed order.
 // No atomics: the result is the same bits from run to run. Any H and W, as
-// the forward. Plain f32 FMAs: no tensor cores (but the bf16 form's pass 4).
+// the forward. Plain f32 FMAs: no tensor cores.
 //
 // bf16 form (K5-bf16, dep_encode_front_bwd_bf16, precision='bf16'): the
-// same passes with T = __nv_bfloat16 for the plane x, g, out and dx,
-// rounding where the TPU kernel (_bwd_kernel at dt = bfloat16) rounds: w0,
-// b0 and w1 to bf16; p0 recomputed as K3-bf16 computes it (bf16 operands,
-// f32 sum, the bias added in f32), its ReLU mask taken on the f32 value and
-// p0 rounded to bf16; gm = g [out > 0] (g arrives bf16, so gm is exact);
-// dP0 rounded to bf16 after its f32 sum and mask; dx rounded to bf16 once,
-// after its f32 sum, as the TPU kernel rounds dx16 (its re-interleaved f32
-// plane gradient then holds bf16 values, and the JAX model's cast back to
-// bf16 changes none of them). dW0, db0, dW1 and db1 are f32 sums of those
-// bf16 operands. The mask [out > 0] on K3-bf16's rounded output differs from
-// the TPU kernel's [out_f32 > 0] only where 0 < out_f32 <= 2^-134, which
-// needs a term below 2^-133 (dec_aff_tail_bwd.cu bounds the same case).
-// cp.async cannot convert, so g and out are staged as raw bf16 quads by
-// 8-byte copies where out's f32 copy would lie, and the thread that copied
-// a quad widens and masks it after its own wait; the plane is read with
-// plain loads and widened. p0, dP0 and gm stay f32 buffers holding bf16
-// values. Pass 4 runs on the bf16 tensor cores (bwd::wgrad_s2_mma_kernel:
-// gm and p0 are bf16 values, so its products are exact), the other passes
-// on the FP32 cores as in f32.
+// plane x, g, out and dx bf16, rounding where the TPU kernel (_bwd_kernel at
+// dt = bfloat16) rounds: w0, b0 and w1 to bf16; p0 recomputed as K3-bf16
+// computes it (bf16 operands, f32 sum, the bias added in f32), its ReLU
+// mask taken on the f32 value and p0 rounded to bf16; gm = g [out > 0] (g
+// arrives bf16, so gm is exact); dP0 rounded to bf16 after its f32 sum and
+// mask; dx rounded to bf16 once, after its f32 sum, as the TPU kernel rounds
+// dx16 (its re-interleaved f32 plane gradient then holds bf16 values, and
+// the JAX model's cast back to bf16 changes none of them). dW0, db0, dW1
+// and db1 are f32 sums of those bf16 operands. The mask [out > 0] on
+// K3-bf16's rounded output differs from the TPU kernel's [out_f32 > 0] only
+// where 0 < out_f32 <= 2^-134, which needs a term below 2^-133
+// (dec_aff_tail_bwd.cu bounds the same case). Its passes:
+//   1'. dp0_mma_kernel, in place of 1. and 2.: dP0 = [p0 > 0] convT(gm, w1)
+//      as the TPU kernel computes it (dep_encode_front.py:288,
+//      _sunshift_matmul_sum: four shifted products of gm, f32 sums), on the
+//      bf16 tensor cores: quad_mma.cuh's GEMM, M = base pixels of the gm
+//      grid (52k at b=12), the reduction over 4 shifts x C1, N = four
+//      phases x 16 m. The pass is bound by its bytes (g and out read in
+//      bf16, gm, dP0 and p0 written in bf16: 86 MB at b=12, 26 us), not by
+//      its 3.8 GFLOP (4 us). The first form ran it on the FP32 cores over f32
+//      gm and p0 buffers: 199 of the 339.5 us at b=12. Per block an 8x16
+//      tile of base pixels, a warpgroup's M-tile 4 rows of it. g and out
+//      come raw, 32 channels a chunk, by 16-byte cp.async copies into two
+//      buffers (80-byte pixels: ldmatrix's eight rows in distinct banks);
+//      the thread that copied 8 channels of a pixel masks them in place
+//      after its own wait (gm is an exact bf16 value: no widening pass),
+//      writes them to gm for pass 4 and sums them for db1 (warp shuffles,
+//      then the warps in order). A is read by ldmatrix at each shift's pixel
+//      offset; the weights come with each chunk, laid out once a call by
+//      quad::prep_kernel. The epilogue stages the f32 sums through shared
+//      memory and recomputes p0 from the plane's tile as dp0_kernel does,
+//      each thread keeping two positions' 3x3 patches in registers across
+//      the 16 m (the recompute was bound by shared-memory loads, 18 a
+//      position and m), then writes p0 and dP0 in bf16, along the rows.
+//      When the tiles do not fill the card (b=1: 40 tiles) the chunks are
+//      split over blocks (7 a tile at b=1), whose f32 sums
+//      finish_dp0_kernel adds in split order.
+//   3. dx0_kernel reads the bf16 dP0.
+//   4. bwd::wgrad_s2 on the bf16 tensor cores (wgrad_s2_mma_kernel) over the
+//      bf16 gm and p0, p0's rows padded to an even width for its 4-byte
+//      words of two columns, the pad column zero.
+// The products of two bf16 values are exact in f32, so only the order of
+// the f32 sums differs from the plain version (dep_encode_front_bwd_plain_bf16).
 
 #include <cuda_runtime.h>
 
 #include "bwd_common.cuh"
 #include "cp_async.cuh"
+#include "quad_mma.cuh"
 
 namespace {
 
@@ -133,15 +158,13 @@ __device__ __forceinline__ float conv0_at(const T* xb, const float* w9, float bi
 // with more it writes its sums to part[split] and finish_dp0_kernel adds
 // the splits in order. Each block also writes gm over its own pixels and
 // channels, and their sums over its pixels to dbp[tile] (db1's partials).
-template <typename T>
 __global__ void __launch_bounds__(NT_A, 2)
-dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
-           const T* __restrict__ out, const float* __restrict__ w0,
+dp0_kernel(const float* __restrict__ x, const float* __restrict__ g,
+           const float* __restrict__ out, const float* __restrict__ w0,
            const float* __restrict__ b0, const float* __restrict__ w1t,
            float* __restrict__ dp0, float* __restrict__ p0,
            float* __restrict__ gm, float* __restrict__ part,
            float* __restrict__ dbp, int B, int H, int W, int C1, int n_split) {
-  constexpr bool F32 = std::is_same_v<T, float>;
   extern __shared__ __align__(16) float smem[];
   __shared__ float w0s[M * 9];
   __shared__ float b0s[M];
@@ -160,16 +183,13 @@ dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int k_end = min(n_chunks, k_beg + per_split);
   const long tile = ((long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
   const bool vec = (C1 & 3) == 0 &&
-                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out)) &
-                    (F32 ? 15 : 7)) == 0;
+                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out)) & 15) == 0;
 
-  for (int i = tid; i < M * 9; i += NT_A) w0s[i] = bwd::round_to<T>(__ldg(w0 + i));
-  if (tid < M) b0s[tid] = bwd::round_to<T>(__ldg(b0 + tid));
+  for (int i = tid; i < M * 9; i += NT_A) w0s[i] = __ldg(w0 + i);
+  if (tid < M) b0s[tid] = __ldg(b0 + tid);
 
   // issues the copies of chunk k (g, out and w1) into buffer buf; thread
-  // tid always copies channel quad tid % Q4 of its pixels. bf16: g's and
-  // out's raw quads go to a pixel's slot of the out region (CC halves of g,
-  // then CC of out), for mask() to widen.
+  // tid always copies channel quad tid % Q4 of its pixels
   auto stage = [&](int k, int buf) {
     float* gs = smem + buf * BUF_A;
     float* os = gs + XP * GP;
@@ -180,30 +200,15 @@ dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
       const int gy = a0 + pix / XC, gx = t0 + pix % XC, ch = c0 + cc;
       const bool in = gy < Ho && gx < Wo;
       const long o = in ? gbase + ((long)gy * Wo + gx) * C1 + ch : 0;
-      if constexpr (F32) {
-        if (vec) {
-          cpa::copy16(gs + pix * GP + cc, g + o, in && ch < C1);
-          cpa::copy16(os + pix * GP + cc, out + o, in && ch < C1);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const bool ok = in && ch + q < C1;
-            cpa::copy4(gs + pix * GP + cc + q, g + (ok ? o + q : 0), ok);
-            cpa::copy4(os + pix * GP + cc + q, out + (ok ? o + q : 0), ok);
-          }
-        }
+      if (vec) {
+        cpa::copy16(gs + pix * GP + cc, g + o, in && ch < C1);
+        cpa::copy16(os + pix * GP + cc, out + o, in && ch < C1);
       } else {
-        T* rg = reinterpret_cast<T*>(os + pix * GP) + cc;
-        if (vec) {
-          cpa::copy8(rg, g + o, in && ch < C1);
-          cpa::copy8(rg + CC, out + o, in && ch < C1);
-        } else {  // plain loads, read back by this thread only
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const bool ok = in && ch + q < C1;
-            rg[q] = ok ? g[o + q] : bwd::narrow<T>(0.0f);
-            rg[CC + q] = ok ? out[o + q] : bwd::narrow<T>(0.0f);
-          }
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = in && ch + q < C1;
+          cpa::copy4(gs + pix * GP + cc + q, g + (ok ? o + q : 0), ok);
+          cpa::copy4(os + pix * GP + cc + q, out + (ok ? o + q : 0), ok);
         }
       }
     }
@@ -222,19 +227,8 @@ dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
     float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     for (int e = tid; e < XP * Q4; e += NT_A) {
       const int pix = e / Q4, r = pix / XC, c = pix % XC;
-      float4 v, u;
-      if constexpr (F32) {
-        v = *reinterpret_cast<float4*>(gs + pix * GP + cc);
-        u = *reinterpret_cast<const float4*>(os + pix * GP + cc);
-      } else {
-        const T* rg = reinterpret_cast<const T*>(os + pix * GP) + cc;
-        const uint2 a = *reinterpret_cast<const uint2*>(rg);
-        const uint2 d = *reinterpret_cast<const uint2*>(rg + CC);
-        v = make_float4(bwd::lo_bf16(a.x), bwd::hi_bf16(a.x), bwd::lo_bf16(a.y),
-                        bwd::hi_bf16(a.y));
-        u = make_float4(bwd::lo_bf16(d.x), bwd::hi_bf16(d.x), bwd::lo_bf16(d.y),
-                        bwd::hi_bf16(d.y));
-      }
+      float4 v = *reinterpret_cast<float4*>(gs + pix * GP + cc);
+      const float4 u = *reinterpret_cast<const float4*>(os + pix * GP + cc);
       v.x = u.x > 0.0f ? v.x : 0.0f;
       v.y = u.y > 0.0f ? v.y : 0.0f;
       v.z = u.z > 0.0f ? v.z : 0.0f;
@@ -273,11 +267,7 @@ dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
   for (int e = tid; e < XT * XT; e += NT_A) {  // the plane under the tile
     const int yy = 4 * a0 - 1 + e / XT, xx = 4 * t0 - 1 + e % XT;
     const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-    if constexpr (F32) {
-      cpa::copy4(xs + e, x + (ok ? ((long)b * H + yy) * W + xx : 0), ok);
-    } else {  // read after the first barrier below
-      xs[e] = ok ? bwd::widen(x[((long)b * H + yy) * W + xx]) : 0.0f;
-    }
+    cpa::copy4(xs + e, x + (ok ? ((long)b * H + yy) * W + xx : 0), ok);
   }
   if (k_beg < k_end) stage(k_beg, 0);
   cpa::commit();
@@ -363,20 +353,21 @@ dp0_kernel(const T* __restrict__ x, const T* __restrict__ g,
       }
     }
     pv = fmaxf(pv, 0.0f);
-    p0[o] = bwd::round_to<T>(pv);
-    dp0[o] = pv > 0.0f ? bwd::round_to<T>(sum) : 0.0f;
+    p0[o] = pv;
+    dp0[o] = pv > 0.0f ? sum : 0.0f;
   }
 }
 
 #undef FMA2
 
-// dP0 and p0 from n_split partial sums, added in split order.
+// dP0 and p0 from n_split partial sums, added in split order; p0's rows
+// p0_pitch apart (W1, or for bf16 W1 rounded up to even).
 template <typename T>
 __global__ void __launch_bounds__(256)
 finish_dp0_kernel(const T* __restrict__ x, const float* __restrict__ w0,
                   const float* __restrict__ b0, const float* __restrict__ part,
-                  float* __restrict__ dp0, float* __restrict__ p0, int B, int H,
-                  int W, int n_split) {
+                  T* __restrict__ dp0, T* __restrict__ p0, int B, int H,
+                  int W, int n_split, int p0_pitch) {
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const long n = (long)B * M * H1 * W1;
   const long o = (long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -386,8 +377,270 @@ finish_dp0_kernel(const T* __restrict__ x, const float* __restrict__ w0,
   float sum = part[o];
   for (int sp = 1; sp < n_split; ++sp) sum += part[sp * n + o];
   const float pv = conv0_at(x + (long)b * H * W, w0 + m * 9, __ldg(b0 + m), Y, X, H, W);
-  p0[o] = bwd::round_to<T>(pv);
-  dp0[o] = pv > 0.0f ? bwd::round_to<T>(sum) : 0.0f;
+  p0[((long)b * M + m) * H1 * p0_pitch + (long)Y * p0_pitch + X] = bwd::narrow<T>(pv);
+  dp0[o] = bwd::narrow<T>(pv > 0.0f ? sum : 0.0f);
+}
+
+// ---- 1'. the bf16 form's dP0 on the tensor cores (the header's 1'.) ----
+constexpr int MQ_TH = 8, MQ_TW = 16;       // base-pixel tile: two M-tiles of 64
+constexpr int MQ_NT = 256;                 // two warpgroups
+constexpr int MQ_XC = MQ_TW + 1;           // staged gm tile: 9 x 17 pixels
+constexpr int MQ_XPIX = (MQ_TH + 1) * MQ_XC;
+constexpr int MQ_CC = 32;                  // channels a chunk: two k-steps
+constexpr int MQ_CP = MQ_CC + 8;           // bf16 a staged pixel: 80 bytes
+constexpr int MQ_G_BYTES = MQ_XPIX * MQ_CP * 2;          // g (masked to gm in place), out
+constexpr int MQ_W_BYTES = 2 * quad::KSTEP_BF16 * 2;     // a chunk's B
+constexpr int MQ_STAGE = 2 * MQ_G_BYTES + MQ_W_BYTES;
+constexpr int MQ_EP = 2 * MQ_TW + 1;       // epilogue rows: [m][2 TH][MQ_EP] f32
+constexpr int MQ_EP_BYTES = M * 2 * MQ_TH * MQ_EP * 4;
+constexpr int MQ_REGION = 2 * MQ_STAGE > MQ_EP_BYTES ? 2 * MQ_STAGE : MQ_EP_BYTES;
+constexpr int MQ_XTR = 4 * MQ_TH + 1, MQ_XTC = 4 * MQ_TW + 1;   // the plane under a tile
+constexpr int MQ_SMEM = MQ_REGION + MQ_XTR * MQ_XTC * 4;
+constexpr int MQ_BLOCKS_PER_SM = 2;
+static_assert(MQ_G_BYTES % 16 == 0 && MQ_STAGE % 16 == 0 && MQ_REGION % 16 == 0,
+              "16-byte aligned regions");
+
+// Grid (tile cols, tile rows, B x n_split): block z handles image z /
+// n_split and the chunks of split z % n_split. With one split the block
+// finishes dP0 and p0 itself; with more it writes its f32 sums to
+// part[split] and finish_dp0_kernel adds the splits in order. Each block
+// also writes gm over its own pixels and chunks, and their sums over its
+// pixels to dbp[tile] (db1's partials).
+__global__ void __launch_bounds__(MQ_NT, MQ_BLOCKS_PER_SM)
+dp0_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+               const __nv_bfloat16* __restrict__ out, const float* __restrict__ w0,
+               const float* __restrict__ b0, const __nv_bfloat16* __restrict__ w1p,
+               __nv_bfloat16* __restrict__ dp0, __nv_bfloat16* __restrict__ p0,
+               __nv_bfloat16* __restrict__ gm, float* __restrict__ part,
+               float* __restrict__ dbp, int B, int H, int W, int C1, int n_split,
+               int p0_pitch) {
+  extern __shared__ __align__(128) unsigned char smq[];
+  float* ep = reinterpret_cast<float*>(smq);                   // where the chunks were
+  float* xs = reinterpret_cast<float*>(smq + MQ_REGION);       // [MQ_XTR][MQ_XTC]
+  __shared__ float w0s[M * 9];
+  __shared__ float b0s[M];
+  __shared__ float red[MQ_NT / 32][MQ_CC];   // a warp's gm sums of a chunk
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gid = lane >> 2, tig = lane & 3, wg = warp >> 2, wr = warp & 3;
+  const int b = blockIdx.z / n_split, split = blockIdx.z % n_split;
+  const int a0 = blockIdx.y * MQ_TH, t0 = blockIdx.x * MQ_TW;   // base-grid origin
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
+  const long gbase = (long)b * Ho * Wo * C1;
+  const int n_chunks = (C1 + MQ_CC - 1) / MQ_CC;
+  const int k_beg = split * n_chunks / n_split, k_end = (split + 1) * n_chunks / n_split;
+  const long tile = ((long)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const bool vec = (C1 & 7) == 0 &&
+                   ((reinterpret_cast<size_t>(g) | reinterpret_cast<size_t>(out) |
+                     reinterpret_cast<size_t>(gm)) & 15) == 0;
+
+  for (int i = tid; i < M * 9; i += MQ_NT) w0s[i] = bwd::round_bf16(__ldg(w0 + i));
+  if (tid < M) b0s[tid] = bwd::round_bf16(__ldg(b0 + tid));
+  for (int e = tid; e < MQ_XTR * MQ_XTC; e += MQ_NT) {   // read after the first barrier
+    const int yy = 4 * a0 - 1 + e / MQ_XTC, xx = 4 * t0 - 1 + e % MQ_XTC;
+    const bool ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+    xs[e] = ok ? __bfloat162float(x[((long)b * H + yy) * W + xx]) : 0.0f;
+  }
+
+  // chunk k's 8-channel groups: e = (pixel, group q); a thread always has
+  // q = tid % 4 = tig, and stage() and mask() give it the same groups
+  auto stage = [&](int k, int buf) {
+    __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smq + buf * MQ_STAGE);
+    __nv_bfloat16* os = gs + MQ_G_BYTES / 2;
+    const int c0 = k * MQ_CC;
+    for (int e = tid; e < MQ_XPIX * 4; e += MQ_NT) {
+      const int pix = e >> 2, q = e & 3;
+      const int gy = a0 + pix / MQ_XC, gx = t0 + pix % MQ_XC, ch = c0 + 8 * q;
+      const long o = gbase + ((long)gy * Wo + gx) * C1 + ch;
+      const bool in = gy < Ho && gx < Wo;
+      if (vec) {
+        cpa::copy16(gs + pix * MQ_CP + 8 * q, in && ch < C1 ? g + o : g, in && ch < C1);
+        cpa::copy16(os + pix * MQ_CP + 8 * q, in && ch < C1 ? out + o : out, in && ch < C1);
+      } else {   // plain loads, read back by this thread only
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool ok = in && ch + i < C1;
+          gs[pix * MQ_CP + 8 * q + i] = ok ? g[o + i] : __float2bfloat16_rn(0.0f);
+          os[pix * MQ_CP + 8 * q + i] = ok ? out[o + i] : __float2bfloat16_rn(0.0f);
+        }
+      }
+    }
+    const uint4* wsrc = reinterpret_cast<const uint4*>(w1p + (long)k * 2 * quad::KSTEP_BF16);
+    uint4* wdst = reinterpret_cast<uint4*>(smq + buf * MQ_STAGE + 2 * MQ_G_BYTES);
+    for (int e = tid; e < MQ_W_BYTES / 16; e += MQ_NT) cpa::copy16(wdst + e, wsrc + e, true);
+  };
+  // gm = g [out > 0] over this thread's groups of chunk k, in place; the
+  // tile's own pixels written to gm and summed, per warp, into red[warp]
+  auto mask = [&](int k, int buf) {
+    __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(smq + buf * MQ_STAGE);
+    const __nv_bfloat16* os = gs + MQ_G_BYTES / 2;
+    const int c0 = k * MQ_CC;
+    float sum[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sum[i] = 0.0f;
+    for (int e = tid; e < MQ_XPIX * 4; e += MQ_NT) {
+      const int pix = e >> 2, q = e & 3, r = pix / MQ_XC, c = pix % MQ_XC;
+      uint4 gv = *reinterpret_cast<const uint4*>(gs + pix * MQ_CP + 8 * q);
+      const uint4 ov = *reinterpret_cast<const uint4*>(os + pix * MQ_CP + 8 * q);
+      unsigned* gw = reinterpret_cast<unsigned*>(&gv);
+      const unsigned* ow = reinterpret_cast<const unsigned*>(&ov);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned lo = bwd::lo_bf16(ow[i]) > 0.0f ? 0x0000ffffu : 0u;
+        const unsigned hi = bwd::hi_bf16(ow[i]) > 0.0f ? 0xffff0000u : 0u;
+        gw[i] &= lo | hi;
+      }
+      *reinterpret_cast<uint4*>(gs + pix * MQ_CP + 8 * q) = gv;
+      const int gy = a0 + r, gx = t0 + c, ch = c0 + 8 * q;
+      if (r < MQ_TH && c < MQ_TW && gy < Ho && gx < Wo) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sum[2 * i] += bwd::lo_bf16(gw[i]);
+          sum[2 * i + 1] += bwd::hi_bf16(gw[i]);
+        }
+        __nv_bfloat16* dst = gm + gbase + ((long)gy * Wo + gx) * C1 + ch;
+        if (vec) {
+          if (ch < C1) *reinterpret_cast<uint4*>(dst) = gv;
+        } else {
+          const __nv_bfloat16* hv = reinterpret_cast<const __nv_bfloat16*>(&gv);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (ch + i < C1) dst[i] = hv[i];
+        }
+      }
+    }
+    // the lanes of one group (equal tig) in a fixed butterfly: every lane
+    // ends with the same sum
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 4);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 8);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 16);
+    }
+    if (gid == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red[warp][8 * tig + i] = sum[i];
+    }
+  };
+
+  // this lane's ldmatrix row at each shift: M-tile row r is base pixel
+  // (4 wg + wr, r), channels koff on
+  const int r = (lane & 7) + 8 * ((lane >> 3) & 1), koff = 8 * (lane >> 4);
+  int aoff[4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s)
+    aoff[s] = ((4 * wg + wr + (s >> 1)) * MQ_XC + r + (s & 1)) * MQ_CP + koff;
+  float acc[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) acc[e] = 0.0f;
+
+  if (k_beg < k_end) stage(k_beg, 0);
+  cpa::commit();
+  for (int k = k_beg, buf = 0; k < k_end; ++k, buf ^= 1) {
+    if (k + 1 < k_end) stage(k + 1, buf ^ 1);
+    cpa::commit();
+    cpa::wait<1>();
+    mask(k, buf);
+    fence_async_smem();
+    __syncthreads();
+    if (tid < MQ_CC && k * MQ_CC + tid < C1) {   // db1's partial: the warps in order
+      float t = 0.0f;
+      for (int w = 0; w < MQ_NT / 32; ++w) t += red[w][tid];
+      dbp[tile * C1 + k * MQ_CC + tid] = t;
+    }
+    const unsigned short* gs = reinterpret_cast<const unsigned short*>(smq + buf * MQ_STAGE);
+    const unsigned short* ws =
+        reinterpret_cast<const unsigned short*>(smq + buf * MQ_STAGE + 2 * MQ_G_BYTES);
+    uint32_t a[2][4][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) ldmatrix_x4(a[ks][s], gs + aoff[s] + quad::KSTEP * ks);
+    wgmma_fence();
+    quad::mma_kstep(acc, a[0], ws);
+    quad::mma_kstep(acc, a[1], ws + quad::KSTEP_BF16);
+    wgmma_commit();
+    wgmma_wait<0>();
+    hold(acc);
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) hold(a[ks][s]);
+    __syncthreads();   // the buffer and red[] are rewritten a chunk on
+  }
+  cpa::wait<0>();
+
+  // acc[4j + 2h + e]: base pixel (4 wg + wr, gid + 8h), phase block j / 2,
+  // m = 8 (j % 2) + 2 tig + e; to ep[m][v][u] at quad position (v, u)
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int v = 2 * (4 * wg + wr) + quad::phase_dy(j >> 1);
+      const int u = 2 * (gid + 8 * h) + quad::phase_dx(j >> 1);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        ep[((8 * (j & 1) + 2 * tig + e) * 2 * MQ_TH + v) * MQ_EP + u] = acc[4 * j + 2 * h + e];
+    }
+  __syncthreads();
+
+  // More than one split: the f32 sums, for finish_dp0_kernel.
+  if (n_split > 1) {
+    for (int i = tid; i < M * 4 * MQ_TH * MQ_TW; i += MQ_NT) {
+      const int u = i % (2 * MQ_TW), v = (i / (2 * MQ_TW)) % (2 * MQ_TH);
+      const int m = i / (4 * MQ_TH * MQ_TW);
+      const int Y = 2 * a0 + v, X = 2 * t0 + u;
+      if (Y < H1 && X < W1)
+        part[(long)split * B * M * H1 * W1 + (((long)b * M + m) * H1 + Y) * W1 + X] =
+            ep[(m * 2 * MQ_TH + v) * MQ_EP + u];
+    }
+    return;
+  }
+  // One split: p0 recomputed as dp0_kernel computes it (the same taps in
+  // the same order), then the mask and the roundings. A thread owns two
+  // positions (v, u) and (v + 8, u) and keeps their 3x3 plane patches in
+  // registers across the 16 m, whose weights are broadcast: one shared
+  // load a tap and m for both, instead of two for each.
+  constexpr int NPOS = 4 * MQ_TH * MQ_TW / MQ_NT;   // 2
+  float xv[NPOS][9];
+  bool tin[NPOS][9], pin[NPOS];
+  int Yq[NPOS], Xq[NPOS], vq[NPOS];
+  const int u = tid % (2 * MQ_TW);
+#pragma unroll
+  for (int q = 0; q < NPOS; ++q) {
+    const int v = tid / (2 * MQ_TW) + q * (MQ_NT / (2 * MQ_TW));
+    vq[q] = v;
+    Yq[q] = 2 * a0 + v;
+    Xq[q] = 2 * t0 + u;
+    pin[q] = Yq[q] < H1 && Xq[q] < W1;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {
+      const int ty = t / 3, tx = t % 3;
+      const int yy = 2 * Yq[q] - 1 + ty, xx = 2 * Xq[q] - 1 + tx;
+      tin[q][t] = yy >= 0 && yy < H && xx >= 0 && xx < W;
+      xv[q][t] = xs[(2 * v + ty) * MQ_XTC + 2 * u + tx];
+    }
+  }
+#pragma unroll 2
+  for (int m = 0; m < M; ++m) {
+    float w9[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) w9[t] = w0s[m * 9 + t];
+#pragma unroll
+    for (int q = 0; q < NPOS; ++q) {
+      float pv = b0s[m];
+#pragma unroll
+      for (int t = 0; t < 9; ++t)
+        if (tin[q][t]) pv = fmaf(w9[t], xv[q][t], pv);
+      pv = fmaxf(pv, 0.0f);
+      if (!pin[q]) continue;
+      const float sum = ep[(m * 2 * MQ_TH + vq[q]) * MQ_EP + u];
+      p0[(((long)b * M + m) * H1 + Yq[q]) * p0_pitch + Xq[q]] = __float2bfloat16_rn(pv);
+      dp0[(((long)b * M + m) * H1 + Yq[q]) * W1 + Xq[q]] =
+          __float2bfloat16_rn(pv > 0.0f ? sum : 0.0f);
+    }
+  }
 }
 
 // ---- 2. dx = convT(dP0, w0), and partial dW0 / db0 ----
@@ -400,7 +653,7 @@ constexpr int NPB = M * 9 + M;   // partials per block: dW0 | db0
 
 template <typename T>
 __global__ void __launch_bounds__(NT_B)
-dx0_kernel(const T* __restrict__ x, const float* __restrict__ dp0,
+dx0_kernel(const T* __restrict__ x, const T* __restrict__ dp0,
            const float* __restrict__ w0, T* __restrict__ dx,
            float* __restrict__ part, int H, int W) {
   __shared__ float dps[M][PY + 1][PX + 1];
@@ -417,7 +670,8 @@ dx0_kernel(const T* __restrict__ x, const float* __restrict__ dp0,
   for (int i = tid; i < M * (PY + 1) * (PX + 1); i += NT_B) {
     const int c = i % (PX + 1), r = (i / (PX + 1)) % (PY + 1), m = i / ((PX + 1) * (PY + 1));
     const int Y = Y0 + r, X = X0 + c;
-    dps[m][r][c] = (Y < H1 && X < W1) ? __ldg(dp0 + (((long)b * M + m) * H1 + Y) * W1 + X) : 0.0f;
+    dps[m][r][c] = (Y < H1 && X < W1)
+        ? bwd::widen(__ldg(dp0 + (((long)b * M + m) * H1 + Y) * W1 + X)) : 0.0f;
   }
   for (int i = tid; i < (FY + 1) * (FX + 1); i += NT_B) {
     const int c = i % (FX + 1), r = i / (FX + 1);
@@ -460,7 +714,8 @@ dx0_kernel(const T* __restrict__ x, const float* __restrict__ dp0,
   }
 }
 
-struct Layout {  // the scratch buffer, in floats
+
+struct Layout {  // the f32 form's scratch buffer, in floats
   long dp0, p0, gm, part_dp, w1t, part_db, part_b, part_w, tmp, total;
   int blocks_b, slices, n_split, tiles;
 };
@@ -493,11 +748,65 @@ Layout layout(int B, int H, int W, int C1) {
   return l;
 }
 
+struct LayoutBf16 {  // the bf16 form's scratch buffer, in floats (bf16 buffers take half)
+  long dp0, p0, gm, part_dp, w1p, part_db, part_b, part_w, tmp, total;
+  int blocks_b, slices, n_split, tiles, tiles_x, tiles_y, chunks, p0_pitch;
+};
+
+LayoutBf16 layout_bf16(int B, int H, int W, int C1) {
+  LayoutBf16 l;
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
+  const long long n = (long long)B * Ho * Wo;
+  l.tiles_x = (Wo + MQ_TW - 1) / MQ_TW;
+  l.tiles_y = (Ho + MQ_TH - 1) / MQ_TH;
+  l.tiles = l.tiles_x * l.tiles_y * B;
+  l.chunks = (C1 + MQ_CC - 1) / MQ_CC;
+  const int wanted = (MQ_BLOCKS_PER_SM * bwd::CARD_SMS + l.tiles - 1) / l.tiles;
+  l.n_split = wanted < l.chunks ? wanted : l.chunks;
+  l.p0_pitch = W1 + (W1 & 1);
+  l.blocks_b = ((W + FX - 1) / FX) * ((H + FY - 1) / FY) * B;
+  l.slices = bwd::wgrad_s2_slices(n, C1);
+  auto half = [](long long v) { return bwd::align4((v + 1) / 2); };
+  l.dp0 = 0;
+  l.p0 = l.dp0 + half((long long)B * M * H1 * W1);
+  l.gm = l.p0 + half((long long)B * M * H1 * l.p0_pitch);
+  l.part_dp = l.gm + half(n * C1);
+  l.w1p = l.part_dp + (l.n_split > 1 ? bwd::align4((long)l.n_split * B * M * H1 * W1) : 0);
+  l.part_db = l.w1p + half((long long)2 * l.chunks * quad::KSTEP_BF16);
+  l.part_b = l.part_db + bwd::align4((long)l.tiles * C1);
+  l.part_w = l.part_b + bwd::align4((long)l.blocks_b * NPB);
+  l.tmp = l.part_w + bwd::align4(bwd::wgrad_s2_partial_floats(n, C1));
+  long t = bwd::reduce_scratch_floats(l.blocks_b, NPB);
+  const long t2 = bwd::reduce_scratch_floats(l.slices, C1 * M * 9);
+  const long t3 = bwd::reduce_scratch_floats(l.tiles, C1);
+  t = t > t2 ? t : t2;
+  l.total = l.tmp + (t > t3 ? t : t3);
+  return l;
+}
+
+// dx, dW0 and db0 from dP0, then dW1 from gm and p0, then the reductions:
+// the passes after dP0, shared by both forms
 template <typename T>
-int launch(const T* x, const T* g, const T* out, const float* w0, const float* b0,
-           const float* w1, T* dx, float* dw0b, float* dw1b, float* scratch, int B,
-           int H, int W, int C1, void* stream) {
-  constexpr bool RND = !std::is_same_v<T, float>;
+int finish(const T* x, const T* dp0, const T* gm, const T* p0, const float* w0, T* dx,
+           float* dw0b, float* dw1b, float* part_b, float* part_w, float* part_db,
+           float* tmp, int blocks_b, int slices, int tiles, int B, int H, int W, int C1,
+           int p0_pitch, cudaStream_t s) {
+  const int H1 = (H + 1) / 2;
+  const int Ho = (H1 + 1) / 2, Wo = ((W + 1) / 2 + 1) / 2;
+  const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
+  dx0_kernel<T><<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, part_b, H, W);
+  const cudaError_t err = bwd::wgrad_s2(gm, p0, part_w, B, Ho, Wo, C1, H1, p0_pitch, s);
+  if (err != cudaSuccess) return (int)err;
+  bwd::reduce_partials(part_b, blocks_b, NPB, dw0b, tmp, s);
+  bwd::reduce_partials(part_w, slices, C1 * M * 9, dw1b, tmp, s);
+  bwd::reduce_partials(part_db, tiles, C1, dw1b + (long)C1 * M * 9, tmp, s);
+  return (int)cudaGetLastError();
+}
+
+int launch_f32(const float* x, const float* g, const float* out, const float* w0,
+               const float* b0, const float* w1, float* dx, float* dw0b, float* dw1b,
+               float* scratch, int B, int H, int W, int C1, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const Layout l = layout(B, H, W, C1);
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
@@ -505,38 +814,78 @@ int launch(const T* x, const T* g, const T* out, const float* w0, const float* b
   float* dp0 = scratch + l.dp0;
   float* p0 = scratch + l.p0;
   float* gm = scratch + l.gm;
-  bwd::transpose(w1, scratch + l.w1t, C1, M, 9, s, RND);  // (C1, M, 9) -> (C1, 9, M)
-  cudaError_t err = cudaFuncSetAttribute(
-      dp0_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, DP0_SMEM);
+  bwd::transpose(w1, scratch + l.w1t, C1, M, 9, s);  // (C1, M, 9) -> (C1, 9, M)
+  const cudaError_t err = cudaFuncSetAttribute(
+      dp0_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DP0_SMEM);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_a((Wo + TW - 1) / TW, (Ho + TH - 1) / TH, B * l.n_split);
-  dp0_kernel<T><<<grid_a, NT_A, DP0_SMEM, s>>>(x, g, out, w0, b0, scratch + l.w1t, dp0,
-                                               p0, gm, scratch + l.part_dp,
-                                               scratch + l.part_db, B, H, W, C1,
-                                               l.n_split);
+  dp0_kernel<<<grid_a, NT_A, DP0_SMEM, s>>>(x, g, out, w0, b0, scratch + l.w1t, dp0, p0, gm,
+                                            scratch + l.part_dp, scratch + l.part_db, B, H,
+                                            W, C1, l.n_split);
   if (l.n_split > 1) {
     const long n = (long)B * M * H1 * W1;
-    finish_dp0_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split);
+    finish_dp0_kernel<float><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split, W1);
   }
-  const dim3 grid_b((W + FX - 1) / FX, (H + FY - 1) / FY, B);
-  dx0_kernel<T><<<grid_b, NT_B, 0, s>>>(x, dp0, w0, dx, scratch + l.part_b, H, W);
-  err = bwd::wgrad_s2(gm, p0, scratch + l.part_w, B, Ho, Wo, C1, H1, W1, s, RND);
+  return finish<float>(x, dp0, gm, p0, w0, dx, dw0b, dw1b, scratch + l.part_b,
+                       scratch + l.part_w, scratch + l.part_db, scratch + l.tmp, l.blocks_b,
+                       l.slices, l.tiles, B, H, W, C1, W1, s);
+}
+
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g, const __nv_bfloat16* out,
+                const float* w0, const float* b0, const float* w1, __nv_bfloat16* dx,
+                float* dw0b, float* dw1b, float* scratch, int B, int H, int W, int C1,
+                void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const LayoutBf16 l = layout_bf16(B, H, W, C1);
+  const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
+  auto bf = [&](long off) { return reinterpret_cast<__nv_bfloat16*>(scratch + off); };
+  __nv_bfloat16 *dp0 = bf(l.dp0), *p0 = bf(l.p0), *gm = bf(l.gm), *w1p = bf(l.w1p);
+  if (l.p0_pitch != W1) {   // the pad column, read by wgrad_s2 as the image's edge
+    const cudaError_t e = cudaMemsetAsync(
+        p0, 0, sizeof(__nv_bfloat16) * (size_t)B * M * H1 * l.p0_pitch, s);
+    if (e != cudaSuccess) return (int)e;
+  }
+  quad::prep(w1, w1p, C1, 2 * l.chunks, s);
+  const cudaError_t err = cudaFuncSetAttribute(
+      dp0_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MQ_SMEM);
   if (err != cudaSuccess) return (int)err;
-  bwd::reduce_partials(scratch + l.part_b, l.blocks_b, NPB, dw0b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_w, l.slices, C1 * M * 9, dw1b, scratch + l.tmp, s);
-  bwd::reduce_partials(scratch + l.part_db, l.tiles, C1, dw1b + (long)C1 * M * 9,
-                       scratch + l.tmp, s);
-  return (int)cudaGetLastError();
+  const dim3 grid_a(l.tiles_x, l.tiles_y, B * l.n_split);
+  dp0_mma_kernel<<<grid_a, MQ_NT, MQ_SMEM, s>>>(x, g, out, w0, b0, w1p, dp0, p0, gm,
+                                                scratch + l.part_dp, scratch + l.part_db, B,
+                                                H, W, C1, l.n_split, l.p0_pitch);
+  if (l.n_split > 1) {
+    const long n = (long)B * M * H1 * W1;
+    finish_dp0_kernel<__nv_bfloat16><<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+        x, w0, b0, scratch + l.part_dp, dp0, p0, B, H, W, l.n_split, l.p0_pitch);
+  }
+  return finish<__nv_bfloat16>(x, dp0, gm, p0, w0, dx, dw0b, dw1b, scratch + l.part_b,
+                               scratch + l.part_w, scratch + l.part_db, scratch + l.tmp,
+                               l.blocks_b, l.slices, l.tiles, B, H, W, C1, l.p0_pitch, s);
 }
 
 }  // namespace
 
-// Floats of scratch dep_encode_front_bwd_f32 and dep_encode_front_bwd_bf16
-// need.
-extern "C" long long dep_encode_front_bwd_scratch_floats(int B, int H, int W,
-                                                         int C1) {
+// Floats of scratch dep_encode_front_bwd_f32 needs.
+extern "C" long long dep_encode_front_bwd_scratch_floats(int B, int H, int W, int C1) {
   return layout(B, H, W, C1).total;
+}
+
+// Floats of scratch dep_encode_front_bwd_bf16 needs.
+extern "C" long long dep_encode_front_bwd_bf16_scratch_floats(int B, int H, int W, int C1) {
+  return layout_bf16(B, H, W, C1).total;
+}
+
+// K5-bf16's dP0 pass as dep_encode_front_bwd_bf16 launches it: out[0..7] =
+// tile rows, tile cols (8 x 16 base pixels), splits a tile, threads a
+// block, bytes of dynamic shared memory, chunks of 32 channels, p0's row
+// pitch, weight-gradient slices. Returns 0.
+extern "C" int dep_encode_front_bwd_bf16_plan(int B, int H, int W, int C1, int* out) {
+  const LayoutBf16 l = layout_bf16(B, H, W, C1);
+  const int v[8] = {l.tiles_y, l.tiles_x, l.n_split, MQ_NT, MQ_SMEM, l.chunks, l.p0_pitch,
+                    l.slices};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
 // x (B, H, W); g and out (B, Ho, Wo, C1) NHWC, out the forward's output;
@@ -551,8 +900,7 @@ extern "C" int dep_encode_front_bwd_f32(const float* x, const float* g,
                                         float* dx, float* dw0b, float* dw1b,
                                         float* scratch, int B, int H, int W,
                                         int C1, void* stream) {
-  return launch<float>(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W, C1,
-                       stream);
+  return launch_f32(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W, C1, stream);
 }
 
 extern "C" int dep_encode_front_bwd_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
@@ -561,6 +909,5 @@ extern "C" int dep_encode_front_bwd_bf16(const __nv_bfloat16* x, const __nv_bflo
                                          __nv_bfloat16* dx, float* dw0b, float* dw1b,
                                          float* scratch, int B, int H, int W, int C1,
                                          void* stream) {
-  return launch<__nv_bfloat16>(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W,
-                               C1, stream);
+  return launch_bf16(x, g, out, w0, b0, w1, dx, dw0b, dw1b, scratch, B, H, W, C1, stream);
 }

@@ -1,7 +1,8 @@
 // bf16 products on Hopper's tensor cores (wgmma, f32 sums), for the bf16
 // forms: K9-bf16 and K9b-bf16 (small_conv3x3_bf16.cu,
-// small_conv3x3_bwd_bf16.cu) and the weight-gradient and dx passes of
-// K4-bf16 and K5-bf16 (bwd_common.cuh, dec_aff_tail_bwd.cu).
+// small_conv3x3_bwd_bf16.cu), K2-bf16 (dec_aff_tail_bf16.cu), the weight-
+// gradient and dx passes of K4-bf16 and K5-bf16 (bwd_common.cuh,
+// dec_aff_tail_bwd.cu) and K5-bf16's dP0 pass (quad_mma.cuh).
 //
 // wgmma.mma_async m64nNk16 (N a multiple of 8 up to 256): A (64 x 16) from
 // registers, a warp's 16 rows, thread (gid = lane / 4, tig = lane % 4)
@@ -45,6 +46,19 @@ __device__ __forceinline__ uint32_t pack_raw(unsigned short lo, unsigned short h
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* row) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Four 8x8 matrices of 16-bit values from shared memory: lane L gives the
+// address of row L % 8 of matrix L / 8 (16 bytes, 16-byte aligned); r[i] of
+// thread (gid, tig) is columns 2 tig and 2 tig + 1 of matrix i at row gid,
+// the lower column in the low half. With matrices (rows 0-7, k 0-7), (rows
+// 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) of a warp's 16 x 16
+// tile, r is that tile's A fragment (a[0..3] above).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }
@@ -107,6 +121,21 @@ __device__ __forceinline__ void wgmma_bf16_n32(float (&d)[16], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (64 x 48, f32; this warp's 16 rows) += a (64 x 16, bf16, registers) .
+// b (16 x 48, bf16, shared memory, K-major), for the warpgroup
+__device__ __forceinline__ void wgmma_bf16_n48(float (&d)[24], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // d (64 x 64, f32; this warp's 16 rows) += a (64 x 16, bf16, registers) .
 // b (16 x 64, bf16, shared memory, K-major), for the warpgroup
 __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -120,6 +149,25 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], const uint32_t (&
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 96, f32; this warp's 16 rows) += a (64 x 16, bf16, registers) .
+// b (16 x 96, bf16, shared memory, K-major), for the warpgroup
+__device__ __forceinline__ void wgmma_bf16_n96(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -171,12 +219,15 @@ __device__ __forceinline__ void wgmma_bf16_n144(float (&d)[72], const uint32_t (
 
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
-  static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 64 || N == 128 || N == 144, "wgmma_bf16 N");
+  static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 48 || N == 64 || N == 96 ||
+                    N == 128 || N == 144, "wgmma_bf16 N");
   if constexpr (N == 8) wgmma_bf16_n8(d, a, b);
   else if constexpr (N == 16) wgmma_bf16_n16(d, a, b);
   else if constexpr (N == 24) wgmma_bf16_n24(d, a, b);
   else if constexpr (N == 32) wgmma_bf16_n32(d, a, b);
+  else if constexpr (N == 48) wgmma_bf16_n48(d, a, b);
   else if constexpr (N == 64) wgmma_bf16_n64(d, a, b);
+  else if constexpr (N == 96) wgmma_bf16_n96(d, a, b);
   else if constexpr (N == 128) wgmma_bf16_n128(d, a, b);
   else wgmma_bf16_n144(d, a, b);
 }

@@ -43,6 +43,7 @@ from nlspn_eccv20_tpu_torch.summary import get_summary
 from nlspn_eccv20_tpu_torch.train import (
     Engine,
     check_offset_telemetry,
+    check_shards,
     init_backbone_pretrained,
     load_pretrained_params,
 )
@@ -287,6 +288,7 @@ def test(cfg: Config, engine: Engine = None, device=None):
 
 
 def main(cfg: Config):
+    check_shards(cfg)   # before any kernel is built or any data is read
     device = resolve_platform(cfg.platform)
     if device.type == "cuda":
         # one nvcc per source, all at once, instead of one after another at

@@ -22,21 +22,25 @@ the output is NHWC bf16, which ``encode_dep``'s stock conv2 reads as it is.
 Its plain version is ``dep_encode_front_plain_bf16``. Under autograd a bf16
 plane runs ``DepEncodeFrontFunction`` too: K3-bf16 forward, and K5-bf16,
 ``dep_encode_front_bwd_bf16`` (the TPU backward at ``dt = bfloat16``; the
-same CUDA source), backward, whose plain version is
-``dep_encode_front_bwd_plain_bf16``: it rounds the weights, conv0's output,
-dP0 and the plane's gradient to bf16 where ``_bwd_kernel`` does, and
-returns a bf16 plane gradient (rounded once, as the JAX model's cast back
-to the bf16 plane leaves it) and f32 weight gradients.
+same CUDA source as K5, its dP0 pass on the bf16 tensor cores), backward,
+whose plain version is ``dep_encode_front_bwd_plain_bf16``: it rounds the
+weights, conv0's output, dP0 and the plane's gradient to bf16 where
+``_bwd_kernel`` does, and returns a bf16 plane gradient (rounded once, as
+the JAX model's cast back to the bf16 plane leaves it) and f32 weight
+gradients. ``front_bwd_plan_bf16`` mirrors K5-bf16's dP0 launch plan and
+``dep_encode_front_bwd_bf16_tiles`` its dP0 arithmetic, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.ops.kernels import build, quad_mma
+from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import CARD_SMS, wgrad_s2_slices
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P],
@@ -45,8 +49,13 @@ _BWD_SIGNATURES = {
     "dep_encode_front_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "dep_encode_front_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
     "dep_encode_front_bwd_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+    "dep_encode_front_bwd_bf16_scratch_floats": ([_I] * 4, ctypes.c_longlong),
+    "dep_encode_front_bwd_bf16_plan": [_I] * 4 + [_P],
 }
 MID_CHANNELS = 16          # conv0's output width, fixed by the model
+# K5-bf16's dP0 pass (dp0_mma_kernel): tiles of the base grid, chunk,
+# threads, blocks an SM
+DP0_TILE, DP0_CHUNK, DP0_THREADS, DP0_BLOCKS_PER_SM = (8, 16), 32, 256, 2
 
 
 def _half(n: int) -> int:
@@ -118,6 +127,94 @@ def dep_encode_front_bwd_plain_bf16(g, xplane, w0, b0, w1, out):
     _, vjp1 = torch.func.vjp(_conv, p0, w1r)
     d_p0, dw1 = vjp1(gm)
     d_p0 = _bf16(d_p0 * (pf > 0))
+    _, vjp0 = torch.func.vjp(_conv, x4, w0r)
+    dx, dw0 = vjp0(d_p0)
+    return (dx[:, 0].to(torch.bfloat16), dw0, d_p0.sum((0, 2, 3)), dw1,
+            gm.sum((0, 2, 3)))
+
+
+def front_bwd_plan_bf16(b: int, h: int, w: int, c1: int) -> Dict[str, int]:
+    """K5-bf16's dP0 pass as ``layout_bf16`` in its source plans it: 8x16
+    tiles of the base grid (the gm grid, ``Ho`` x ``Wo``), the chunks of 32
+    channels split over ``split`` blocks a tile so that two blocks an SM
+    fill the card, ``smem`` bytes (two chunk buffers of g, out and B, where
+    the f32 epilogue tile later lies, then the plane under the tile),
+    ``p0_pitch`` p0's row pitch (W1 rounded up to even, for the weight
+    gradient's word copies), ``slices`` the weight gradient's."""
+    ho, wo = _half(_half(h)), _half(_half(w))
+    rows, cols = -(-ho // DP0_TILE[0]), -(-wo // DP0_TILE[1])
+    tiles, chunks = b * rows * cols, -(-c1 // DP0_CHUNK)
+    g_bytes = (DP0_TILE[0] + 1) * (DP0_TILE[1] + 1) * (DP0_CHUNK + 8) * 2
+    stage = 2 * g_bytes + 2 * quad_mma.KSTEP_BF16 * 2
+    ep = MID_CHANNELS * 2 * DP0_TILE[0] * (2 * DP0_TILE[1] + 1) * 4
+    plane = (4 * DP0_TILE[0] + 1) * (4 * DP0_TILE[1] + 1) * 4
+    w1 = _half(w)
+    return {"tiles_y": rows, "tiles_x": cols,
+            "split": min(-(-DP0_BLOCKS_PER_SM * CARD_SMS // tiles), chunks),
+            "threads": DP0_THREADS, "smem": max(2 * stage, ep) + plane, "chunks": chunks,
+            "p0_pitch": w1 + w1 % 2, "slices": wgrad_s2_slices(b * ho * wo, c1)}
+
+
+def front_bwd_plan_bf16_card(b: int, h: int, w: int, c1: int) -> Dict[str, int]:
+    """The same plan as the built kernel reports it
+    (``dep_encode_front_bwd_bf16_plan``), for ``chip_smoke.py`` to hold
+    against ``front_bwd_plan_bf16``."""
+    lib = build.load("dep_encode_front_bwd", _BWD_SIGNATURES)
+    out = (ctypes.c_int * 8)()
+    build.check_launch(lib.dep_encode_front_bwd_bf16_plan(b, h, w, c1, out),
+                       "dep_encode_front_bwd_bf16_plan")
+    return dict(zip(("tiles_y", "tiles_x", "split", "threads", "smem", "chunks",
+                     "p0_pitch", "slices"), out))
+
+
+def dep_encode_front_bwd_bf16_tiles(g, xplane, w0, b0, w1, out, split: Optional[int] = None):
+    """K5-bf16 on the CPU with its dP0 pass as the kernel runs it, tile by
+    tile: gm = g [out > 0] staged with the tile's one-pixel halo (zeros past
+    the grid), each split's f32 sums over its chunks on the packed w1
+    (``quad_mma.pack``, ``quad_mma.mma_kstep``; the 128 M rows are the
+    tile's base pixels), the splits added in order, then p0's mask and one
+    bf16 rounding; the passes after it as ``dep_encode_front_bwd_plain_bf16``
+    computes them. ``split`` defaults to the plan's. Returns what
+    ``dep_encode_front_bwd_bf16`` returns; the sums run in another order
+    than the tensor cores', as the plain version's do."""
+    bsz, h, w = xplane.shape
+    c1 = w1.shape[0]
+    th, tw = DP0_TILE
+    plan = front_bwd_plan_bf16(bsz, h, w, c1)
+    n_split = plan["split"] if split is None else split
+    chunks = plan["chunks"]
+    x4 = xplane.float()[:, None]
+    w0r, w1r = _bf16(w0), _bf16(w1)
+    pf = F.relu(F.conv2d(x4, w0r, _bf16(b0), 2, 1))
+    p0 = _bf16(pf)
+    gm_nhwc = _bf16(g) * (out > 0)
+    ho, wo = gm_nhwc.shape[1:3]
+    h1, w1_ = p0.shape[2:]
+    gpad = torch.zeros(bsz, ho + th + 1, wo + tw + 1, chunks * DP0_CHUNK)
+    gpad[:, :ho, :wo, :c1] = gm_nhwc.float()
+    wp = quad_mma.pack(w1, 2 * chunks)
+    rows = [(i, j) for i in range(th) for j in range(tw)]
+    sums = torch.zeros(bsz, MID_CHANNELS, 2 * (ho + th), 2 * (wo + tw))
+    for b in range(bsz):
+        for a0 in range(0, ho, th):
+            for t0 in range(0, wo, tw):
+                a_rows = [torch.stack([gpad[b, a0 + i + sy, t0 + j + sx] for i, j in rows])
+                          for sy, sx in quad_mma.SHIFTS]
+                total = None
+                for sp in range(n_split):
+                    acc = torch.zeros(len(rows), 64)
+                    for kc in range(sp * chunks // n_split, (sp + 1) * chunks // n_split):
+                        for ks in (2 * kc, 2 * kc + 1):
+                            sl = slice(ks * quad_mma.KSTEP, (ks + 1) * quad_mma.KSTEP)
+                            quad_mma.mma_kstep(acc, [a[:, sl] for a in a_rows], wp[ks])
+                    total = acc if total is None else total + acc
+                for q, (dy, dx) in enumerate(quad_mma.PHASES):
+                    blk = total[:, 16 * q:16 * q + 16].t().reshape(MID_CHANNELS, th, tw)
+                    sums[b, :, 2 * a0 + dy:2 * (a0 + th):2, 2 * t0 + dx:2 * (t0 + tw):2] = blk
+    d_p0 = _bf16(sums[:, :, :h1, :w1_] * (pf > 0))
+    gm = gm_nhwc.permute(0, 3, 1, 2)
+    _, vjp1 = torch.func.vjp(lambda wt: _conv(p0, wt), w1r)
+    dw1, = vjp1(gm)
     _, vjp0 = torch.func.vjp(_conv, x4, w0r)
     dx, dw0 = vjp0(d_p0)
     return (dx[:, 0].to(torch.bfloat16), dw0, d_p0.sum((0, 2, 3)), dw1,
@@ -201,8 +298,9 @@ def _launch_bwd(g, xplane, w0, b0, w1, out):
     dw1b = torch.empty(c1 * m * 9 + c1, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         lib = build.load("dep_encode_front_bwd", _BWD_SIGNATURES)
-        scratch = torch.empty(lib.dep_encode_front_bwd_scratch_floats(bsz, h, w, c1),
-                              device=dev, dtype=torch.float32)
+        floats = (lib.dep_encode_front_bwd_bf16_scratch_floats if bf16
+                  else lib.dep_encode_front_bwd_scratch_floats)
+        scratch = torch.empty(floats(bsz, h, w, c1), device=dev, dtype=torch.float32)
         err = (lib.dep_encode_front_bwd_bf16 if bf16 else lib.dep_encode_front_bwd_f32)(
             xplane.data_ptr(), g.data_ptr(), out.data_ptr(), w0.data_ptr(),
             b0.data_ptr(), w1.data_ptr(), dx.data_ptr(), dw0b.data_ptr(),

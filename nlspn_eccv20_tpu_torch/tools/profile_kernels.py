@@ -33,8 +33,11 @@ K9 also at the serving shapes, b=1 and b=4 of 256x320; the devtools'
 K10b ``deform_colgather`` at NYU's b=12 of 228x304 and KITTI's b=1 of
 240x1216, and K10a ``deform_windowed`` at the same two and with 5x5
 neighbours at b=1 of 228x304, on the experiment's offsets clip(N(0,
-1.5^2), -4, 4); and the bf16 forms ``K4-bf16``, ``K5-bf16``, ``K9-bf16`` and
-``K9b-bf16``: K4-bf16 at b=12 and b=1 of the base grid with K=8 and K=24,
+1.5^2), -4, 4); and the bf16 forms ``K2-bf16``, ``K3-bf16``, ``K4-bf16``,
+``K5-bf16``, ``K9-bf16`` and ``K9b-bf16``: K2-bf16 at b=12 of the 58x76 base
+grid with y1 written (as training runs it) and without, and at b=1 and b=4
+of 64x80, also with K=24 at b=1, K3-bf16 at b=12 of 228x304 and at b=1 and
+b=4 of 256x320, K4-bf16 at b=12 and b=1 of the base grid with K=8 and K=24,
 K5-bf16 at b=12 and b=1 of 228x304, K9-bf16 at b=1 and b=4 of 256x320, b=12
 of 228x304 and b=2 of 57x75 with K=26, K9b-bf16 at b=12 and b=1 of 228x304
 and b=2 of 57x75 with K=26, their yardsticks cuDNN's bf16 calls) it
@@ -58,7 +61,10 @@ mode. Needs the CUDA card:
     python -m nlspn_eccv20_tpu_torch.tools.profile_kernels [K1 K6 ...]
 
 (the names given restrict it to those kernels' cases). One JSON object per
-case is printed, each on its own line.
+case is printed, each on its own line. Sources a tree lacks are left out of
+the build, so the same script times an older tree's kernels when it is
+copied into that tree (K2-bf16 was ``dec_aff_tail.cu`` at a bf16 element
+type before it had its own source).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import subprocess
 from collections import defaultdict
 
 import torch
+import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from nlspn_eccv20_tpu_torch.devtools.exp_deform3 import deform_colgather, deform_colgather_case
@@ -104,6 +111,7 @@ SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["d
            "K10a": ["deform_windowed"], "K10b": ["deform_colgather"],
            "K11a": ["interleave_asm"],
            "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"],
+           "K2-bf16": ["dec_aff_tail", "dec_aff_tail_bf16"], "K3-bf16": ["dep_encode_front"],
            "K4-bf16": ["dec_aff_tail_bwd"], "K5-bf16": ["dep_encode_front_bwd"],
            "K9-bf16": ["small_conv3x3_bf16"], "K9b-bf16": ["small_conv3x3_bwd_bf16"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
@@ -148,6 +156,11 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K10b", 12, 228, 304, {}), ("K10b", 1, 240, 1216, {}),
          ("K10a", 12, 228, 304, {}), ("K10a", 1, 240, 1216, {}),
          ("K10a", 1, 228, 304, {"kernel": 5}),
+         ("K2-bf16", 12, 58, 76, {"k": 8, "y1": True}), ("K2-bf16", 12, 58, 76, {"k": 8}),
+         ("K2-bf16", 1, 64, 80, {"k": 8}), ("K2-bf16", 4, 64, 80, {"k": 8}),
+         ("K2-bf16", 1, 64, 80, {"k": 24}),
+         ("K3-bf16", 12, 228, 304, {}), ("K3-bf16", 1, 256, 320, {}),
+         ("K3-bf16", 4, 256, 320, {}),
          *(("K4-bf16", b, 58, 76, {"k": k}) for b in (12, 1) for k in (8, 24)),
          ("K5-bf16", 12, 228, 304, {}), ("K5-bf16", 1, 228, 304, {}),
          ("K9-bf16", 1, 256, 320, {"k": 10}), ("K9-bf16", 4, 256, 320, {"k": 10}),
@@ -164,6 +177,22 @@ def onehot_matmul(ph, e):
     beforehand (``onehot_operands``, made contiguous)."""
     a, e2 = (t.contiguous() for t in onehot_operands(ph, e))
     return lambda: torch.matmul(a, e2)
+
+
+def bf16_tail_library(x, w1, b1, w2, b2):
+    """cuDNN's two bf16 transposed convs with the ReLU between them, on x
+    already in NCHW."""
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    w1b, b1b, w2b, b2b = (t.to(torch.bfloat16) for t in (w1, b1, w2, b2))
+    return lambda: F.conv_transpose2d(F.relu(F.conv_transpose2d(xn, w1b, b1b, 2, 1, 1)),
+                                      w2b, b2b, 2, 1, 1)
+
+
+def bf16_front_library(plane, w0, b0, w1, b1):
+    """cuDNN's two bf16 convs with their ReLUs, NCHW out."""
+    p4 = plane[:, None]
+    w0b, b0b, w1b, b1b = (t.to(torch.bfloat16) for t in (w0, b0, w1, b1))
+    return lambda: F.relu(F.conv2d(F.relu(F.conv2d(p4, w0b, b0b, 2, 1)), w1b, b1b, 2, 1))
 
 
 def passes_us(fn):
@@ -192,9 +221,12 @@ def run_case(gen, dev, kname, b, h, w, opts):
         fn = {"K1b": prop_step_bwd, "K7": deform_prop, "K1": prop_step}[kname]
         args, kw, library = case(gen, dev, b, h, w, **opts)
         kernel = lambda: fn(*args, **kw)
-    elif kname == "K2":
+    elif kname in ("K2", "K2-bf16"):
         args, library = decode_aff_tail_case(gen, dev, b, h, w, opts["k"],
                                              opts.get("c", 256))
+        if kname == "K2-bf16":   # bf16 x; the yardstick cuDNN's bf16 pair
+            args = (args[0].to(torch.bfloat16),) + args[1:]
+            library = bf16_tail_library(*args)
         fwd = decode_aff_tail_fwd_y1 if opts.get("y1") else decode_aff_tail
         kernel = lambda: fwd(*args)
     elif kname == "K6":
@@ -231,7 +263,11 @@ def run_case(gen, dev, kname, b, h, w, opts):
         kernel = {"K11a": lambda: interleave_asm(ph), "K11b": lambda: interleave_strided(ph),
                   "K11d": lambda: interleave_onehot(ph, e)}[kname]
     else:
-        args, library = dep_encode_front_case(gen, dev, b, h, w, **opts)
+        args, library = dep_encode_front_case(
+            gen, dev, b, h, w, **{k: v for k, v in opts.items() if k != "dtype"})
+        if kname == "K3-bf16":   # a bf16 plane; the yardstick cuDNN's bf16 pair
+            args = (args[0].to(torch.bfloat16),) + args[1:]
+            library = bf16_front_library(*args)
         kernel = lambda: dep_encode_front(*args)
     opts = {k: v for k, v in opts.items() if k != "dtype"}
     row = {"name": kname, "batch": b, "shape": [h, w], **opts,
@@ -254,7 +290,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = True
     dev = torch.device("cuda", 0)
     names = args.kernels or list(SOURCES)
-    reports = build.build_all(sorted({src for k in names for src in SOURCES[k]}))
+    have = set(build.kernel_names())
+    reports = build.build_all(sorted({src for k in names for src in SOURCES[k]} & have))
     for name, rep in sorted(reports.items()):
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:

@@ -48,6 +48,8 @@ BWD_KERNELS = {"prop_step_bwd_kernel": "K1b prop_step_bwd",
                "dx_mma_kernel": "K4 decode_aff_tail_bwd: dx pass on the tensor cores",
                "prep_w1_kernel": "K4 decode_aff_tail_bwd: w1 layout",
                "finish_dp0_kernel": "K5 dep_encode_front_bwd: dp0 split sums",
+               "dp0_mma_kernel": "K5 dep_encode_front_bwd: dp0 pass on the tensor cores",
+               "quad::prep_kernel": "K2/K5 weight layout for the tensor cores (quad_mma)",
                "dp0_kernel": "K5 dep_encode_front_bwd: dp0 pass",
                "dx0_kernel": "K5 dep_encode_front_bwd: dx0 pass",
                "bwd::wgrad_s2_kernel": "K4/K5 weight gradient (bwd_common)",

@@ -42,13 +42,28 @@ from nlspn_eccv20_tpu_torch.utils.torch_import import load_torchvision_resnet
 from nlspn_eccv20_tpu_torch.utils.weights import init_weights_
 
 
+DEVICES = 1   # the port runs on one device: the card, or the CPU
+
+
+def check_shards(cfg: Config) -> None:
+    """Raise ``ValueError`` where ``cfg.num_spatial_shards`` does not divide
+    the port's one device, worded as the JAX package's ``make_mesh`` words
+    it: width sharding is not ported, so any count above 1 is refused.
+    ``num_data_shards`` is accepted as the JAX mesh accepts it."""
+    s = cfg.num_spatial_shards
+    if s > 1 and DEVICES % s:
+        raise ValueError(f"{DEVICES} devices not divisible by num_spatial_shards={s}")
+
+
 class Engine:
     """Owns the model, loss, optimizer and LR schedule, and runs the steps.
 
     ``device`` is the CUDA card unless the caller passes ``device="cpu"``
-    (then every kernel runs its plain PyTorch version)."""
+    (then every kernel runs its plain PyTorch version). A ``cfg`` asking
+    for width shards is refused (``check_shards``)."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int = 1, device=None):
+        check_shards(cfg)
         self.cfg = cfg
         self.steps_per_epoch = max(steps_per_epoch, 1)
         self.loss_fn = get_loss(cfg)

@@ -395,7 +395,7 @@ def test_planar_channel_mlp_matches_jax():
 
 def test_every_source_builds_for_sm_90a_into_build():
     names = build.kernel_names()
-    assert names == ["dec_aff_tail", "dec_aff_tail_bwd", "deform_colgather",
+    assert names == ["dec_aff_tail", "dec_aff_tail_bf16", "dec_aff_tail_bwd", "deform_colgather",
                      "deform_prop", "deform_prop_bwd", "deform_windowed",
                      "dep_encode_front", "dep_encode_front_bwd",
                      "gather_probe", "interleave_asm", "interleave_onehot",

@@ -280,7 +280,8 @@ def test_k4_bf16_plan_covers_and_fits(b, hg, wg, c):
     tile of the base grid once and the 128-channel groups cover C; the dW1
     slices' segments partition the b hg wg pixels in order, each inside one
     row, at most 32 pixels (two k-steps of 16); two blocks of either pass
-    fit an SM (the dW1 pass for K4-bf16's bf16 x and K5-bf16's f32 gm)."""
+    fit an SM (the dW1 pass on bf16 A and P: K4-bf16's x and dY1, K5-bf16's
+    gm and p0)."""
     p = tail_bwd_plan_bf16(b, hg, wg, c)
     rows, cols = p["dx_grid_tiles"]
     assert (rows - 1) * 4 < hg <= rows * 4 and (cols - 1) * 16 < wg <= cols * 16
@@ -297,5 +298,5 @@ def test_k4_bf16_plan_covers_and_fits(b, hg, wg, c):
             assert 1 <= ln <= 32 and x0 + ln <= wg
             flat.extend((bi * hg + y) * wg + x for x in range(x0, x0 + ln))
     assert flat == list(range(b * hg * wg))
-    for smem in (p["dx_smem"], p["wg_smem"], p["wg_smem_f32"]):
+    for smem in (p["dx_smem"], p["wg_smem"]):
         assert 2 * (smem + 1024) <= port.CARD_SMEM
