@@ -107,7 +107,9 @@ Phases (any failure exits non-zero and prints no result):
      concat conv; each twice for equal bits, its bound that of its design
      (bytes, or 3 TF32 passes on the tensor cores) with its f32 FMA bound
      printed beside it; their bf16 forms K9-bf16 small_conv3x3_bf16 (the
-     same four shapes) and K9b-bf16 small_conv3x3_bwd_bf16 (B=12 and B=1
+     same four shapes, the odd 57x75 through its padded copy of x; its plan
+     from small_conv3x3_bf16_plan held equal to fwd_plan_bf16 at each) and
+     K9b-bf16 small_conv3x3_bwd_bf16 (B=12 and B=1
      of 228x304, B=2 of 57x75 with K 26) against their plain versions,
      which round per tap as the TPU kernel does, each twice for equal
      bits, timed beside cuDNN's bf16 conv over the concat or its backward
@@ -174,12 +176,14 @@ Phases (any failure exits non-zero and prints no result):
      on the odd 57x75 grid, with K=24, with C = 40 and 30 and on 29x38 and
      40x64 grids (every cluster size its source's plan picks, 8, 4, 2 and 1, runs;
      the plan that dec_aff_tail_bf16_plan reports held equal to
-     tail_plan_bf16, the mirror the CPU tests check), K3 with C1 = 96
-     and on a 230x306 plane; each shape twice for equal bits, within one
-     bf16 ulp of the largest plain output (2^-7 of it), K2's output and
-     its training form's y1 (decode_aff_tail_fwd_y1) each at most 1e-2 not
-     bit-equal (a rounding per shift, or of a partial sum, puts far more
-     off), K3's share of elements not bit-equal printed, timed beside its
+     tail_plan_bf16, the mirror the CPU tests check), K3 also at the
+     train step's B=12 of 228x304, with C1 = 96 and on a 230x306 plane
+     (its plan from dep_encode_front_bf16_plan held equal to
+     front_plan_bf16 at each shape); each shape twice for equal bits,
+     within one bf16 ulp of the largest plain output (2^-7 of it), K2's
+     output and its training form's y1 (decode_aff_tail_fwd_y1) and K3's
+     output each at most 1e-2 not bit-equal (a rounding per shift or per
+     tap, or of a partial sum, puts far more off), timed beside its
      plain version,
      cuDNN's two bf16 convs (the library time) and its bound (2-byte
      inputs; bf16 operations at the tensor cores' peak); then the three
@@ -329,7 +333,8 @@ def main() -> int:
         dep_encode_front, dep_encode_front_bf16, dep_encode_front_bwd,
         dep_encode_front_bwd_bf16, dep_encode_front_bwd_case, dep_encode_front_bwd_plain,
         dep_encode_front_bwd_plain_bf16, dep_encode_front_case, dep_encode_front_plain,
-        dep_encode_front_plain_bf16, front_bwd_plan_bf16, front_bwd_plan_bf16_card)
+        dep_encode_front_plain_bf16, front_bwd_plan_bf16, front_bwd_plan_bf16_card,
+        front_plan_bf16, front_plan_bf16_card)
     from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import (
         launch_fwd as launch_loop, plan as loop_plan, prop_loop, prop_loop_bwd,
         prop_loop_bwd_case, prop_loop_bwd_plain, prop_loop_case, prop_loop_plain)
@@ -337,7 +342,8 @@ def main() -> int:
         prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_bwd_plain, prop_step_case,
         prop_step_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
-        fuse_heads_dec0, small_conv3x3_bf16, small_conv3x3_bwd, small_conv3x3_bwd_bf16,
+        fuse_heads_dec0, fwd_plan_bf16, fwd_plan_bf16_card, small_conv3x3_bf16,
+        small_conv3x3_bwd, small_conv3x3_bwd_bf16,
         small_conv3x3_bwd_case, small_conv3x3_bwd_plain, small_conv3x3_bwd_plain_bf16,
         small_conv3x3_case, small_conv3x3_plain, small_conv3x3_plain_bf16,
         small_conv3x3_planar)
@@ -1365,6 +1371,11 @@ def main() -> int:
                        (2, 57, 75, 26)):
         shape = "" if (h, w, k) == (H, W, 10) else f" {h}x{w} K={k}"
         args, library = small_conv3x3_case(gen, dev, b, h, w, k, CA, CB, dtype=bf16)
+        plan = fwd_plan_bf16(b, h, w, CA, CB, k)
+        card_plan = fwd_plan_bf16_card(b, h, w, CA, CB, k)
+        if any(card_plan[key] != plan[key] for key in card_plan):
+            raise AssertionError(f"small_conv3x3_bf16 B={b}{shape}: the source's plan "
+                                 f"{card_plan}, its mirror's {plan}")
         out, ref = small_conv3x3_bf16(*args), small_conv3x3_plain_bf16(*args)
         torch.cuda.synchronize()
         if not same_bits(lambda: small_conv3x3_bf16(*args)):
@@ -1373,7 +1384,7 @@ def main() -> int:
         share = (out != ref).float().mean().item()
         log(f"[kernel] small_conv3x3_bf16 B={b}{shape}: equal bits in two runs; {share:.3e} "
             f"of the outputs not bit-equal to the plain version (per-tap rounding; bar "
-            f"{fwd_share_bar:.0e})")
+            f"{fwd_share_bar:.0e}); its plan {card_plan} equal to fwd_plan_bf16's")
         if not share <= fwd_share_bar:
             raise AssertionError(f"small_conv3x3_bf16 B={b}{shape}: {share:.3e} of the outputs "
                                  f"not bit-equal > {fwd_share_bar:.0e}")
@@ -2056,8 +2067,15 @@ def main() -> int:
                                      f"training form {err:.3e}, {share:.3e} not bit-equal")
 
     def check_k3_bf16(b, h, w, c=256):
+        """K3-bf16 at most 1e-2 not bit-equal; its plan as the source
+        reports it."""
         (plane, w0, b0, w1, b1), _ = dep_encode_front_case(gen, dev, b, h, w, c)
         args = (plane.to(bf16), w0, b0, w1, b1)
+        shape = "" if (h, w, c) == (H, W, 256) else f" {h}x{w} C1={c}"
+        plan = front_plan_bf16(b, h, w, c, sms)
+        if front_plan_bf16_card(b, h, w, c, sms) != plan:
+            raise AssertionError(f"dep_encode_front_bf16 B={b}{shape}: the source's plan "
+                                 f"{front_plan_bf16_card(b, h, w, c, sms)}, its mirror's {plan}")
         p4, w0b, b0b, w1b, b1b = (args[0][:, None], w0.to(bf16), b0.to(bf16),
                                   w1.to(bf16), b1.to(bf16))
 
@@ -2066,9 +2084,11 @@ def main() -> int:
 
         flops = 2 * b * (taps_s2(h) * taps_s2(w) * 16
                          + taps_s2((h + 1) // 2) * taps_s2((w + 1) // 2) * 16 * c)
-        check_bf16("dep_encode_front_bf16", b, "" if (h, w, c) == (H, W, 256)
-                   else f" {h}x{w} C1={c}", dep_encode_front_bf16,
-                   dep_encode_front_plain_bf16, library, args, lambda t: t.float(), flops)
+        check_bf16("dep_encode_front_bf16", b, shape, dep_encode_front_bf16,
+                   dep_encode_front_plain_bf16, library, args, lambda t: t.float(), flops,
+                   share_bar=1e-2)
+        log(f"[bf16] dep_encode_front_bf16 B={b}{shape}: its plan {plan} equal to "
+            f"front_plan_bf16's")
 
     bf16_wrappers = {"decode_aff_tail_bf16": decode_aff_tail_bf16,
                      "dep_encode_front_bf16": dep_encode_front_bf16}
@@ -2185,6 +2205,7 @@ def main() -> int:
         if k2_bf16_splits != set(SPLITS):
             raise AssertionError(f"decode_aff_tail_bf16: cluster sizes "
                                  f"{sorted(k2_bf16_splits)} checked, its plan picks {SPLITS}")
+        check_k3_bf16(TRAIN_B, REQ_H, REQ_W)
         check_k3_bf16(1, REQ_H, REQ_W, c=96)
         check_k3_bf16(1, 230, 306)
         log(f"[bf16] kernels: {time.perf_counter() - t_bf16:.1f} s")
@@ -2513,7 +2534,7 @@ def main() -> int:
                              "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),
         "decode_aff_tail_bf16": ("nlspn_eccv20_tpu_torch/csrc/dec_aff_tail_bf16.cu",
                                  "nlspn_eccv20_tpu/ops/pallas/dec_aff_tail.py:284"),
-        "dep_encode_front_bf16": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front.cu",
+        "dep_encode_front_bf16": ("nlspn_eccv20_tpu_torch/csrc/dep_encode_front_bf16.cu",
                                   "nlspn_eccv20_tpu/ops/pallas/dep_encode_front.py:251"),
         "prop_step_bwd": ("nlspn_eccv20_tpu_torch/csrc/prop_step_bwd.cu",
                           "nlspn_eccv20_tpu/ops/pallas/local_prop.py:148"),

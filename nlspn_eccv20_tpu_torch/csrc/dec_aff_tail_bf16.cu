@@ -73,6 +73,7 @@
 
 #include <cstdint>
 
+#include "card.cuh"
 #include "cp_async.cuh"
 #include "quad_mma.cuh"
 #include "wgmma_bf16.cuh"
@@ -443,14 +444,6 @@ int launch_k(const Plan& p, const __nv_bfloat16* x, const __nv_bfloat16* wp1,
   }
 }
 
-int card_sms() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
-}
-
 }  // namespace
 
 // K2-bf16's launch plan on a card with sms SMs, as dec_aff_tail_bf16 takes
@@ -480,7 +473,10 @@ extern "C" int dec_aff_tail_bf16(const __nv_bfloat16* x, const float* w1, const 
                                  void* stream) {
   if (K != 8 && K != 24) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const Plan p = plan(B, Hg, Wg, C, K, card_sms());
+  int sms = 0;
+  const cudaError_t err = card_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const Plan p = plan(B, Hg, Wg, C, K, sms);
   __nv_bfloat16* wp1 = reinterpret_cast<__nv_bfloat16*>(scratch);
   __nv_bfloat16* wp2 = wp1 + (long)2 * p.chunks * quad::KSTEP_BF16;
   quad::prep(w1, wp1, C, 2 * p.chunks, s);

@@ -36,33 +36,11 @@
 // not carried over. Plain f32 FMAs in the order of the first form: no
 // tensor cores.
 //
-// bf16 form (dep_encode_front_bf16, precision='bf16'): the same kernel with
-// T = __nv_bfloat16. The plane is bf16; the f32 weights and biases are
-// rounded to bf16 as they are staged; products and sums stay f32 FMAs (a
-// product of two bf16 values is exact in f32). As the TPU kernel does
-// (_recompute_fwd, _fwd_kernel), conv0's output is rounded to bf16 after
-// its bias and ReLU, and so is each output after its full sum, bias and
-// ReLU; the output is NHWC bf16. With T = float every rounding is the
-// identity: the f32 kernel's arithmetic is unchanged.
+// The bf16 form, K3-bf16, has its own source: dep_encode_front_bf16.cu.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 namespace {
-
-// v rounded to T and held in f32: the identity for float.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  if constexpr (std::is_same_v<T, float>) return v;
-  else return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
 
 constexpr int M = 16;              // conv0 output channels
 constexpr int TOH = 4;             // output tile rows
@@ -90,11 +68,10 @@ static_assert(TOH == 4 && YP >= YC && YP % 4 == 0 && (2 * YP) % 32 == 8,
   A[2] = fmaf((W).z, X, A[2]); \
   A[3] = fmaf((W).w, X, A[3]);
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-dep_encode_front_kernel(const T* __restrict__ x, const float* __restrict__ w0,
+dep_encode_front_kernel(const float* __restrict__ x, const float* __restrict__ w0,
                         const float* __restrict__ b0, const float* __restrict__ w1,
-                        const float* __restrict__ b1, T* __restrict__ out,
+                        const float* __restrict__ b1, float* __restrict__ out,
                         int H, int W, int C1, int n_groups) {
   extern __shared__ float4 smem4[];
   float* w1s = reinterpret_cast<float*>(smem4);  // [m * 9 + tap][WP]
@@ -112,16 +89,16 @@ dep_encode_front_kernel(const T* __restrict__ x, const float* __restrict__ w0,
 
   for (int i = tid; i < CB * M * 9; i += NT) {
     const int cl = i / (M * 9), s = i % (M * 9);
-    w1s[s * WP + cl] = co0 + cl < C1 ? round_to<T>(__ldg(w1 + (long)co0 * M * 9 + i)) : 0.0f;
+    w1s[s * WP + cl] = co0 + cl < C1 ? __ldg(w1 + (long)co0 * M * 9 + i) : 0.0f;
   }
-  for (int i = tid; i < M * 9; i += NT) w0s[(i % 9) * M + i / 9] = round_to<T>(__ldg(w0 + i));
-  if (tid < M) b0s[tid] = round_to<T>(__ldg(b0 + tid));
+  for (int i = tid; i < M * 9; i += NT) w0s[(i % 9) * M + i / 9] = __ldg(w0 + i);
+  if (tid < M) b0s[tid] = __ldg(b0 + tid);
   // the plane rows 4 oy0 - 3 ... and cols 4 ox0 - 3 ..., zero outside
-  const T* xb = x + (long)b * H * W;
+  const float* xb = x + (long)b * H * W;
   for (int i = tid; i < XR * XC; i += NT) {
     const int r = i / XC, c = i % XC;
     const int yy = 4 * oy0 - 3 + r, xx = 4 * ox0 - 3 + c;
-    xs[r * XP + c] = yy >= 0 && yy < H && xx >= 0 && xx < W ? load(xb + (long)yy * W + xx) : 0.0f;
+    xs[r * XP + c] = yy >= 0 && yy < H && xx >= 0 && xx < W ? __ldg(xb + (long)yy * W + xx) : 0.0f;
   }
   __syncthreads();
 
@@ -147,7 +124,7 @@ dep_encode_front_kernel(const T* __restrict__ x, const float* __restrict__ w0,
         FMA4(s, w, xv[t])
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) dst[(4 * j + q) * YR * YP] = round_to<T>(fmaxf(s[q], 0.0f));
+      for (int q = 0; q < 4; ++q) dst[(4 * j + q) * YR * YP] = fmaxf(s[q], 0.0f);
     }
   }
   __syncthreads();
@@ -161,7 +138,7 @@ dep_encode_front_kernel(const T* __restrict__ x, const float* __restrict__ w0,
   float acc[PX][4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const float bias = co + q < C1 ? round_to<T>(__ldg(b1 + co + q)) : 0.0f;
+    const float bias = co + q < C1 ? __ldg(b1 + co + q) : 0.0f;
 #pragma unroll
     for (int j = 0; j < PX; ++j) acc[j][q] = bias;
   }
@@ -192,54 +169,36 @@ dep_encode_front_kernel(const T* __restrict__ x, const float* __restrict__ w0,
   }
   const int oy = oy0 + row;
   if (co >= C1 || oy >= Ho) return;
-  T* orow = out + ((long)b * Ho + oy) * Wo * C1 + co;
+  float* orow = out + ((long)b * Ho + oy) * Wo * C1 + co;
   const bool vec = C1 % 4 == 0 && co + 3 < C1;
 #pragma unroll
   for (int j = 0; j < PX; ++j) {
     const int ox = ox0 + PX * seg + j;
     if (ox >= Wo) break;
-    T* o = orow + (long)ox * C1;
-    if constexpr (std::is_same_v<T, float>) {
-      if (vec) {
-        *reinterpret_cast<float4*>(o) =
-            make_float4(fmaxf(acc[j][0], 0.0f), fmaxf(acc[j][1], 0.0f),
-                        fmaxf(acc[j][2], 0.0f), fmaxf(acc[j][3], 0.0f));
-      } else {
+    float* o = orow + (long)ox * C1;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(fmaxf(acc[j][0], 0.0f), fmaxf(acc[j][1], 0.0f),
+                      fmaxf(acc[j][2], 0.0f), fmaxf(acc[j][3], 0.0f));
+    } else {
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (co + q < C1) o[q] = fmaxf(acc[j][q], 0.0f);
-      }
-    } else {  // 4 channels = 8 bytes, 8-byte aligned when C1 % 4 == 0
-      if (vec) {
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(fmaxf(acc[j][0], 0.0f),
-                                                        fmaxf(acc[j][1], 0.0f));
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(fmaxf(acc[j][2], 0.0f),
-                                                        fmaxf(acc[j][3], 0.0f));
-        uint2 v;
-        v.x = *reinterpret_cast<const unsigned*>(&lo);
-        v.y = *reinterpret_cast<const unsigned*>(&hi);
-        *reinterpret_cast<uint2*>(o) = v;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (co + q < C1) o[q] = __float2bfloat16_rn(fmaxf(acc[j][q], 0.0f));
-      }
+      for (int q = 0; q < 4; ++q)
+        if (co + q < C1) o[q] = fmaxf(acc[j][q], 0.0f);
     }
   }
 }
 
-template <typename T>
-int launch(const T* x, const float* w0, const float* b0, const float* w1,
-           const float* b1, T* out, int B, int H, int W, int C1, void* stream) {
+int launch(const float* x, const float* w0, const float* b0, const float* w1,
+           const float* b1, float* out, int B, int H, int W, int C1, void* stream) {
   const int H1 = (H + 1) / 2, W1 = (W + 1) / 2;
   const int Ho = (H1 + 1) / 2, Wo = (W1 + 1) / 2;
   const int n_groups = (C1 + CB - 1) / CB;
   const int smem = SMEM_FLOATS * (int)sizeof(float);
   const cudaError_t err = cudaFuncSetAttribute(
-      dep_encode_front_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dep_encode_front_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Wo + TOW - 1) / TOW, (Ho + TOH - 1) / TOH, B * n_groups);
-  dep_encode_front_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  dep_encode_front_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       x, w0, b0, w1, b1, out, H, W, C1, n_groups);
   return (int)cudaGetLastError();
 }
@@ -248,18 +207,10 @@ int launch(const T* x, const float* w0, const float* b0, const float* w1,
 
 }  // namespace
 
-// Each returns cudaGetLastError() after the launch. The bf16 form takes a
-// bf16 plane and writes a bf16 output; weights and biases are f32 in both.
+// Returns cudaGetLastError() after the launch.
 extern "C" int dep_encode_front_f32(const float* x, const float* w0,
                                     const float* b0, const float* w1,
                                     const float* b1, float* out, int B, int H,
                                     int W, int C1, void* stream) {
-  return launch<float>(x, w0, b0, w1, b1, out, B, H, W, C1, stream);
-}
-
-extern "C" int dep_encode_front_bf16(const __nv_bfloat16* x, const float* w0,
-                                     const float* b0, const float* w1,
-                                     const float* b1, __nv_bfloat16* out, int B,
-                                     int H, int W, int C1, void* stream) {
-  return launch<__nv_bfloat16>(x, w0, b0, w1, b1, out, B, H, W, C1, stream);
+  return launch(x, w0, b0, w1, b1, out, B, H, W, C1, stream);
 }

@@ -60,6 +60,7 @@
 
 #include <cuda_runtime.h>
 
+#include "card.cuh"
 #include "cp_async.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -326,13 +327,6 @@ Plan plan(int B, int H, int W, int C, int K, int sms) {
 }
 
 size_t weight_floats(const Plan& p) { return (size_t)p.chunks * 9 * 16 * p.n; }
-
-cudaError_t card_sms(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

@@ -21,24 +21,37 @@
 // GB (x read in bf16, out written): 132 us of HBM; its 38.3 GFLOP are 39 us
 // on the bf16 tensor cores (572 us of f32 FMAs). So it runs on bf16 wgmma
 // (wgmma_bf16.cuh) as an implicit GEMM per tap: M = pixels, N = K rounded
-// up to 8, the reduction over the channels in k-steps of 16; nine
-// accumulators a thread, one a tap, each summing all Ca + Cb channels of
-// its tap, so that each can be rounded on its own at the end.
+// up to 8, the reduction over the channels in k-steps of 16; one
+// accumulator a tap, each summing all Ca + Cb channels of its tap, so that
+// each can be rounded on its own at the end.
 //
 // Layout: 256 threads, two warpgroups; a block tile of 4 x 32 pixels, a
 // warpgroup's M-tile 4 rows x 16 columns (a warp a row). Channels stream
-// through shared memory 16 at a time in three stages: the chunk's x tile
-// with its one-pixel halo as raw bf16 (16-byte cp.async copies of 8
-// columns where W % 8 == 0, else plain loads; zeros outside the image) and
-// its weights, rounded to bf16 once a call by prep_weights_kernel and laid
-// out there as the K-major core matrices wgmma reads. A (64 x 16) comes from
-// registers, two 16-bit loads a word straight from the staged tile at the
-// tap's offset, with two fragment buffers so that one tap's A is built
-// while the previous tap's product runs. The epilogue rounds the nine
-// accumulators to bf16, adds them in tap order and the rounded bias in f32,
-// rounds, and writes bf16 from registers. No splits and no atomics: two
-// runs give the same bits. K <= 16 holds 72 accumulators a thread (two
-// blocks an SM); K up to 32 holds 144 (one block an SM).
+// through shared memory 16 at a time in three stages, each filled two
+// chunks ahead: the chunk's x tile with its one-pixel halo as raw bf16, by
+// 16-byte cp.async copies of 8 columns, and its weights, rounded to bf16
+// once a call by prep_weights_kernel and laid out there as the K-major core
+// matrices wgmma reads, by one bulk copy completing on an mbarrier (copied
+// 16 bytes a thread, their issue held each chunk up). A (64 x 16) comes
+// from registers, two 16-bit loads a word straight from the staged tile at
+// the tap's offset; a chunk's nine taps are built and issued together (five
+// then four at K <= 16, where two blocks share an SM's registers), one
+// fence and one wait a batch (the first form waited for each product before
+// building the next tap's fragments: nine product latencies a chunk). The
+// epilogue rounds the nine accumulators to bf16 in registers, adds them in
+// tap order and the rounded bias in f32, rounds, and writes bf16. No splits
+// and no atomics: two runs give the same bits.
+//
+// Rows whose width is not a multiple of 8 (57x75, say) cannot be copied 16
+// bytes at a time, so pad_rows_kernel first copies x into rows of a multiple
+// of 8 columns, zero past W (4.7 MB at b=2 of 57x75, a few us), and the
+// kernel reads that copy. The first form loaded such rows two bytes at a
+// time after each barrier (77 us at b=2 of 57x75 with K 26, 1.8x cuDNN);
+// loaded a chunk ahead into registers, the loads still held up each chunk's
+// shared-memory reads. Splitting the nine taps over a cluster of three CTAs
+// where the tiles do not fill the card (three accumulators a CTA, two CTAs
+// an SM) ran slower at 57x75 than one CTA a tile: each CTA still stages
+// every chunk.
 
 #include <cstdint>
 
@@ -73,6 +86,7 @@ struct Cfg {
   static constexpr int STAGE = XB + WB;                  // bf16 a stage
   static constexpr int SMEM = STAGES * STAGE * 2;
   static constexpr int MINB = N <= 16 ? 2 : 1;           // blocks an SM
+  static constexpr int BATCH = N == 16 ? 5 : 9;          // taps' A fragments held at once
 };
 
 // The weights as the chunks stage them, rounded to bf16: wp[chunk][tap][N x
@@ -92,59 +106,72 @@ prep_weights_kernel(const float* __restrict__ w, __nv_bfloat16* __restrict__ wp,
   }
 }
 
-template <int N, bool kVec>
+// xp (B, Ca + Cb, H, P) = the concat of xa and xb, its rows zero past W
+// (P, a multiple of 8, >= W); 16 bytes a thread
+__global__ void __launch_bounds__(256)
+pad_rows_kernel(const __nv_bfloat16* __restrict__ xa, const __nv_bfloat16* __restrict__ xb,
+                __nv_bfloat16* __restrict__ xp, int B, int H, int W, int Ca, int Cb, int P) {
+  const int C = Ca + Cb, pieces = P / 8;
+  const long total = (long)B * C * H * pieces;
+  const unsigned short* ua = reinterpret_cast<const unsigned short*>(xa);
+  const unsigned short* ub = reinterpret_cast<const unsigned short*>(xb);
+  for (long i = blockIdx.x * 256L + threadIdx.x; i < total; i += (long)gridDim.x * 256) {
+    const long row = i / pieces;
+    const int x = (int)(i % pieces) * 8, y = (int)(row % H), c = (int)((row / H) % C);
+    const long b = row / ((long)H * C);
+    const unsigned short* src =
+        (c < Ca ? ua + ((b * Ca + c) * H + y) * W : ub + ((b * Cb + c - Ca) * H + y) * W) + x;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[e] = (x + 2 * e < W ? (uint32_t)__ldg(src + 2 * e) : 0u) |
+             (x + 2 * e + 1 < W ? (uint32_t)__ldg(src + 2 * e + 1) << 16 : 0u);
+    *reinterpret_cast<uint4*>(xp + row * P + x) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// x rows P bf16 apart (P % 8 == 0, xa and xb 16-byte aligned)
+template <int N>
 __global__ void __launch_bounds__(THREADS, Cfg<N>::MINB)
 small_conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xa,
                           const __nv_bfloat16* __restrict__ xb,
                           const __nv_bfloat16* __restrict__ wp, const float* __restrict__ bias,
-                          __nv_bfloat16* __restrict__ out, int H, int W, int Ca, int Cb, int K) {
+                          __nv_bfloat16* __restrict__ out, int H, int W, int P, int Ca, int Cb,
+                          int K) {
   using G = Cfg<N>;
-  constexpr int ND = N / 2;
+  constexpr int ND = N / 2, BATCH = G::BATCH;
   extern __shared__ __align__(128) unsigned short sm[];   // [STAGES][x tile XB | weights WB]
+  __shared__ uint64_t wbar[STAGES];                        // a stage's weights have landed
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gid = lane >> 2, tig = lane & 3, wg = warp >> 2, wr = warp & 3;
   const int C = Ca + Cb, chunks = (C + CH - 1) / CH;
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TR, x0 = blockIdx.x * TC;
-  const size_t plane = (size_t)H * W;
-  const __nv_bfloat16* xab = xa + (size_t)b * Ca * plane;
-  const __nv_bfloat16* xbb = xb + (size_t)b * Cb * plane;
+  const size_t xplane = (size_t)H * P, plane = (size_t)H * W;
+  const __nv_bfloat16* xab = xa + (size_t)b * Ca * xplane;
+  const __nv_bfloat16* xbb = xb + (size_t)b * Cb * xplane;
 
-  // issues the copies of chunk ch (x tile, weights) into stage buf
+  // issues the copies of chunk ch into stage buf: its x tile, 16 planes x
+  // (TR + 2) rows x RP / 8 pieces of 8 columns, each wholly inside or
+  // outside the image (x0 - 8 a multiple of 8), one cp.async group; its
+  // weights, one bulk copy on wbar[buf]
   auto stage = [&](int ch, int buf) {
     unsigned short* xd = sm + buf * G::STAGE;
-    const int c0 = ch * CH;
-    if constexpr (kVec) {
-      // 16 planes x (TR + 2) rows x RP / 8 pieces of 8 columns, each wholly
-      // inside or outside the image (W % 8 == 0, x0 - 8 a multiple of 8)
-      constexpr int Q = RP / 8, PER = (TR + 2) * Q;
-      for (int i = tid; i < CH * PER; i += THREADS) {
-        const int cc = i / PER, e = i - cc * PER, row = e / Q, q = e - row * Q;
-        const int c = c0 + cc, y = y0 - 1 + row, x = x0 - 8 + 8 * q;
-        const bool ok = c < C && y >= 0 && y < H && x >= 0 && x < W;
-        const __nv_bfloat16* src = xa;
-        if (ok) src = (c < Ca ? xab + (size_t)c * plane : xbb + (size_t)(c - Ca) * plane) + y * W + x;
-        cpa::copy16(xd + cc * PS + row * RP + 8 * q, src, ok);
-      }
-    } else {  // plain loads: the stage is not read before the next barrier
-      constexpr int Q = TC + 2, PER = (TR + 2) * Q;   // columns x0 - 1 .. x0 + TC
-      for (int i = tid; i < CH * PER; i += THREADS) {
-        const int cc = i / PER, e = i - cc * PER, row = e / Q, q = e - row * Q;
-        const int c = c0 + cc, y = y0 - 1 + row, x = x0 - 1 + q;
-        unsigned short v = 0;
-        if (c < C && y >= 0 && y < H && x >= 0 && x < W) {
-          const __nv_bfloat16* src =
-              (c < Ca ? xab + (size_t)c * plane : xbb + (size_t)(c - Ca) * plane) + y * W + x;
-          v = *reinterpret_cast<const unsigned short*>(src);
-        }
-        xd[cc * PS + row * RP + XC0 + q] = v;
-      }
+    constexpr int Q = RP / 8, PER = (TR + 2) * Q;
+    for (int i = tid; i < CH * PER; i += THREADS) {
+      const int cc = i / PER, e = i - cc * PER, row = e / Q, q = e - row * Q;
+      const int c = ch * CH + cc, y = y0 - 1 + row, x = x0 - 8 + 8 * q;
+      const bool ok = c < C && y >= 0 && y < H && x >= 0 && x < W;
+      const __nv_bfloat16* src = xa;
+      if (ok) src = (c < Ca ? xab + c * xplane : xbb + (c - Ca) * xplane) + (size_t)y * P + x;
+      cpa::copy16(xd + cc * PS + row * RP + 8 * q, src, ok);
     }
-    const uint4* ws = reinterpret_cast<const uint4*>(wp + (size_t)ch * G::WB);
-    uint4* wd = reinterpret_cast<uint4*>(xd + XB);
-    for (int i = tid; i < G::WB / 8; i += THREADS) cpa::copy16(wd + i, ws + i, true);
     cpa::commit();
+    if (tid == 0) {
+      cpa::mbar_arrive_expect_tx(&wbar[buf], G::WB * 2);
+      cpa::bulk_load(xd + XB, wp + (size_t)ch * G::WB, G::WB * 2, &wbar[buf]);
+    }
   };
 
   // this thread's A place in a staged tile: plane 2 tig, its warp's row,
@@ -160,40 +187,54 @@ small_conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xa,
     hold(acc[t]);
   }
 
-  // chunk ch + 1's copies are issued after chunk ch's barrier, into the
-  // stage chunk ch - 2 used; every product of chunk ch - 1 has finished
-  // (wait<0> at the end of each chunk) before that barrier
+  // Chunk ch + 2's copies are issued after chunk ch's barrier, into the
+  // stage chunk ch - 1 used (every product of chunk ch - 1 has finished:
+  // wait<0> at the end of each chunk); each chunk commits one cp.async
+  // group, empty past the last chunk.
+  if (tid < STAGES) cpa::mbar_init(&wbar[tid], 1);
+  __syncthreads();
   stage(0, 0);
-  uint32_t a[2][4];
-  for (int ch = 0, buf = 0; ch < chunks; ++ch, buf = buf == STAGES - 1 ? 0 : buf + 1) {
-    cpa::wait<0>();
+  if (chunks > 1) stage(1, 1);
+  else cpa::commit();
+  uint32_t a[BATCH][4];
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int buf = ch % STAGES;
+    cpa::wait<1>();
+    cpa::mbar_wait(&wbar[buf], (ch / STAGES) & 1);
     fence_async_smem();
     __syncthreads();
-    if (ch + 1 < chunks) stage(ch + 1, buf == STAGES - 1 ? 0 : buf + 1);
+    if (ch + 2 < chunks) stage(ch + 2, (ch + 2) % STAGES);
+    else cpa::commit();
     const unsigned short* xs = sm + buf * G::STAGE;
-    // the tap's weights: N x 16 bf16 (descriptor addresses count 16 bytes)
+    // a tap's weights: N x 16 bf16 (descriptor addresses count 16 bytes)
     const uint64_t wdesc = kmajor_desc_b16(xs + XB, 128, 256);
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int f = tap & 1;
-      const unsigned short* p = xs + abase + (tap / 3) * RP + tap % 3;
-      if (tap >= 2) {   // the group that read buffer f
-        wgmma_wait<1>();
-        hold(a[f]);
+    for (int t0 = 0; t0 < 9; t0 += BATCH) {
+      if (t0 > 0) {   // the batch before has read its fragments
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < BATCH; ++j) hold(a[j]);
       }
-      a[f][0] = pack_raw(p[0], p[PS]);
-      a[f][1] = pack_raw(p[8], p[PS + 8]);
-      a[f][2] = pack_raw(p[8 * PS], p[9 * PS]);
-      a[f][3] = pack_raw(p[8 * PS + 8], p[9 * PS + 8]);
+#pragma unroll
+      for (int j = 0; j < BATCH && t0 + j < 9; ++j) {
+        const int tap = t0 + j;
+        const unsigned short* p = xs + abase + (tap / 3) * RP + tap % 3;
+        a[j][0] = pack_raw(p[0], p[PS]);
+        a[j][1] = pack_raw(p[8], p[PS + 8]);
+        a[j][2] = pack_raw(p[8 * PS], p[9 * PS]);
+        a[j][3] = pack_raw(p[8 * PS + 8], p[9 * PS + 8]);
+      }
       wgmma_fence();
-      wgmma_bf16<N>(acc[tap], a[f], wdesc + tap * 16 * N * 2 / 16);
+#pragma unroll
+      for (int j = 0; j < BATCH && t0 + j < 9; ++j)
+        wgmma_bf16<N>(acc[t0 + j], a[j], wdesc + (t0 + j) * 16 * N * 2 / 16);
       wgmma_commit();
     }
     wgmma_wait<0>();
 #pragma unroll
     for (int t = 0; t < 9; ++t) hold(acc[t]);
-    hold(a[0]);
-    hold(a[1]);
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) hold(a[j]);
   }
 
   // acc[t][4j + 2h + e]: pixel gid + 8h of the warp's row and warpgroup's
@@ -220,52 +261,101 @@ small_conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ xa,
   }
 }
 
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+struct Plan {
+  int n, tiles_x, tiles_y, pitch, threads, smem, min_blocks, chunks;
+};
+
+// N = K rounded up to 8; 4 x 32 tiles; x read in rows of pitch bf16 (W, or
+// the padded copy's W rounded up to 8)
+Plan plan(int H, int W, int C, int K) {
+  Plan p;
+  p.n = (K + 7) / 8 * 8;
+  p.tiles_x = (W + TC - 1) / TC;
+  p.tiles_y = (H + TR - 1) / TR;
+  p.pitch = (W + 7) / 8 * 8;
+  p.threads = THREADS;
+  p.chunks = (C + CH - 1) / CH;
+  switch (p.n) {
+    case 8: p.smem = Cfg<8>::SMEM; p.min_blocks = Cfg<8>::MINB; break;
+    case 16: p.smem = Cfg<16>::SMEM; p.min_blocks = Cfg<16>::MINB; break;
+    case 24: p.smem = Cfg<24>::SMEM; p.min_blocks = Cfg<24>::MINB; break;
+    default: p.smem = Cfg<32>::SMEM; p.min_blocks = Cfg<32>::MINB; break;
+  }
+  return p;
+}
 
 template <int N>
-cudaError_t launch(const __nv_bfloat16* xa, const __nv_bfloat16* xb, const float* w,
-                   const float* b, __nv_bfloat16* wp, __nv_bfloat16* out, int B, int H, int W,
-                   int Ca, int Cb, int K, cudaStream_t s) {
-  const int chunks = (Ca + Cb + CH - 1) / CH;
-  const int total = chunks * 9 * 16 * N;
-  prep_weights_kernel<N><<<(total + 255) / 256, 256, 0, s>>>(w, wp, Ca + Cb, K, chunks);
-  // 16-byte copies of x where every row and plane start is 16-byte aligned
-  const bool vec = W % 8 == 0 && aligned16(xa) && aligned16(xb);
-  auto kernel = vec ? small_conv3x3_bf16_kernel<N, true> : small_conv3x3_bf16_kernel<N, false>;
+cudaError_t launch(const Plan& p, const __nv_bfloat16* xa, const __nv_bfloat16* xb,
+                   const float* w, const float* b, __nv_bfloat16* wp, __nv_bfloat16* xp,
+                   __nv_bfloat16* out, int B, int H, int W, int Ca, int Cb, int K,
+                   cudaStream_t s) {
+  const int total = p.chunks * 9 * 16 * N;
+  prep_weights_kernel<N><<<(total + 255) / 256, 256, 0, s>>>(w, wp, Ca + Cb, K, p.chunks);
+  if (p.pitch != W) {   // x into rows of a multiple of 8 columns
+    const long blocks = ((long)B * (Ca + Cb) * H * (p.pitch / 8) + 255) / 256;
+    pad_rows_kernel<<<(int)(blocks < 65535 ? blocks : 65535), 256, 0, s>>>(
+        xa, xb, xp, B, H, W, Ca, Cb, p.pitch);
+    xa = xb = xp;
+    Ca += Cb;
+    Cb = 0;
+  }
+  auto kernel = small_conv3x3_bf16_kernel<N>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<N>::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W + TC - 1) / TC, (H + TR - 1) / TR, B);
-  kernel<<<grid, THREADS, Cfg<N>::SMEM, s>>>(xa, xb, wp, b, out, H, W, Ca, Cb, K);
+  kernel<<<dim3(p.tiles_x, p.tiles_y, B), THREADS, Cfg<N>::SMEM, s>>>(xa, xb, wp, b, out, H, W,
+                                                                     p.pitch, Ca, Cb, K);
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Floats of scratch small_conv3x3_bf16 needs: the rounded weights.
-extern "C" long long small_conv3x3_bf16_scratch_floats(int Ca, int Cb, int K) {
-  const int n = (K + 7) / 8 * 8, chunks = (Ca + Cb + CH - 1) / CH;
-  return (long long)chunks * 9 * 16 * n / 2;
+// K9-bf16's launch plan as small_conv3x3_bf16 takes it: out[0..7] = N, tile
+// cols, tile rows (4 x 32 pixels), the pitch of the rows the kernel reads
+// (W, or W rounded up to 8: a padded copy of x), threads a CTA, bytes of
+// dynamic shared memory, blocks an SM, chunks of 16 channels. Returns 0, or
+// cudaErrorInvalidValue unless 1 <= K <= 32.
+extern "C" int small_conv3x3_bf16_plan(int H, int W, int C, int K, int* out) {
+  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(H, W, C, K);
+  const int v[8] = {p.n, p.tiles_x, p.tiles_y, p.pitch, p.threads, p.smem, p.min_blocks,
+                    p.chunks};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
-// xa, xb, out bf16; w, b f32. Returns cudaGetLastError() after the last
-// launch (cudaErrorInvalidValue, with no launch, unless 1 <= K <= 32 and the
-// image has fewer than 2^31 pixels).
+// Floats of scratch small_conv3x3_bf16 needs: the rounded weights and, where
+// W % 8 != 0, the padded copy of x.
+extern "C" long long small_conv3x3_bf16_scratch_floats(int B, int H, int W, int Ca, int Cb,
+                                                       int K) {
+  const Plan p = plan(H, W, Ca + Cb, K);
+  const long long weights = (long long)p.chunks * 9 * 16 * p.n / 2;
+  return weights + (p.pitch != W ? ((long long)B * (Ca + Cb) * H * p.pitch + 1) / 2 : 0);
+}
+
+// xa, xb (16-byte aligned), out bf16; w, b f32; scratch of
+// small_conv3x3_bf16_scratch_floats. Returns cudaGetLastError() after the
+// last launch (cudaErrorInvalidValue, with no launch, unless 1 <= K <= 32,
+// the padded image has fewer than 2^31 pixels and xa and xb are 16-byte
+// aligned).
 extern "C" int small_conv3x3_bf16(const __nv_bfloat16* xa, const __nv_bfloat16* xb,
                                   const float* w, const float* b, __nv_bfloat16* out,
                                   float* scratch, int B, int H, int W, int Ca, int Cb, int K,
                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K < 1 || K > 32 || B < 1 || H < 1 || W < 1 || Ca + Cb < 1
-      || (long long)H * W >= (1LL << 31))
+      || (long long)H * ((W + 7) / 8 * 8) >= (1LL << 31)
+      || reinterpret_cast<uintptr_t>(xa) % 16 || reinterpret_cast<uintptr_t>(xb) % 16)
     return (int)cudaErrorInvalidValue;
+  const Plan p = plan(H, W, Ca + Cb, K);
   __nv_bfloat16* wp = reinterpret_cast<__nv_bfloat16*>(scratch);
+  __nv_bfloat16* xp = wp + (size_t)p.chunks * 9 * 16 * p.n;
   cudaError_t err;
-  switch ((K + 7) / 8 * 8) {
-    case 8: err = launch<8>(xa, xb, w, b, wp, out, B, H, W, Ca, Cb, K, s); break;
-    case 16: err = launch<16>(xa, xb, w, b, wp, out, B, H, W, Ca, Cb, K, s); break;
-    case 24: err = launch<24>(xa, xb, w, b, wp, out, B, H, W, Ca, Cb, K, s); break;
-    default: err = launch<32>(xa, xb, w, b, wp, out, B, H, W, Ca, Cb, K, s); break;
+  switch (p.n) {
+    case 8: err = launch<8>(p, xa, xb, w, b, wp, xp, out, B, H, W, Ca, Cb, K, s); break;
+    case 16: err = launch<16>(p, xa, xb, w, b, wp, xp, out, B, H, W, Ca, Cb, K, s); break;
+    case 24: err = launch<24>(p, xa, xb, w, b, wp, xp, out, B, H, W, Ca, Cb, K, s); break;
+    default: err = launch<32>(p, xa, xb, w, b, wp, xp, out, B, H, W, Ca, Cb, K, s); break;
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

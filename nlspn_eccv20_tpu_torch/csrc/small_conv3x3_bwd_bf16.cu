@@ -54,6 +54,7 @@
 #include <cuda_runtime.h>
 
 #include "bwd_common.cuh"
+#include "card.cuh"
 #include "cp_async.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -443,13 +444,6 @@ Plan plan(int B, int H, int W, int C, int K, int sms) {
 
 long partial_floats(const Plan& p, int C, int K) {
   return (long)p.slices * ((long)K * C * 9 + K);
-}
-
-cudaError_t card_sms(int* sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  return err;
 }
 
 bool aligned(const void* p, int n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }

@@ -15,12 +15,14 @@ ReLU mask and recomputes conv0's.
 ``dep_encode_front_bwd_plain`` on a CPU tensor.
 
 On a bf16 plane (``precision='bf16'``) it runs K3-bf16,
-``dep_encode_front_bf16``: the same kernel on bf16 operands (the f32 weights
-and biases rounded to bf16 as the kernel stages them), summing in f32 and
-rounding conv0's output and the output to bf16 where the TPU kernel does;
-the output is NHWC bf16, which ``encode_dep``'s stock conv2 reads as it is.
-Its plain version is ``dep_encode_front_plain_bf16``. Under autograd a bf16
-plane runs ``DepEncodeFrontFunction`` too: K3-bf16 forward, and K5-bf16,
+``dep_encode_front_bf16`` (CUDA source ``csrc/dep_encode_front_bf16.cu``):
+conv0 in f32 FMAs and conv1 on the bf16 tensor cores, summing in f32 and
+rounding conv0's output and the output to bf16 where the TPU kernel does
+(the f32 weights and biases rounded to bf16); the output is NHWC bf16,
+which ``encode_dep``'s stock conv2 reads as it is. Its plain version is
+``dep_encode_front_plain_bf16``; ``front_plan_bf16`` mirrors its launch
+plan and ``dep_encode_front_bf16_tiles`` its arithmetic, for the CPU tests.
+Under autograd a bf16 plane runs ``DepEncodeFrontFunction`` too: K3-bf16 forward, and K5-bf16,
 ``dep_encode_front_bwd_bf16`` (the TPU backward at ``dt = bfloat16``; the
 same CUDA source as K5, its dP0 pass on the bf16 tensor cores), backward,
 whose plain version is ``dep_encode_front_bwd_plain_bf16``: it rounds the
@@ -43,8 +45,12 @@ from nlspn_eccv20_tpu_torch.ops.kernels import build, quad_mma
 from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import CARD_SMS, wgrad_s2_slices
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P],
-               "dep_encode_front_bf16": [_P] * 6 + [_I] * 4 + [_P]}
+_SIGNATURES = {"dep_encode_front_f32": [_P] * 6 + [_I] * 4 + [_P]}
+_BF16_SIGNATURES = {
+    "dep_encode_front_bf16": [_P] * 7 + [_I] * 4 + [_P],
+    "dep_encode_front_bf16_plan": [_I] * 5 + [_P],
+    "dep_encode_front_bf16_scratch_bytes": ([_I], ctypes.c_longlong),
+}
 _BWD_SIGNATURES = {
     "dep_encode_front_bwd_f32": [_P] * 10 + [_I] * 4 + [_P],
     "dep_encode_front_bwd_bf16": [_P] * 10 + [_I] * 4 + [_P],
@@ -53,6 +59,10 @@ _BWD_SIGNATURES = {
     "dep_encode_front_bwd_bf16_plan": [_I] * 4 + [_P],
 }
 MID_CHANNELS = 16          # conv0's output width, fixed by the model
+# K3-bf16 (csrc/dep_encode_front_bf16.cu): output tiles, rows x cols; threads
+# a CTA (two teams of two warpgroups); bytes of a staged p0 and plane tile
+FRONT_TILE, FRONT_THREADS = (4, 16), 512
+FRONT_P0_BYTES, FRONT_PLANE_BYTES = 9 * 33 * 48, 19 * 68 * 4
 # K5-bf16's dP0 pass (dp0_mma_kernel): tiles of the base grid, chunk,
 # threads, blocks an SM
 DP0_TILE, DP0_CHUNK, DP0_THREADS, DP0_BLOCKS_PER_SM = (8, 16), 32, 256, 2
@@ -131,6 +141,112 @@ def dep_encode_front_bwd_plain_bf16(g, xplane, w0, b0, w1, out):
     dx, dw0 = vjp0(d_p0)
     return (dx[:, 0].to(torch.bfloat16), dw0, d_p0.sum((0, 2, 3)), dw1,
             gm.sum((0, 2, 3)))
+
+
+def front_plan_bf16(b: int, h: int, w: int, c1: int, sms: int = CARD_SMS) -> Dict[str, int]:
+    """K3-bf16's launch as ``plan`` in its source makes it: 4x16 output
+    tiles; ``nw`` columns a warpgroup, the least of 16, 32, 64, 128 that
+    covers half of C1, and ``passes`` of 2 nw channels; ``grid_x``
+    persistent CTAs a pass (one an SM, fewer where the tiles are fewer),
+    each of two teams; ``smem`` bytes (a pass's nine taps of B, each team's
+    p0 and plane tiles and its staging tile of 64 pixels x 2 nw channels
+    and a 16-byte pad, the biases and conv0's weights)."""
+    ho, wo = _half(_half(h)), _half(_half(w))
+    rows, cols = -(-ho // FRONT_TILE[0]), -(-wo // FRONT_TILE[1])
+    nw = 16
+    while nw < 128 and 2 * nw < c1:
+        nw *= 2
+    passes = -(-c1 // (2 * nw))
+    team = FRONT_P0_BYTES + FRONT_PLANE_BYTES + 64 * (4 * nw + 16)
+    smem = 9 * MID_CHANNELS * 2 * nw * 2 + 2 * team + 2 * nw * 4 + 10 * MID_CHANNELS * 4
+    return {"tiles_y": rows, "tiles_x": cols, "nw": nw, "passes": passes,
+            "grid_x": min(b * rows * cols, max(1, sms // passes)),
+            "threads": FRONT_THREADS, "smem": smem}
+
+
+def front_plan_bf16_card(b: int, h: int, w: int, c1: int, sms: int) -> Dict[str, int]:
+    """The same plan as the built kernel reports it
+    (``dep_encode_front_bf16_plan``), for ``chip_smoke.py`` to hold against
+    ``front_plan_bf16``."""
+    lib = build.load("dep_encode_front_bf16", _BF16_SIGNATURES)
+    out = (ctypes.c_int * 7)()
+    build.check_launch(lib.dep_encode_front_bf16_plan(b, h, w, c1, sms, out),
+                       "dep_encode_front_bf16_plan")
+    return dict(zip(("tiles_y", "tiles_x", "nw", "passes", "grid_x", "threads", "smem"), out))
+
+
+def front_pack_w1(w1: torch.Tensor, nw: int, passes: int) -> torch.Tensor:
+    """(passes, 9, 32 nw) bf16: w1 (C1, 16, 3, 3) as ``prep_front_w1_kernel``
+    lays it out, each pass's tap the K-major B of 2 nw columns (channel n of
+    the pass, conv0 channel k at ``quad_mma.kmajor_index``), zero past C1."""
+    c1 = w1.shape[0]
+    wpad = torch.zeros(passes * 2 * nw, MID_CHANNELS, 9)
+    wpad[:c1] = w1.detach().float().cpu().reshape(c1, MID_CHANNELS, 9)
+    n, k = torch.arange(2 * nw), torch.arange(MID_CHANNELS)
+    idx = quad_mma.kmajor_index(n[:, None], k[None, :]).reshape(-1)
+    out = torch.zeros(passes, 9, 32 * nw, dtype=torch.bfloat16)
+    for p in range(passes):
+        for tap in range(9):
+            out[p, tap, idx] = wpad[p * 2 * nw:(p + 1) * 2 * nw, :, tap].reshape(-1).to(
+                torch.bfloat16)
+    return out
+
+
+def front_b_operand(wk: torch.Tensor, n0: int, n: int) -> torch.Tensor:
+    """(16, n) f32: the B operand a warpgroup's descriptor reads from a
+    tap's packed ``wk``, columns n0 .. n0 + n."""
+    cols, k = torch.arange(n0, n0 + n), torch.arange(MID_CHANNELS)
+    return wk[quad_mma.kmajor_index(cols[None, :], k[:, None])].float()
+
+
+def dep_encode_front_bf16_tiles(xplane, w0, b0, w1, b1):
+    """K3-bf16 on the CPU as the kernel computes it, tile by tile: p0 from
+    the rounded plane and weights, the bias then taps 0-8 added in f32 (each
+    product of two bf16 values is exact, so this is the kernel's FMA chain),
+    ReLU, bf16, zero past the H1 x W1 grid (conv1's padding); then each 4x16
+    output tile of each pass: for each warpgroup's nw columns the nine
+    taps' products of the tile's p0 rows with the packed w1
+    (``front_pack_w1``) summed in f32, the bias, ReLU and one rounding.
+    Returns NHWC bf16."""
+    bsz, h, w = xplane.shape
+    c1 = w1.shape[0]
+    plan = front_plan_bf16(bsz, h, w, c1)
+    nw, passes = plan["nw"], plan["passes"]
+    th, tw = FRONT_TILE
+    ho, wo = _half(_half(h)), _half(_half(w))
+    h1, w1_ = _half(h), _half(w)
+    x = F.pad(xplane.float(), (1, 1, 1, 1))
+    w0r, b0r = _bf16(w0).reshape(MID_CHANNELS, 9), _bf16(b0)
+    s = b0r[None, :, None, None].expand(bsz, MID_CHANNELS, h1, w1_).clone()
+    for tap in range(9):
+        ty, tx = divmod(tap, 3)
+        xt = x[:, None, ty:ty + 2 * h1 - 1:2, tx:tx + 2 * w1_ - 1:2]
+        s = s + w0r[None, :, tap, None, None] * xt
+    p0 = _bf16(F.relu(s))
+    # p0 with conv1's padding, and room for the last tiles' positions
+    p0p = torch.zeros(bsz, MID_CHANNELS, 2 * th * plan["tiles_y"] + 1,
+                      2 * tw * plan["tiles_x"] + 1)
+    p0p[:, :, 1:h1 + 1, 1:w1_ + 1] = p0
+    wp = front_pack_w1(w1, nw, passes)
+    b1r = torch.zeros(passes * 2 * nw)
+    b1r[:c1] = _bf16(b1)
+    out = torch.zeros(bsz, plan["tiles_y"] * th, plan["tiles_x"] * tw, passes * 2 * nw)
+    for b in range(bsz):
+        for oy0 in range(0, ho, th):
+            for ox0 in range(0, wo, tw):
+                # A of tap (ty, tx): M row 16 r + i is output (oy0 + r, ox0 + i)
+                a = [p0p[b, :, 2 * oy0 + ty:2 * oy0 + ty + 2 * th:2,
+                         2 * ox0 + tx:2 * ox0 + tx + 2 * tw:2].reshape(MID_CHANNELS, -1).t()
+                     for ty in range(3) for tx in range(3)]
+                for p in range(passes):
+                    for wg in range(2):
+                        acc = torch.zeros(th * tw, nw)
+                        for tap in range(9):
+                            acc = acc + a[tap] @ front_b_operand(wp[p, tap], wg * nw, nw)
+                        c0 = p * 2 * nw + wg * nw
+                        y = _bf16(F.relu(acc + b1r[c0:c0 + nw]))
+                        out[b, oy0:oy0 + th, ox0:ox0 + tw, c0:c0 + nw] = y.reshape(th, tw, nw)
+    return out[:, :ho, :wo, :c1].to(torch.bfloat16).contiguous()
 
 
 def front_bwd_plan_bf16(b: int, h: int, w: int, c1: int) -> Dict[str, int]:
@@ -245,13 +361,21 @@ def _launch_fwd(xplane, w0, b0, w1, b1):
     bf16 = xplane.dtype == torch.bfloat16
     out = torch.empty(_out_shape(xplane, c1), device=xplane.device,
                       dtype=xplane.dtype)
+    stream = torch.cuda.current_stream(xplane.device).cuda_stream
     with torch.cuda.device(xplane.device):
-        lib = build.load("dep_encode_front", _SIGNATURES)
-        err = (lib.dep_encode_front_bf16 if bf16 else lib.dep_encode_front_f32)(
-            xplane.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), out.data_ptr(), bsz, h, w, c1,
-            torch.cuda.current_stream().cuda_stream)
-    build.check_launch(err, "dep_encode_front")
+        if bf16:
+            lib = build.load("dep_encode_front_bf16", _BF16_SIGNATURES)
+            scratch = torch.empty(lib.dep_encode_front_bf16_scratch_bytes(c1),
+                                  device=xplane.device, dtype=torch.uint8)
+            err = lib.dep_encode_front_bf16(
+                xplane.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), out.data_ptr(), scratch.data_ptr(), bsz, h, w, c1, stream)
+        else:
+            lib = build.load("dep_encode_front", _SIGNATURES)
+            err = lib.dep_encode_front_f32(
+                xplane.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+                b1.data_ptr(), out.data_ptr(), bsz, h, w, c1, stream)
+    build.check_launch(err, "dep_encode_front_bf16" if bf16 else "dep_encode_front")
     (dep_encode_front_bf16 if bf16 else dep_encode_front).launches += 1
     return out
 

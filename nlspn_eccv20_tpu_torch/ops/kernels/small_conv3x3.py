@@ -46,7 +46,8 @@ the CPU and for the card's checks; nothing on the card's path uses them.
 For the CPU tests, ``fwd_plan`` and ``bwd_plan`` mirror the kernels'
 launches (``fwd_plan_bf16`` and ``bwd_plan_bf16`` the bf16 forms'), and
 ``small_conv3x3_split_plain`` and ``small_conv3x3_bwd_split_plain`` their
-arithmetic (the TF32 split, in the kernels' order); ``small_conv3x3_case``
+arithmetic (the TF32 split, in the kernels' order;
+``small_conv3x3_bf16_chunks_plain`` K9-bf16's); ``small_conv3x3_case``
 and ``small_conv3x3_bwd_case`` build the inputs on which the card times
 both kernels, in f32 or bf16.
 """
@@ -73,7 +74,8 @@ _BWD_SIGNATURES = {
 }
 _BF16_SIGNATURES = {
     "small_conv3x3_bf16": [_P] * 6 + [_I] * 6 + [_P],
-    "small_conv3x3_bf16_scratch_floats": ([_I] * 3, ctypes.c_longlong),
+    "small_conv3x3_bf16_plan": [_I] * 4 + [_P],
+    "small_conv3x3_bf16_scratch_floats": ([_I] * 6, ctypes.c_longlong),
 }
 _BWD_BF16_SIGNATURES = {
     "small_conv3x3_bwd_bf16": [_P] * 8 + [_I] * 6 + [_P],
@@ -204,7 +206,8 @@ def small_conv3x3_bf16(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
     """K9-bf16: the forward on a bf16 xa, (B, K, H, W) bf16. On a CPU
     tensor it runs ``small_conv3x3_plain_bf16``; on a CUDA tensor it
     launches the kernel or raises. xb is cast to bf16; w and b may be f32
-    or bf16 (the kernel rounds them)."""
+    or bf16 (the kernel rounds them). The kernel takes 16-byte aligned
+    activations: a view that starts elsewhere is copied first."""
     if xa.device.type == "cpu":
         return small_conv3x3_plain_bf16(xa, xb, w, b)
     bsz, ca, h, wd = xa.shape
@@ -216,10 +219,11 @@ def small_conv3x3_bf16(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
     build.check_tensor(xb, "small_conv3x3_bf16 xb", (bsz, None, h, wd), dev, dtype=BF16)
     build.check_tensor(w, "small_conv3x3_bf16 w", (None, None, 3, 3), dev)
     build.check_tensor(b, "small_conv3x3_bf16 b", (k,), dev)
+    xa, xb = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (xa, xb))
     out = torch.empty((bsz, k, h, wd), device=dev, dtype=BF16)
     with torch.cuda.device(dev):
         lib = build.load("small_conv3x3_bf16", _BF16_SIGNATURES)
-        scratch = torch.empty(lib.small_conv3x3_bf16_scratch_floats(ca, cb, k),
+        scratch = torch.empty(lib.small_conv3x3_bf16_scratch_floats(bsz, h, wd, ca, cb, k),
                               device=dev, dtype=torch.float32)
         err = lib.small_conv3x3_bf16(
             xa.data_ptr(), xb.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
@@ -638,25 +642,74 @@ BF_DX_TILE, BF_DX_RP = (8, 16), 20  # K9b-bf16's dx tile; bf16 a staged g row
 BF_WG_TILE, BF_WG_RP = (4, 16), 20  # its dW tile (a k-step a row); a staged g row
 
 
+_BF_PLAN_KEYS = ("n", "tiles_x", "tiles_y", "pitch", "threads", "smem", "min_blocks", "chunks")
+
+
 def fwd_plan_bf16(b: int, h: int, w: int, ca: int, cb: int, k: int):
     """K9-bf16's launch as ``csrc/small_conv3x3_bf16.cu`` plans it: ``n`` =
     K rounded up to 8 (wgmma's N), nine accumulators of n/2 floats a thread
-    (one a tap), a block tile of ``tile`` pixels and its one-pixel halo,
-    ``chunks`` of 16 channels (a k-step a tap) in three stages of ``smem``
-    bytes (the x tile as raw bf16 in planes of ``BF_PS``, its rows columns
-    x0 - 8 .. x0 + 39 in 16-byte pieces where ``vec``, and the chunk's
-    weights), no channel splits; ``scratch`` floats hold the rounded
-    weights; ``min_blocks`` blocks an SM (one where 144 accumulators would
-    not leave two)."""
+    (one a tap), a block tile of ``tile`` pixels and its one-pixel halo over
+    a ``grid`` of tiles (columns, rows, batch), ``chunks`` of 16 channels (a
+    k-step a tap) in three stages of ``smem`` bytes (the x tile as raw bf16
+    in planes of ``BF_PS``, its rows columns x0 - 8 .. x0 + 39 in 16-byte
+    pieces, and the chunk's weights), no splits. The kernel reads x in rows
+    of ``pitch`` bf16: W, or, where W % 8 != 0 (``padded``), a copy of x
+    with its rows zero-padded to a multiple of 8 columns. ``scratch`` floats
+    hold the rounded weights and that copy; ``min_blocks`` blocks an SM (one
+    where 144 accumulators would not leave two); ``batch`` taps' A
+    fragments are built and issued at once."""
     n = -(-k // 8) * 8
     chunks = -(-(ca + cb) // BF_CH)
-    min_blocks = 2 if n <= 16 else 1
+    pitch = -(-w // 8) * 8
+    weights = chunks * 9 * 16 * n // 2
     return {"n": n, "tile": BF_TILE, "grid": (-(-w // BF_TILE[1]), -(-h // BF_TILE[0]), b),
             "chunks": chunks, "accumulators": 9 * n // 2,
-            "smem": BF_STAGES * (BF_CH * BF_PS + 9 * 16 * n) * 2,
-            "scratch": chunks * 9 * 16 * n // 2, "vec": w % 8 == 0,
-            "threads": 256, "min_blocks": min_blocks,
-            "regs": min(255, 65536 // (256 * min_blocks))}
+            "smem": BF_STAGES * (BF_CH * BF_PS + 9 * 16 * n) * 2, "pitch": pitch,
+            "padded": pitch != w,
+            "scratch": weights + (-(-b * (ca + cb) * h * pitch // 2) if pitch != w else 0),
+            "threads": 256, "min_blocks": 2 if n <= 16 else 1, "batch": 5 if n == 16 else 9,
+            "regs": min(255, 65536 // (256 * (2 if n <= 16 else 1)))}
+
+
+def fwd_plan_bf16_card(b: int, h: int, w: int, ca: int, cb: int, k: int):
+    """The same plan as the built kernel reports it
+    (``small_conv3x3_bf16_plan``), in ``fwd_plan_bf16``'s keys, for
+    ``chip_smoke.py`` to hold against it."""
+    lib = build.load("small_conv3x3_bf16", _BF16_SIGNATURES)
+    out = (ctypes.c_int * 8)()
+    build.check_launch(lib.small_conv3x3_bf16_plan(h, w, ca + cb, k, out),
+                       "small_conv3x3_bf16_plan")
+    p = dict(zip(_BF_PLAN_KEYS, out))
+    return {"n": p["n"], "grid": (p["tiles_x"], p["tiles_y"], b), "pitch": p["pitch"],
+            "threads": p["threads"], "smem": p["smem"], "min_blocks": p["min_blocks"],
+            "chunks": p["chunks"]}
+
+
+def small_conv3x3_bf16_chunks_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch.Tensor,
+                                    b: torch.Tensor) -> torch.Tensor:
+    """K9-bf16's arithmetic in the kernel's order, on the CPU: x, the
+    weights and the bias rounded to bf16; each tap's f32 sum taken chunk
+    by chunk of 16 channels in order (a chunk's product added to the
+    tap's accumulator), rounded to bf16; the nine rounded taps added in tap
+    order, then the rounded bias, and rounded once more. Returns (B, K, H,
+    W) bf16."""
+    bsz, _, h, wd = xa.shape
+    k = w.shape[0]
+    x = torch.cat([xa.to(BF16), xb.to(BF16)], 1).float()
+    c = x.shape[1]
+    xp = F.pad(x, (1, 1, 1, 1))
+    wr = w.to(BF16).float()
+    total = None
+    for tap in range(9):
+        ty, tx = divmod(tap, 3)
+        cols = xp[:, :, ty:ty + h, tx:tx + wd].permute(0, 2, 3, 1).reshape(-1, c)
+        acc = torch.zeros(cols.shape[0], k)
+        for ch in range(0, c, BF_CH):
+            acc = acc + cols[:, ch:ch + BF_CH] @ wr[:, ch:ch + BF_CH, ty, tx].t()
+        t = acc.to(BF16).float()
+        total = t if total is None else total + t
+    out = (total + b.to(BF16).float()).to(BF16)
+    return out.reshape(bsz, h, wd, k).permute(0, 3, 1, 2).contiguous()
 
 
 def bwd_plan_bf16(b: int, h: int, w: int, ca: int, cb: int, k: int, sms: int = CARD_SMS):

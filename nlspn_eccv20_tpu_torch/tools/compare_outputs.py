@@ -1,7 +1,8 @@
 """Whether two trees' kernels give the same bits, on the card.
 
-Runs the f32 decode_aff tail K2 (output and y1) and the f32 GRU-refresh
-backwards K4 and K5 on the inputs ``chip_smoke.py`` checks them on (the
+Runs the f32 decode_aff tail K2 (output and y1), the f32 encode_dep front
+K3, the f32 GRU-refresh backwards K4 and K5 and the op library's f32 K9 and
+K9b on the inputs ``chip_smoke.py`` checks them on (the
 ``*_case`` builders, from a seeded generator), at the train step's and the
 serving shapes and the odd ones, and either saves
 every output (``--save FILE``) or holds them against a saved file
@@ -31,16 +32,24 @@ from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     decode_aff_tail, decode_aff_tail_bwd, decode_aff_tail_bwd_case, decode_aff_tail_case,
     decode_aff_tail_fwd_y1)
 from nlspn_eccv20_tpu_torch.ops.kernels.dep_encode_front import (
-    dep_encode_front_bwd, dep_encode_front_bwd_case)
+    dep_encode_front, dep_encode_front_bwd, dep_encode_front_bwd_case, dep_encode_front_case)
+from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
+    small_conv3x3_bwd, small_conv3x3_bwd_case, small_conv3x3_case, small_conv3x3_planar)
 
-# (kernel, batch, height, width, options): K2's and K4's base grid, K5's plane
+# (kernel, batch, height, width, options): K2's and K4's base grid, K3's and
+# K5's plane, K9's and K9b's (K outputs beside Ca 192, Cb 64)
 CASES = [("K2", 12, 58, 76, {"k": 8}), ("K2", 1, 64, 80, {"k": 8}),
          ("K2", 4, 64, 80, {"k": 8}), ("K2", 1, 64, 80, {"k": 24}),
          ("K2", 1, 57, 75, {"k": 8}), ("K2", 1, 64, 80, {"k": 8, "c": 40}),
          ("K2", 1, 58, 76, {"k": 8, "c": 30}), ("K2", 1, 60, 304, {"k": 8}),
          ("K5", 12, 228, 304, {}), ("K5", 1, 228, 304, {}), ("K5", 2, 230, 306, {}),
          ("K5", 1, 228, 304, {"c": 96}), ("K5", 1, 228, 304, {"c": 30}),
-         ("K4", 12, 58, 76, {"k": 8}), ("K4", 1, 58, 76, {"k": 24})]
+         ("K4", 12, 58, 76, {"k": 8}), ("K4", 1, 58, 76, {"k": 24}),
+         ("K3", 12, 228, 304, {}), ("K3", 1, 256, 320, {}), ("K3", 4, 256, 320, {}),
+         ("K3", 1, 240, 1216, {}), ("K3", 1, 228, 304, {"c": 96}),
+         ("K3", 1, 230, 306, {}), ("K3", 1, 228, 304, {"c": 30}),
+         ("K9", 1, 256, 320, {"k": 10}), ("K9", 2, 57, 75, {"k": 26}),
+         ("K9b", 1, 228, 304, {"k": 10}), ("K9b", 2, 57, 75, {"k": 26})]
 
 
 def run_case(gen, dev, kname, b, h, w, opts):
@@ -51,6 +60,15 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K5":
         args, _ = dep_encode_front_bwd_case(gen, dev, b, h, w, opts.get("c", 256))
         outs = list(dep_encode_front_bwd(*args))
+    elif kname == "K3":
+        args, _ = dep_encode_front_case(gen, dev, b, h, w, opts.get("c", 256))
+        outs = [dep_encode_front(*args)]
+    elif kname == "K9":
+        args, _ = small_conv3x3_case(gen, dev, b, h, w, opts["k"])
+        outs = [small_conv3x3_planar(*args)]
+    elif kname == "K9b":
+        args, _ = small_conv3x3_bwd_case(gen, dev, b, h, w, opts["k"])
+        outs = list(small_conv3x3_bwd(*args))
     else:
         args, _ = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"])
         outs = list(decode_aff_tail_bwd(*args))

@@ -36,10 +36,14 @@ neighbours at b=1 of 228x304, on the experiment's offsets clip(N(0,
 1.5^2), -4, 4); and the bf16 forms ``K2-bf16``, ``K3-bf16``, ``K4-bf16``,
 ``K5-bf16``, ``K9-bf16`` and ``K9b-bf16``: K2-bf16 at b=12 of the 58x76 base
 grid with y1 written (as training runs it) and without, and at b=1 and b=4
-of 64x80, also with K=24 at b=1, K3-bf16 at b=12 of 228x304 and at b=1 and
-b=4 of 256x320, K4-bf16 at b=12 and b=1 of the base grid with K=8 and K=24,
-K5-bf16 at b=12 and b=1 of 228x304, K9-bf16 at b=1 and b=4 of 256x320, b=12
-of 228x304 and b=2 of 57x75 with K=26, K9b-bf16 at b=12 and b=1 of 228x304
+of 64x80, also with K=24 at b=1, K3-bf16 at b=12 of 228x304, at b=1 and
+b=4 of 256x320 and at KITTI's 240x1216 (its weight layout,
+``prep_front_w1_kernel``, a pass of its own), K4-bf16 at b=12 and b=1 of
+the base grid with K=8 and K=24, K5-bf16 at b=12 and b=1 of 228x304,
+K9-bf16 at b=1 and b=4 of
+256x320, b=12 of 228x304 and b=2 of 57x75 with K=26 (its rows padded to a
+multiple of 8 columns by ``pad_rows_kernel``, a pass of its own),
+K9b-bf16 at b=12 and b=1 of 228x304
 and b=2 of 57x75 with K=26, their yardsticks cuDNN's bf16 calls) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
@@ -63,8 +67,9 @@ mode. Needs the CUDA card:
 (the names given restrict it to those kernels' cases). One JSON object per
 case is printed, each on its own line. Sources a tree lacks are left out of
 the build, so the same script times an older tree's kernels when it is
-copied into that tree (K2-bf16 was ``dec_aff_tail.cu`` at a bf16 element
-type before it had its own source).
+copied into that tree (K2-bf16 and K3-bf16 were ``dec_aff_tail.cu`` and
+``dep_encode_front.cu`` at a bf16 element type before they had their own
+sources).
 """
 
 from __future__ import annotations
@@ -111,7 +116,8 @@ SOURCES = {"K1": ["prop_step"], "K1b": ["prop_step", "prop_step_bwd"], "K2": ["d
            "K10a": ["deform_windowed"], "K10b": ["deform_colgather"],
            "K11a": ["interleave_asm"],
            "K11b": ["interleave_strided"], "K11d": ["interleave_onehot"],
-           "K2-bf16": ["dec_aff_tail", "dec_aff_tail_bf16"], "K3-bf16": ["dep_encode_front"],
+           "K2-bf16": ["dec_aff_tail", "dec_aff_tail_bf16"],
+           "K3-bf16": ["dep_encode_front", "dep_encode_front_bf16"],
            "K4-bf16": ["dec_aff_tail_bwd"], "K5-bf16": ["dep_encode_front_bwd"],
            "K9-bf16": ["small_conv3x3_bf16"], "K9b-bf16": ["small_conv3x3_bwd_bf16"]}
 # (kernel, batch, height, width, options): K2's and K4's base grid (options:
@@ -160,7 +166,7 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K2-bf16", 1, 64, 80, {"k": 8}), ("K2-bf16", 4, 64, 80, {"k": 8}),
          ("K2-bf16", 1, 64, 80, {"k": 24}),
          ("K3-bf16", 12, 228, 304, {}), ("K3-bf16", 1, 256, 320, {}),
-         ("K3-bf16", 4, 256, 320, {}),
+         ("K3-bf16", 4, 256, 320, {}), ("K3-bf16", 1, 240, 1216, {}),
          *(("K4-bf16", b, 58, 76, {"k": k}) for b in (12, 1) for k in (8, 24)),
          ("K5-bf16", 12, 228, 304, {}), ("K5-bf16", 1, 228, 304, {}),
          ("K9-bf16", 1, 256, 320, {"k": 10}), ("K9-bf16", 4, 256, 320, {"k": 10}),

@@ -40,7 +40,8 @@ from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
 OUR_KERNELS = ("prop_step_kernel", "deform_prop_kernel", "prop_loop_kernel",
                "dec_aff_tail_kernel", "dep_encode_front_kernel",
-               "dec_aff_tail_bf16_kernel", "prep_w2_kernel", "quad::prep_kernel")
+               "dec_aff_tail_bf16_kernel", "prep_w2_kernel", "quad::prep_kernel",
+               "dep_encode_front_bf16_kernel", "prep_front_w1_kernel")
 ITERS = 5          # forwards in the profiled window
 LOOP = dict(use_GRU=False, prop_impl="pallas")   # the whole-loop route
 

@@ -397,7 +397,7 @@ def test_every_source_builds_for_sm_90a_into_build():
     names = build.kernel_names()
     assert names == ["dec_aff_tail", "dec_aff_tail_bf16", "dec_aff_tail_bwd", "deform_colgather",
                      "deform_prop", "deform_prop_bwd", "deform_windowed",
-                     "dep_encode_front", "dep_encode_front_bwd",
+                     "dep_encode_front", "dep_encode_front_bf16", "dep_encode_front_bwd",
                      "gather_probe", "interleave_asm", "interleave_onehot",
                      "interleave_strided", "prop_loop", "prop_loop_bwd",
                      "prop_step", "prop_step_bwd", "small_conv3x3",

@@ -30,8 +30,8 @@ from nlspn_eccv20_tpu_torch.ops.kernels.dec_aff_tail import (
     tail_bwd_plan_bf16, wgrad_s2_segments, wgrad_s2_slices)
 from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
     BF16, SmallConv3x3Function, bwd_plan_bf16, fwd_plan_bf16, small_conv3x3_bf16,
-    small_conv3x3_bwd, small_conv3x3_bwd_bf16, small_conv3x3_bwd_plain_bf16,
-    small_conv3x3_plain_bf16, small_conv3x3_planar)
+    small_conv3x3_bf16_chunks_plain, small_conv3x3_bwd, small_conv3x3_bwd_bf16,
+    small_conv3x3_bwd_plain_bf16, small_conv3x3_plain_bf16, small_conv3x3_planar)
 
 ULP = 2.0 ** -7
 # (B, H, W, Ca, Cb, K): an odd shape; the heads' stage 2 (Ca 192 = three
@@ -187,10 +187,10 @@ PLAN_SHAPES = [(12, 228, 304), (1, 256, 320), (4, 256, 320), (2, 57, 75), (1, 9,
 @pytest.mark.parametrize("bhw", PLAN_SHAPES)
 def test_forward_plan_covers_and_fits(bhw, k):
     """K9-bf16: its tiles cover every pixel once; a tile's staged rows
-    (16-byte pieces where W % 8 == 0, else columns x0 - 1 .. x0 + 32) hold
-    every column its nine taps read; the staged plane keeps a warp's four
-    planes in distinct banks; three stages fit its blocks on an SM; the
-    nine accumulators fit the registers."""
+    (16-byte pieces) hold every column its nine taps read; the staged plane
+    keeps a warp's four planes in distinct banks; three stages fit its
+    blocks on an SM; the nine accumulators and a batch of A fragments fit
+    the registers."""
     b, h, w = bhw
     p = fwd_plan_bf16(b, h, w, 192, 64, k)
     gx, gy, gz = p["grid"]
@@ -199,11 +199,44 @@ def test_forward_plan_covers_and_fits(bhw, k):
     assert p["n"] >= k and p["n"] % 8 == 0 and p["chunks"] * port.BF_CH >= 256
     # staged index i holds image column x0 - 8 + i; the taps read x0 - 1 .. x0 + 32
     read = set(range(7, 7 + tw + 2))
-    staged = set(range(port.BF_RP)) if p["vec"] else set(range(7, 7 + tw + 2))
+    staged = set(range(port.BF_RP))
     assert read <= staged and max(staged) < port.BF_RP
     assert (th + 2) * port.BF_RP <= port.BF_PS and port.BF_PS % 32 == 8
     assert p["smem"] * p["min_blocks"] + 1024 * p["min_blocks"] <= port.CARD_SMEM
-    assert p["accumulators"] + 8 + 24 <= p["regs"]
+    assert p["accumulators"] + 4 * p["batch"] + 24 <= p["regs"]
+
+
+@pytest.mark.parametrize("k", [1, 10, 26, 32])
+@pytest.mark.parametrize("bhw", [(2, 57, 75), (1, 256, 320), (12, 228, 304), (1, 9, 11)])
+def test_forward_reads_whole_16_byte_pieces(bhw, k):
+    """K9-bf16 copies x 16 bytes at a time: where W % 8 != 0 (57x75) it
+    reads a copy with rows of a multiple of 8 columns, zero past W, whose
+    pieces of 8 columns start inside the image or lie wholly outside it
+    (a piece starting before W ends before the pitch); otherwise x itself.
+    The scratch holds the rounded weights of every chunk and that copy."""
+    b, h, w = bhw
+    p = fwd_plan_bf16(b, h, w, 192, 64, k)
+    pitch = p["pitch"]
+    assert pitch % 8 == 0 and w <= pitch < w + 8 and p["padded"] == (w % 8 != 0)
+    for x0 in range(0, p["grid"][0] * port.BF_TILE[1], port.BF_TILE[1]):
+        for x in range(x0 - 8, x0 + port.BF_RP - 8, 8):
+            assert x < 0 or x >= w or x + 8 <= pitch
+    weights = p["chunks"] * 9 * 16 * p["n"] // 2
+    copy = b * 256 * h * pitch // 2 if w % 8 else 0
+    assert p["scratch"] == weights + copy
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_forward_chunk_order_matches_the_plain_version(shape):
+    """K9-bf16's arithmetic in its order (each tap's f32 sum taken chunk by
+    chunk of 16 channels, rounded; the nine rounded taps added in tap
+    order, then the bias) within one ulp and the 1% bit-share bar of the
+    plain version (bit-equal at these shapes)."""
+    xa, xb, w, b, _ = _port(*_inputs(shape))
+    got = small_conv3x3_bf16_chunks_plain(xa, xb, w, b)
+    assert got.dtype == BF16
+    err, share = _scores(got, small_conv3x3_plain_bf16(xa, xb, w, b).float().numpy())
+    assert err <= ULP and share <= 0.01, (err, share)
 
 
 def _reduce_order(parts):
