@@ -110,7 +110,10 @@ Phases (any failure exits non-zero and prints no result):
      same four shapes, the odd 57x75 through its padded copy of x; its plan
      from small_conv3x3_bf16_plan held equal to fwd_plan_bf16 at each) and
      K9b-bf16 small_conv3x3_bwd_bf16 (B=12 and B=1
-     of 228x304, B=2 of 57x75 with K 26) against their plain versions,
+     of 228x304, B=2 of 57x75 and of 57x76 with K 26, the three row
+     widths: a multiple of 8, odd, even but not a multiple of 8; its plan
+     from small_conv3x3_bwd_bf16_plan held equal to bwd_plan_bf16 at each)
+     against their plain versions,
      which round per tap as the TPU kernel does, each twice for equal
      bits, timed beside cuDNN's bf16 conv over the concat or its backward
      and the bf16 bound; then the op-library path with the
@@ -342,7 +345,8 @@ def main() -> int:
         prop_step, prop_step_bwd, prop_step_bwd_case, prop_step_bwd_plain, prop_step_case,
         prop_step_plain)
     from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
-        fuse_heads_dec0, fwd_plan_bf16, fwd_plan_bf16_card, small_conv3x3_bf16,
+        bwd_plan_bf16, bwd_plan_bf16_card, fuse_heads_dec0, fwd_plan_bf16,
+        fwd_plan_bf16_card, small_conv3x3_bf16,
         small_conv3x3_bwd, small_conv3x3_bwd_bf16,
         small_conv3x3_bwd_case, small_conv3x3_bwd_plain, small_conv3x3_bwd_plain_bf16,
         small_conv3x3_case, small_conv3x3_plain, small_conv3x3_plain_bf16,
@@ -1394,12 +1398,17 @@ def main() -> int:
                bound(nbytes(*args, out), conv_flops(b, h, w, CA + CB, k), "bf16_tflops"),
                shape=shape)
         del args, out, ref
-    for b, h, w, k in ((TRAIN_B, REQ_H, REQ_W, 10), (1, REQ_H, REQ_W, 10), (2, 57, 75, 26)):
+    for b, h, w, k in ((TRAIN_B, REQ_H, REQ_W, 10), (1, REQ_H, REQ_W, 10), (2, 57, 75, 26),
+                       (2, 57, 76, 26)):
         shape = "" if (h, w, k) == (REQ_H, REQ_W, 10) else f" {h}x{w} K={k}"
+        tag = f"small_conv3x3_bwd_bf16 B={b}{shape}"
+        plan, card_plan = bwd_plan_bf16(b, h, w, CA, CB, k), bwd_plan_bf16_card(b, h, w, CA, CB, k)
+        if any(card_plan[key] != plan[key] for key in card_plan):
+            raise AssertionError(f"{tag}: the source's plan {card_plan}, its mirror's {plan}")
+        log(f"[kernel] {tag}: its plan {card_plan} equal to bwd_plan_bf16's")
         args, library = small_conv3x3_bwd_case(gen, dev, b, h, w, k, CA, CB, dtype=bf16)
         outs, refs = small_conv3x3_bwd_bf16(*args), small_conv3x3_bwd_plain_bf16(*args)
         torch.cuda.synchronize()
-        tag = f"small_conv3x3_bwd_bf16 B={b}{shape}"
         if not same_bits(lambda: small_conv3x3_bwd_bf16(*args)):
             raise AssertionError(f"{tag}: two runs gave other bits")
         errs = [rel_err(o.float(), r.float()) for o, r in zip(outs, refs)]
@@ -1412,10 +1421,14 @@ def main() -> int:
         for name, (_, r) in zip(("dw", "db"), errs[2:]):
             if not r <= 5e-4:
                 raise AssertionError(f"{tag}: {name} relative error {r:.3e} > 5e-4")
+        bnd = bound(nbytes(*args, *outs), 2 * conv_flops(b, h, w, CA + CB, k), "bf16_tflops")
+        if plan["copied"]:   # x and g copied into rows of a multiple of 8 columns, read again
+            copy_bytes = 2 * b * (CA + CB + k) * h * plan["pitch"] * 2
+            log(f"[kernel] {tag}: its copy of x and g moves {copy_bytes / 1e6:.2f} MB more; "
+                f"the bound with it {bnd[0] + copy_bytes / (peak['hbm_tbps'] * 1e9):.4f} ms")
         record("small_conv3x3_bwd_bf16", b, max(e for e, _ in errs), errs[0][1], ulp,
                time_ms(lambda: small_conv3x3_bwd_bf16(*args)),
-               time_ms(lambda: small_conv3x3_bwd_plain_bf16(*args)), time_ms(library),
-               bound(nbytes(*args, *outs), 2 * conv_flops(b, h, w, CA + CB, k), "bf16_tflops"),
+               time_ms(lambda: small_conv3x3_bwd_plain_bf16(*args)), time_ms(library), bnd,
                main_b=TRAIN_B, shape=shape)
         del args, outs, refs
     torch.cuda.empty_cache()

@@ -47,7 +47,8 @@ For the CPU tests, ``fwd_plan`` and ``bwd_plan`` mirror the kernels'
 launches (``fwd_plan_bf16`` and ``bwd_plan_bf16`` the bf16 forms'), and
 ``small_conv3x3_split_plain`` and ``small_conv3x3_bwd_split_plain`` their
 arithmetic (the TF32 split, in the kernels' order;
-``small_conv3x3_bf16_chunks_plain`` K9-bf16's); ``small_conv3x3_case``
+``small_conv3x3_bf16_chunks_plain`` K9-bf16's, ``pad_rows_bf16``
+K9b-bf16's copy of x and g); ``small_conv3x3_case``
 and ``small_conv3x3_bwd_case`` build the inputs on which the card times
 both kernels, in f32 or bf16.
 """
@@ -79,6 +80,7 @@ _BF16_SIGNATURES = {
 }
 _BWD_BF16_SIGNATURES = {
     "small_conv3x3_bwd_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "small_conv3x3_bwd_bf16_plan": [_I] * 6 + [_P],
     "small_conv3x3_bwd_bf16_scratch_floats": ([_I] * 6, ctypes.c_longlong),
 }
 MAX_K = 32                 # outputs the kernels' register tiles hold
@@ -238,7 +240,8 @@ def small_conv3x3_bwd_bf16(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     """K9b-bf16: (dxa, dxb) bf16 and (dw, db) f32 at cotangent ``g`` (B, K,
     H, W), rounded to bf16 first, for a bf16 xa. On a CPU tensor it runs
     ``small_conv3x3_bwd_plain_bf16``; on a CUDA tensor it launches the
-    kernel or raises."""
+    kernel or raises. The kernel takes 16-byte aligned tensors: a view that
+    starts elsewhere is copied first."""
     if xa.device.type == "cpu":
         return small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
     bsz, ca, h, wd = xa.shape
@@ -249,6 +252,7 @@ def small_conv3x3_bwd_bf16(g: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
     build.check_tensor(xb, "small_conv3x3_bwd_bf16 xb", (bsz, None, h, wd), dev, dtype=BF16)
     build.check_tensor(w, "small_conv3x3_bwd_bf16 w", (None, None, 3, 3), dev)
     build.check_tensor(g, "small_conv3x3_bwd_bf16 g", (bsz, k, h, wd), dev, dtype=BF16)
+    g, xa, xb = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (g, xa, xb))
     n_w = k * (ca + cb) * 9
     dxa, dxb = torch.empty_like(xa), torch.empty_like(xb)
     dwb = torch.empty(n_w + k, device=dev, dtype=torch.float32)
@@ -638,8 +642,12 @@ def small_conv3x3_bwd_case(gen: torch.Generator, device, b: int, h: int, w: int,
 BF_TILE = (4, 32)              # K9-bf16's block tile: a warpgroup 4 rows x 16 columns
 BF_CH, BF_RP, BF_PS = 16, 48, 296   # channels a chunk; bf16 a staged row, a plane
 BF_STAGES = 3
-BF_DX_TILE, BF_DX_RP = (8, 16), 20  # K9b-bf16's dx tile; bf16 a staged g row
-BF_WG_TILE, BF_WG_RP = (4, 16), 20  # its dW tile (a k-step a row); a staged g row
+BWD_BF_TILE = (2, 64)          # K9b-bf16's pixel tile, both passes
+BWD_BF_GW, BWD_BF_GP = 88, 440  # bf16 a row and a plane (5 rows) of g's staged box
+BWD_BF_RPS, BWD_BF_PSS = 64, 264   # the same of g's copies shifted by one column
+BWD_BF_ZEROS = 144             # bf16 of zeros that padding rows of the 9K side read
+BWD_BF_OCP = 2 * 64 + 8        # bf16 a channel of dx's staging tile
+BWD_BF_MAX_SLICES = 64         # dW's slices at most
 
 
 _BF_PLAN_KEYS = ("n", "tiles_x", "tiles_y", "pitch", "threads", "smem", "min_blocks", "chunks")
@@ -713,32 +721,94 @@ def small_conv3x3_bf16_chunks_plain(xa: torch.Tensor, xb: torch.Tensor, w: torch
 
 
 def bwd_plan_bf16(b: int, h: int, w: int, ca: int, cb: int, k: int, sms: int = CARD_SMS):
-    """K9b-bf16's launches as ``csrc/small_conv3x3_bwd_bf16.cu`` plans them:
-    K9b's (``bwd_plan``) with k-steps of 16 (tap, k) rows. dx: grid
-    (``dx_chunks`` of ``dx_nc`` channels, ``dx_blocks`` persistent blocks)
-    over 8x16 tiles, ``dx_smem`` bytes (the chunk's rounded weights, two
-    buffers of g's K planes as raw bf16 with their halo, the offsets). dW:
-    grid (``mchunks`` x ``cchunks``, ``slices``) over 4x16 tiles, four
-    k-steps a tile, ``wg_smem`` bytes (three tiles of x and g in flight,
-    the zeros that padding rows of the 9K side read)."""
+    """K9b-bf16's launches as ``csrc/small_conv3x3_bwd_bf16.cu`` plans them.
+    Both passes walk ``tiles`` 2x64 pixel tiles (``tiles_x`` x ``tiles_y``
+    an image) and read x and g by tensor copies in rows of ``pitch`` bf16:
+    W, or W rounded up to 8 in copies of x and g made first (``copied``:
+    where W % 8 != 0, and where dW's blocks of 64 channels would straddle
+    xa and xb, x as one concat). dx: grid (``dx_chunks`` of ``dx_nc``
+    channels, ``dx_blocks`` persistent blocks), block j of a chunk walking
+    tiles j, j + dx_blocks, ...; ``dx_nc`` is 128 where two such blocks fit
+    an SM, else 64; ``dx_smem`` bytes (1024 to align, the chunk's rounded
+    weights, ``ksteps`` k-steps of 16 (tap, k) rows; ``dx_stages`` stages of
+    g, a tensor copy each, and its copies shifted by one column either way,
+    which dx's staging tile replaces once the products have read them; the
+    rows' offsets). dW: grid (``mchunks`` of 128 (tap, k) rows x
+    ``cchunks`` of 64 channels, ``slices``), slice s summing tiles s, s + S,
+    s + 2 S, ..., ``wg_smem`` bytes (``wg_stages`` stages of x and g, g's
+    shifted copies, db's partial sums). Each pass takes the most stages (4, 3, 2) with which two blocks fit an
+    SM (else, one block, the most that fit). ``side``: dW runs on a second
+    stream beside dx, where each dx block walks at most 8 tiles. ``scratch``
+    floats: the rounded weights, the copies of x and g, the slices' partial
+    sums."""
     c, nks = ca + cb, -(-9 * k // 16)
+    pitch = -(-w // 8) * 8
+    copied = pitch != w or ca == 0 or (cb > 0 and ca % WG_NC != 0)
+    tiles_x, tiles_y = -(-w // BWD_BF_TILE[1]), -(-h // BWD_BF_TILE[0])
+    tiles = b * tiles_x * tiles_y
 
-    def dx_smem(nc):
-        return nks * 16 * nc * 2 + 2 * k * (BF_DX_TILE[0] + 2) * BF_DX_RP * 2 + nks * 16 * 4
+    def up(n, m):
+        return -(-n // m) * m
 
-    dx_nc = 128 if 2 * (dx_smem(128) + 1024) <= CARD_SMEM else 64
-    dx_per_sm = 2 if 2 * (dx_smem(dx_nc) + 1024) <= CARD_SMEM else 1
-    dx_tiles = _tiles(b, h, w, BF_DX_TILE)
+    g_stage = up(k * BWD_BF_GP, 64)
+    g_shifted = up(2 * k * BWD_BF_PSS + BWD_BF_ZEROS, 64)
+    wg_stage = up(WG_NC * 128 + g_stage, 512)
+
+    def dx_smem(nc, stages):
+        return (1024 + (nks * 16 * nc + stages * g_stage + max(g_shifted, nc * BWD_BF_OCP)) * 2
+                + nks * 16 * 4)
+
+    def wg_smem(stages):
+        return 1024 + (stages * wg_stage + g_shifted) * 2 + k * 16 * 4
+
+    def fits2(smem):
+        return 2 * (smem + 1024) <= CARD_SMEM
+
+    def most_stages(smem_of):
+        return next((st for st in (4, 3, 2) if fits2(smem_of(st))),
+                    next((st for st in (4, 3) if smem_of(st) <= BLOCK_SMEM_MAX), 2))
+
+    dx_nc = 128 if fits2(dx_smem(128, 2)) else 64
+    dx_stages = most_stages(lambda st: dx_smem(dx_nc, st))
+    dx_per_sm = 2 if fits2(dx_smem(dx_nc, dx_stages)) else 1
     dx_chunks = -(-c // dx_nc)
     mchunks, cchunks = -(-9 * k // WG_MR), -(-c // WG_NC)
-    wg_tiles = _tiles(b, h, w, BF_WG_TILE)
-    return {"ksteps": nks, "dx_nc": dx_nc, "dx_chunks": dx_chunks, "dx_tiles": dx_tiles,
-            "dx_blocks": max(1, min(dx_tiles, dx_per_sm * sms // dx_chunks)),
-            "dx_smem": dx_smem(dx_nc), "dx_per_sm": dx_per_sm, "mchunks": mchunks,
-            "cchunks": cchunks, "wg_tiles": wg_tiles,
-            "slices": max(1, min(wg_tiles, BWD_MIN_BLOCKS * sms // (mchunks * cchunks),
-                                 RED_CHUNK)),
-            "wg_smem": 3 * (WG_NC * 64 + k * (BF_WG_TILE[0] + 2) * BF_WG_RP) * 2
-                       + 4 * BF_WG_RP * 2 + k * BF_WG_TILE[0] * 4,
-            "gvec": w % 2 == 0, "xvec": w % 8 == 0,
-            "threads": BWD_THREADS, "regs": 65536 // (BWD_THREADS * BWD_MIN_BLOCKS)}
+    wg_stages = most_stages(wg_smem)
+    wg_per_sm = 2 if fits2(wg_smem(wg_stages)) else 1
+    slices = max(1, min(tiles, wg_per_sm * sms // (mchunks * cchunks), BWD_BF_MAX_SLICES))
+
+    scratch = (up(dx_chunks * nks * 16 * dx_nc // 2, 4)
+               + (up(-(-b * c * h * pitch // 2), 4) + up(-(-b * k * h * pitch // 2), 4)
+                  if copied else 0)
+               + up(slices * (9 * k * c + k), 4))
+    dx_blocks = max(1, min(tiles, dx_per_sm * sms // dx_chunks))
+    return {"pitch": pitch, "copied": int(copied), "ksteps": nks, "tiles_x": tiles_x,
+            "tiles_y": tiles_y, "tiles": tiles, "dx_nc": dx_nc, "dx_chunks": dx_chunks,
+            "dx_blocks": dx_blocks, "side": int(tiles <= 8 * dx_blocks),
+            "dx_smem": dx_smem(dx_nc, dx_stages), "dx_per_sm": dx_per_sm,
+            "dx_stages": dx_stages, "mchunks": mchunks, "cchunks": cchunks, "slices": slices,
+            "wg_smem": wg_smem(wg_stages), "wg_per_sm": wg_per_sm, "wg_stages": wg_stages,
+            "scratch": scratch, "threads": BWD_THREADS,
+            "regs": 65536 // (BWD_THREADS * BWD_MIN_BLOCKS)}
+
+
+_BWD_BF_PLAN_KEYS = ("pitch", "copied", "ksteps", "tiles_x", "tiles_y", "dx_nc", "dx_chunks",
+                     "dx_blocks", "dx_smem", "dx_per_sm", "dx_stages", "mchunks", "cchunks",
+                     "slices", "wg_smem", "wg_per_sm", "wg_stages", "side")
+
+
+def bwd_plan_bf16_card(b: int, h: int, w: int, ca: int, cb: int, k: int):
+    """The same plan as the built kernel reports it on the current card
+    (``small_conv3x3_bwd_bf16_plan``), in ``bwd_plan_bf16``'s keys, for
+    ``chip_smoke.py`` to hold against it."""
+    lib = build.load("small_conv3x3_bwd_bf16", _BWD_BF16_SIGNATURES)
+    out = (ctypes.c_int * len(_BWD_BF_PLAN_KEYS))()
+    build.check_launch(lib.small_conv3x3_bwd_bf16_plan(b, h, w, ca, cb, k, out),
+                       "small_conv3x3_bwd_bf16_plan")
+    return dict(zip(_BWD_BF_PLAN_KEYS, out))
+
+
+def pad_rows_bf16(t: torch.Tensor, pitch: int) -> torch.Tensor:
+    """K9b-bf16's copy of x or g (``pad_rows_kernel``) on the CPU: t (...,
+    H, W) with its rows zero-padded to ``pitch`` columns."""
+    return F.pad(t, (0, pitch - t.shape[-1]))

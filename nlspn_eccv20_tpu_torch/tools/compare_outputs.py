@@ -1,8 +1,9 @@
 """Whether two trees' kernels give the same bits, on the card.
 
 Runs the f32 decode_aff tail K2 (output and y1), the f32 encode_dep front
-K3, the f32 GRU-refresh backwards K4 and K5 and the op library's f32 K9 and
-K9b on the inputs ``chip_smoke.py`` checks them on (the
+K3, the f32 GRU-refresh backwards K4 and K5, the op library's f32 K9 and
+K9b and its bf16 backward K9b-bf16 on the inputs ``chip_smoke.py`` checks
+them on (the
 ``*_case`` builders, from a seeded generator), at the train step's and the
 serving shapes and the odd ones, and either saves
 every output (``--save FILE``) or holds them against a saved file
@@ -11,9 +12,9 @@ largest difference. To compare a change with its parent, unpack the parent
 into a directory the repository ignores, copy this file into its
 ``tools/``, and run it there with ``--save``, then here with
 ``--against``, in one call on one card. A case whose inputs come from a
-kernel that changed (the bf16 backwards' cases take their y1 or their
-output from the bf16 forwards) would compare other inputs, so only the f32
-kernels are here.
+kernel that changed (K4-bf16's and K5-bf16's cases take their y1 or their
+output from the bf16 forwards) would compare other inputs, so of the bf16
+kernels only K9b-bf16, whose inputs are drawn directly, is here.
 
     python -m nlspn_eccv20_tpu_torch.tools.compare_outputs --save FILE
     python -m nlspn_eccv20_tpu_torch.tools.compare_outputs --against FILE
@@ -37,7 +38,7 @@ from nlspn_eccv20_tpu_torch.ops.kernels.small_conv3x3 import (
     small_conv3x3_bwd, small_conv3x3_bwd_case, small_conv3x3_case, small_conv3x3_planar)
 
 # (kernel, batch, height, width, options): K2's and K4's base grid, K3's and
-# K5's plane, K9's and K9b's (K outputs beside Ca 192, Cb 64)
+# K5's plane, K9's, K9b's and K9b-bf16's (K outputs beside Ca 192, Cb 64)
 CASES = [("K2", 12, 58, 76, {"k": 8}), ("K2", 1, 64, 80, {"k": 8}),
          ("K2", 4, 64, 80, {"k": 8}), ("K2", 1, 64, 80, {"k": 24}),
          ("K2", 1, 57, 75, {"k": 8}), ("K2", 1, 64, 80, {"k": 8, "c": 40}),
@@ -49,7 +50,9 @@ CASES = [("K2", 12, 58, 76, {"k": 8}), ("K2", 1, 64, 80, {"k": 8}),
          ("K3", 1, 240, 1216, {}), ("K3", 1, 228, 304, {"c": 96}),
          ("K3", 1, 230, 306, {}), ("K3", 1, 228, 304, {"c": 30}),
          ("K9", 1, 256, 320, {"k": 10}), ("K9", 2, 57, 75, {"k": 26}),
-         ("K9b", 1, 228, 304, {"k": 10}), ("K9b", 2, 57, 75, {"k": 26})]
+         ("K9b", 1, 228, 304, {"k": 10}), ("K9b", 2, 57, 75, {"k": 26}),
+         ("K9b-bf16", 12, 228, 304, {"k": 10}), ("K9b-bf16", 1, 228, 304, {"k": 10}),
+         ("K9b-bf16", 2, 57, 75, {"k": 26}), ("K9b-bf16", 2, 57, 76, {"k": 26})]
 
 
 def run_case(gen, dev, kname, b, h, w, opts):
@@ -66,8 +69,9 @@ def run_case(gen, dev, kname, b, h, w, opts):
     elif kname == "K9":
         args, _ = small_conv3x3_case(gen, dev, b, h, w, opts["k"])
         outs = [small_conv3x3_planar(*args)]
-    elif kname == "K9b":
-        args, _ = small_conv3x3_bwd_case(gen, dev, b, h, w, opts["k"])
+    elif kname in ("K9b", "K9b-bf16"):
+        dtype = torch.bfloat16 if kname == "K9b-bf16" else torch.float32
+        args, _ = small_conv3x3_bwd_case(gen, dev, b, h, w, opts["k"], dtype=dtype)
         outs = list(small_conv3x3_bwd(*args))
     else:
         args, _ = decode_aff_tail_bwd_case(gen, dev, b, h, w, opts["k"])

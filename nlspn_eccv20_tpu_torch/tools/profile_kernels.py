@@ -44,7 +44,10 @@ K9-bf16 at b=1 and b=4 of
 256x320, b=12 of 228x304 and b=2 of 57x75 with K=26 (its rows padded to a
 multiple of 8 columns by ``pad_rows_kernel``, a pass of its own),
 K9b-bf16 at b=12 and b=1 of 228x304
-and b=2 of 57x75 with K=26, their yardsticks cuDNN's bf16 calls) it
+and b=2 of 57x75 and of 57x76 with K=26 (its passes: the weight layout
+``prep_weights_kernel``, the padded copy ``pad_rows_kernel`` where W % 8 !=
+0, ``dx_kernel``, ``wgrad_kernel`` and the reduction), their yardsticks
+cuDNN's bf16 calls) it
 times the whole call and one PyTorch call sequence of the same function (cuDNN's two convs or their
 backward; for K8 the ``grid_sample`` form's backward, for K7 its forward;
 for K1 replicate pad, ``F.unfold``, the weighted sum and the blend, for K1b
@@ -172,7 +175,7 @@ CASES = [("K2", 12, 58, 76, {"k": 8, "y1": True}), ("K2", 12, 58, 76, {"k": 8}),
          ("K9-bf16", 1, 256, 320, {"k": 10}), ("K9-bf16", 4, 256, 320, {"k": 10}),
          *((k, b, h, w, {"k": kk}) for k in ("K9-bf16", "K9b-bf16")
            for b, h, w, kk in ((12, 228, 304, 10), (2, 57, 75, 26))),
-         ("K9b-bf16", 1, 228, 304, {"k": 10})]
+         ("K9b-bf16", 1, 228, 304, {"k": 10}), ("K9b-bf16", 2, 57, 76, {"k": 26})]
 # (K11's height and width are those of the padded phase planes; K9's and
 # K9b's options: K, the outputs, beside the heads' Ca = 192 and Cb = 64;
 # K10a's: the stencil)

@@ -252,52 +252,124 @@ def _reduce_order(parts):
 @pytest.mark.parametrize("k", [1, 10, 26, 32])
 @pytest.mark.parametrize("bhw", PLAN_SHAPES)
 def test_backward_plan_covers_and_fits(bhw, k):
-    """K9b-bf16: the dx blocks' tile walks (j, j + blocks, ...) cover every
-    tile once; the dW slices partition the tiles in order; the 9K rows and
-    channels are covered by the block chunks; shared memory fits two
-    blocks an SM for dW and ``dx_per_sm`` for dx."""
+    """K9b-bf16: the 2x64 tiles cover every pixel once; the dx blocks'
+    tile walks (j, j + blocks, ...) cover every tile once, and so do the dW
+    slices' (s, s + slices, ...); the 9K rows and channels are covered by
+    the block chunks; x and g are read in rows of a multiple of 8 columns
+    (a padded copy where W % 8 != 0) whose 16-byte pieces lie wholly inside
+    or outside them; shared memory fits ``dx_per_sm`` dx blocks and
+    ``wg_per_sm`` dW blocks an SM (two at the heads' K 10 and 26); the
+    accumulators fit the registers; the scratch holds the rounded weights,
+    the padded copies and the slices' partial sums."""
     b, h, w = bhw
     p = bwd_plan_bf16(b, h, w, 192, 64, k)
+    th, tw = port.BWD_BF_TILE
+    assert (p["tiles_x"] - 1) * tw < w <= p["tiles_x"] * tw
+    assert (p["tiles_y"] - 1) * th < h <= p["tiles_y"] * th
+    assert p["tiles"] == b * p["tiles_x"] * p["tiles_y"]
     assert p["ksteps"] * 16 >= 9 * k > (p["ksteps"] - 1) * 16
-    walks = [t for j in range(p["dx_blocks"]) for t in range(j, p["dx_tiles"], p["dx_blocks"])]
-    assert sorted(walks) == list(range(p["dx_tiles"]))
-    n, s = p["wg_tiles"], p["slices"]
-    bounds = [(n * i // s, n * (i + 1) // s) for i in range(s)]
-    assert bounds[0][0] == 0 and bounds[-1][1] == n and all(
-        a[1] == c[0] and a[0] < a[1] for a, c in zip(bounds, bounds[1:] + [(n, n + 1)]))
+    walks = [t for j in range(p["dx_blocks"]) for t in range(j, p["tiles"], p["dx_blocks"])]
+    assert sorted(walks) == list(range(p["tiles"]))
+    # dW beside dx on a second stream where dx's blocks walk few tiles:
+    # the small shapes, not the train step's b=12
+    assert p["side"] == (p["tiles"] <= 8 * p["dx_blocks"])
+    if bhw == (12, 228, 304):
+        assert not p["side"]
+    if bhw == (2, 57, 75):
+        assert p["side"]
+    n, s = p["tiles"], p["slices"]
+    slices = [list(range(i, n, s)) for i in range(s)]
+    assert all(slices) and sorted(t for sl in slices for t in sl) == list(range(n))
+    assert p["dx_chunks"] * p["dx_nc"] >= 256 > (p["dx_chunks"] - 1) * p["dx_nc"]
     assert p["mchunks"] * port.WG_MR >= 9 * k and p["cchunks"] * port.WG_NC >= 256
+    pitch = p["pitch"]
+    assert pitch % 8 == 0 and w <= pitch < w + 8 and p["copied"] == (w % 8 != 0)
+    # g's staged box: rows y0 - 1 .. y0 + 2 read of its 5, columns x0 - 8 ..
+    # x0 + 72 of its 88, the copy starting at a 16-byte boundary; a plane
+    # (and a shifted copy's) an odd number of 16-byte pieces mod 128 bytes,
+    # so ldmatrix's rows of 8 planes miss each other's banks
+    assert port.BWD_BF_GP == 5 * port.BWD_BF_GW and th + 2 <= 5 and tw + 9 <= port.BWD_BF_GW
+    for x0 in range(0, p["tiles_x"] * tw, tw):
+        assert (x0 - 8) * 2 % 16 == 0
+    for plane in (port.BWD_BF_GP, port.BWD_BF_PSS):
+        assert (plane * 2 // 16) % 2 == 1 and plane * 2 % 16 == 0
+    assert (th + 2) * port.BWD_BF_RPS <= port.BWD_BF_PSS and tw <= port.BWD_BF_RPS
     assert p["dx_per_sm"] * (p["dx_smem"] + 1024) <= port.CARD_SMEM
-    assert 2 * (p["wg_smem"] + 1024) <= port.CARD_SMEM
-    assert p["dx_nc"] // 2 + 8 + 40 <= 255 and 2 * port.WG_NC // 2 + 8 + 40 <= p["regs"]
+    assert p["wg_per_sm"] * (p["wg_smem"] + 1024) <= port.CARD_SMEM
+    assert max(p["dx_smem"], p["wg_smem"]) <= port.BLOCK_SMEM_MAX
+    assert p["dx_stages"] in (2, 3, 4) and p["wg_stages"] in (2, 3, 4)
+    if k == 10:   # the heads' width: two blocks an SM
+        assert p["dx_per_sm"] == p["wg_per_sm"] == 2
+    # dx: NC / 2 accumulators, two A fragments; dW: the slice's sums, a
+    # tile's and four fragments in flight
+    assert p["dx_nc"] // 2 + 8 + 40 <= p["regs"] and 2 * port.WG_NC // 2 + 16 + 40 <= p["regs"]
+    weights = p["dx_chunks"] * p["ksteps"] * 16 * p["dx_nc"] // 2
+    copies = (-(-b * 256 * h * pitch // 2) + -(-b * k * h * pitch // 2)) if w % 8 else 0
+    assert weights + copies + p["slices"] * (k * 256 * 9 + k) <= p["scratch"] \
+        < weights + copies + p["slices"] * (k * 256 * 9 + k) + 12
+
+
+@pytest.mark.parametrize("wd", [75, 76, 304])
+def test_backward_padded_copy(wd):
+    """K9b-bf16's copy (``pad_rows_bf16``, the mirror of ``pad_rows_kernel``)
+    is x or g with zero columns up to the plan's pitch;
+    dx from the padded copies, cut back to W columns, equals the plain
+    version's dx bit for bit (the zero columns stand where the conv's zero
+    padding stands), at W = 75 (odd), 76 (even, not a multiple of 8) and
+    304 (a multiple of 8: no copy, the pitch is W)."""
+    b, h, ca, cb, k = 1, 5, 64, 8, 10
+    xa, xb, w, _, g = _port(*_inputs((b, h, wd, ca, cb, k), seed=wd))
+    p = bwd_plan_bf16(b, h, wd, ca, cb, k)
+    pitch = p["pitch"]
+    assert p["copied"] == (wd != 304) and pitch == -(-wd // 8) * 8
+    # dW's blocks of 64 channels would straddle xa and xb: x copied as one concat
+    assert bwd_plan_bf16(b, h, wd, 24, 8, k)["copied"]
+    gb = g.to(BF16)
+    for t in (xa, xb, gb):
+        tp = port.pad_rows_bf16(t, pitch)
+        assert tp.dtype == t.dtype and tp.shape == t.shape[:-1] + (pitch,)
+        assert torch.equal(tp[..., :wd], t) and not tp[..., wd:].any()
+    want = small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
+    got = small_conv3x3_bwd_plain_bf16(*(port.pad_rows_bf16(t, pitch) for t in (gb, xa, xb)), w)
+    for o, r in zip(got[:2], want[:2]):
+        assert torch.equal(o[..., :wd], r)
 
 
 def test_backward_slice_order_matches_plain():
-    """K9b-bf16's dW and db summed in the kernel's split-K order (each 4x16
-    tile's products, exact, summed apart and added to its slice, the
-    slices added in ``bwd::reduce_partials``' order) stay within 1e-5 of
-    the plain version's f32 sums: the order moves nothing past f32."""
+    """K9b-bf16's dW and db summed in the kernel's split-K order (slice s
+    takes tiles s, s + S, ...; each 2x64 tile's products, exact, summed
+    apart and added to its slice; db by (plane, tile row, 8-column piece),
+    a piece's columns in order each tile, the pieces added in order at the
+    end; the slices added in ``reduce_slices_kernel``'s order, which is
+    ``bwd::reduce_partials``') stay within 1e-5 of the plain version's f32
+    sums: the order moves nothing past f32."""
     shape = (2, 9, 35, 24, 8, 10)
     xa, xb, w, _, g = _port(*_inputs(shape, seed=11))
     b, c, h, wd, k = 2, 32, 9, 35, 10
     p = bwd_plan_bf16(b, h, wd, 24, 8, k, sms=4)
-    th, tw = port.BF_WG_TILE
+    th, tw = port.BWD_BF_TILE
     hp, wp = -(-h // th) * th, -(-wd // tw) * tw
     x = F.pad(torch.cat([xa, xb], 1).float(), (1, 1 + wp - wd, 1, 1 + hp - h)).double()
-    gr = F.pad(g.to(BF16).float(), (0, wp - wd, 0, hp - h)).double()
+    gr = F.pad(g.to(BF16).float(), (0, wp - wd, 0, hp - h))
     tiles = [(bi, y0, x0) for bi in range(b) for y0 in range(0, hp, th)
              for x0 in range(0, wp, tw)]
-    assert len(tiles) == p["wg_tiles"]
-    n, s = len(tiles), p["slices"]
+    assert len(tiles) == p["tiles"]
+    s = p["slices"]
     parts = []
     for i in range(s):
-        dw, db = torch.zeros(k, c, 3, 3), torch.zeros(k)
-        for bi, y0, x0 in tiles[n * i // s:n * (i + 1) // s]:
+        dw, dbp = torch.zeros(k, c, 3, 3), torch.zeros(k, th, tw // 8)
+        for bi, y0, x0 in tiles[i::s]:
             gt = gr[bi, :, y0:y0 + th, x0:x0 + tw]
-            t = torch.stack([torch.einsum("khw,chw->kc", gt,
+            t = torch.stack([torch.einsum("khw,chw->kc", gt.double(),
                                           x[bi, :, y0 + ty:y0 + ty + th, x0 + tx:x0 + tx + tw])
                              for ty in range(3) for tx in range(3)], -1)
             dw = dw + t.reshape(k, c, 3, 3).float()
-            db = db + gt.sum((1, 2)).float()
+            for e in range(8):   # column e of each piece
+                dbp = dbp + gt[:, :, e::8]
+        pieces = dbp.reshape(k, -1)
+        db = pieces[:, 0]
+        for j in range(1, pieces.shape[1]):
+            db = db + pieces[:, j]
         parts.append(torch.cat([dw.reshape(-1), db]))
     total = _reduce_order(torch.stack(parts))
     want = small_conv3x3_bwd_plain_bf16(g, xa, xb, w)
