@@ -3,6 +3,8 @@
 hold every hand-written kernel against its plain PyTorch version there.
 
 Run from the repository root, with one card:  python3 chip_smoke.py
+(``python3 chip_smoke.py --dp-rank DIR`` is one rank of phase 16, which
+starts two of them itself.)
 
 Phases (any failure exits non-zero and prints no result):
   1. the card: its name and power limit as nvidia-smi gives them;
@@ -223,7 +225,28 @@ Phases (any failure exits non-zero and prints no result):
      initial weights; then main --precision bf16 in its own temporary
      directory: one epoch trained, resumed for a second, --test_only, its
      checkpoint's weights f32 and served by an f32 Predictor;
- 16. the kernel line, then {"ok": true, "device": ...} as the last line.
+ 16. data parallel (``parallel/mesh.py``): (a) two ranks on the one card,
+     two subprocesses of this script with torchrun's variables set here and
+     a gloo group (NCCL refuses two ranks on one card), each taking the
+     default configuration's f32 train step, then its bf16 one, on 6 of
+     phase 7's 12 images of 228x304 from the same random weights (seed 4,
+     broadcast by rank 0), against the one-process step on all 12 here,
+     with the deterministic algorithms cuDNN's heuristics pick on both
+     sides: f32 loss within 1e-4 and each gradient (summed over the ranks)
+     within 5e-3 relative L2,
+     bf16 at phase 15's bars (loss 1e-2; each gradient within
+     min(max(5e-2, 2 x the one-process bf16-vs-f32 distance), 0.5), norms
+     3/4 to 4/3); both ranks' weights and BatchNorm running statistics
+     equal bits after the step; launches 12/11/11 forward and backward on
+     each rank (bf16: K2-K5 in their bf16 forms); the rank step's median of
+     5 in cuDNN's benchmark mode (gloo all-reduces through the host) beside
+     the one-process step's and phase 7's, with the card's name and power
+     limit; (b) ``torchrun
+     --nproc_per_node 1 -m nlspn_eccv20_tpu_torch.main --data_name
+     Synthetic --test_pipeline --epochs 1``: an NCCL group of one rank, the
+     synchronised BatchNorm and the rank-0 writers on the card, exit 0 and
+     every artifact; each subprocess killed at its time limit (480 s);
+ 17. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every f32 number here is float32
 (phases 14 and 15 run bf16 where the configuration says so). cuDNN runs in
@@ -383,6 +406,9 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    # main's kernel build cache off: its runs here (phases 13, 15, 16) and
+    # their subprocesses load what phase 2 built in build/
+    os.environ["NLSPN_COMPILE_CACHE"] = "0"
     # the cuDNN setting the serving path runs under (Predictor.predict_batch),
     # so that plain and library times are held against the same cuDNN
     torch.backends.cudnn.benchmark = True
@@ -1089,6 +1115,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. and 8. training ----
+    step_medians = {}
+
     def train(tcfg, tag):
         """5 Engine steps at batch 12 of 228x304 with random weights; launch
         counts, finite gradients, one step against the plain versions, step
@@ -1197,6 +1225,7 @@ def main() -> int:
             if not np.isfinite(aux["loss"].item()):
                 raise AssertionError(f"timed train step: loss {aux['loss'].item()}")
         peak = torch.cuda.max_memory_allocated()
+        step_medians[tag] = sorted(step_ms)[len(step_ms) // 2]
         log(f"[train{tag}] b={TRAIN_B} train step (CUDA events, forward + loss + "
             f"backward + Adam): median {sorted(step_ms)[len(step_ms) // 2]:.3f} "
             f"ms, min {min(step_ms):.3f} ms over {len(step_ms)} steps; peak "
@@ -2537,7 +2566,18 @@ def main() -> int:
         shutil.rmtree(bt_dir, ignore_errors=True)
     log(f"[bf16-train] phase 15: {time.perf_counter() - t_bt:.1f} s")
 
-    # ---- 16. results ----
+    # ---- 16. data parallel ----
+    t_dp = time.perf_counter()
+    dp_dir = tempfile.mkdtemp(prefix="dp-", dir=build.BUILD_DIR)
+    try:
+        data_parallel(dp_dir, dev, card, step_medians[""], expected_launches(
+            Config(), {**fwd_wrappers, **bwd_wrappers}), expected_bf16_train(
+            Config(precision="bf16")))
+    finally:
+        shutil.rmtree(dp_dir, ignore_errors=True)
+    log(f"[dp] phase 16: {time.perf_counter() - t_dp:.1f} s")
+
+    # ---- 17. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -2619,5 +2659,253 @@ def main() -> int:
     return 0
 
 
+DP_RANKS = 2
+DP_TIMEOUT = 480          # seconds, each rank subprocess and the torchrun run
+
+
+def dp_steps(cfg_kw, rows):
+    """One train step of ``Config(**cfg_kw)`` from seed 4's random weights
+    on ``rows`` of phase 7's first batch (global: 12 of 228x304), with the
+    deterministic algorithms cuDNN's heuristics pick (the step's benchmark
+    mode left out, so that every run picks the same ones): the loss, every
+    gradient, the weights and running statistics after it (on the host),
+    the launches of each kernel wrapper in it; then the median of 5 more
+    steps as ``Engine.train_step`` runs them (cuDNN's benchmark mode, as in
+    phase 7; CUDA events)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    import nlspn_eccv20_tpu_torch.train as train_mod
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+    from nlspn_eccv20_tpu_torch.ops.kernels import dec_aff_tail, dep_encode_front, prop_step
+    from nlspn_eccv20_tpu_torch.train import Engine
+    from nlspn_eccv20_tpu_torch.utils.weights import randomize_
+
+    wrappers = {n: getattr(m, n) for m, names in (
+        (prop_step, ("prop_step", "prop_step_bwd")),
+        (dec_aff_tail, ("decode_aff_tail", "decode_aff_tail_bf16", "decode_aff_tail_bwd",
+                        "decode_aff_tail_bwd_bf16")),
+        (dep_encode_front, ("dep_encode_front", "dep_encode_front_bf16",
+                            "dep_encode_front_bwd", "dep_encode_front_bwd_bf16")))
+        for n in names}
+    cfg = Config(**cfg_kw)
+    eng = Engine(cfg, steps_per_epoch=100)
+    randomize_(eng.model, torch.Generator().manual_seed(4))
+    model = eng.init_state()
+    data = Synthetic(cfg, "train")
+    full = data.batch(list(range(TRAIN_B)), np.random.default_rng(5))
+    batch = eng.put_train_batch({k: v[rows] for k, v in full.items()})
+    benchmark_mode = train_mod.cudnn_benchmark_mode
+    train_mod.cudnn_benchmark_mode = contextlib.nullcontext
+    cudnn = torch.backends.cudnn
+    try:
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                         allow_tf32=False):
+            for fn in wrappers.values():
+                fn.launches = 0
+            aux = eng.train_step(batch)
+            out = {"loss": aux["loss"].item(),
+                   "launches": {k: fn.launches for k, fn in wrappers.items()},
+                   "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
+                             if p.grad is not None},
+                   "after": {k: v.cpu() for k, v in model.state_dict().items()}}
+    finally:
+        train_mod.cudnn_benchmark_mode = benchmark_mode
+    eng.train_step(batch)      # cuDNN times its algorithms
+    ms = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        eng.train_step(batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    out["median_ms"] = sorted(ms)[2]
+    return out
+
+
+def dp_rank(workdir):
+    """One rank of phase 16 (a): joins the gloo group its environment
+    describes on the one card, takes the f32 and the bf16 step on its half
+    of the global batch, saves what it saw to ``<workdir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not maybe_initialize_distributed(Config(), backend="gloo"):
+        raise SystemExit("dp-rank: no process group in the environment")
+    r, n = dist.get_rank(), dist.get_world_size()
+    per = TRAIN_B // n
+    rows = list(range(r * per, (r + 1) * per))
+    res = {"backend": dist.get_backend(), "world": n, "device": torch.cuda.current_device(),
+           "f32": dp_steps({}, rows), "bf16": dp_steps({"precision": "bf16"}, rows)}
+    torch.save(res, os.path.join(workdir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_with_timeout(cmd, timeout, env=None, cwd=None):
+    """Start ``cmd`` in its own process group; (exit code, output). On the
+    time limit every process of the group is killed and it raises."""
+    import signal
+
+    proc = subprocess.Popen(cmd, env=env, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{cmd[:4]}...: killed after {timeout} s")
+    return proc.returncode, out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def data_parallel(workdir, dev, card, phase7_ms, want_f32, want_bf16):
+    """Phase 16. (a) Two gloo ranks on the one card (two subprocesses of
+    this script, torchrun's variables set here) each take the default
+    configuration's f32 step, then its bf16 step, on 6 of phase 7's 12
+    images, from the same random weights; held against the one-process
+    step here on all 12 at phase 7's bars (f32: loss 1e-4, each gradient
+    5e-3 relative L2; bf16: phase 15's bars), their weights and running
+    statistics equal bits after the step, launches 12/11/11 forward and
+    backward on each rank; the rank step's median beside the one-process
+    step's. (b) ``torchrun --nproc_per_node 1 -m nlspn_eccv20_tpu_torch.main``
+    on the synthetic scenes: an NCCL group of one rank, the synchronised
+    BatchNorm and the rank-0 writers on the card; it must exit 0."""
+    import torch
+
+    def dist_of(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    one = {"f32": dp_steps({}, list(range(TRAIN_B))),
+           "bf16": dp_steps({"precision": "bf16"}, list(range(TRAIN_B)))}
+    torch.cuda.empty_cache()
+    port = free_port()
+    script = os.path.abspath(__file__)
+    ranks = []
+    t0 = time.perf_counter()
+    for r in range(DP_RANKS):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        ranks.append(subprocess.Popen(
+            [sys.executable, script, "--dp-rank", workdir], env=env,
+            cwd=os.path.dirname(script), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    outs = []
+    try:
+        for proc in ranks:
+            outs.append(proc.communicate(
+                timeout=max(DP_TIMEOUT - (time.perf_counter() - t0), 1))[0])
+    except subprocess.TimeoutExpired:
+        for proc in ranks:
+            proc.kill()
+        for proc in ranks:
+            proc.communicate()
+        raise AssertionError(f"[dp] the ranks did not finish in {DP_TIMEOUT} s")
+    for r, (proc, out) in enumerate(zip(ranks, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"[dp] rank {r} exited {proc.returncode}:\n{out[-4000:]}")
+    wall = time.perf_counter() - t0
+    res = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
+           for r in range(DP_RANKS)]
+    if any((x["backend"], x["world"], x["device"]) != ("gloo", DP_RANKS, dev.index)
+           for x in res):
+        raise AssertionError(f"[dp] ranks ran {[(x['backend'], x['world']) for x in res]}")
+
+    for prec, want in (("f32", want_f32), ("bf16", want_bf16)):
+        ref = one[prec]
+        a, b = (x[prec] for x in res)
+        for r, x in enumerate((a, b)):
+            got = {k: x["launches"].get(k, 0) for k in want}
+            if got != want:
+                raise AssertionError(f"[dp {prec}] rank {r}: launches {got}, expected {want}")
+        for k in a["after"]:
+            if not torch.equal(a["after"][k], b["after"][k]):
+                raise AssertionError(f"[dp {prec}] the ranks' {k} differ after the step")
+        if a["loss"] != b["loss"] or a["grads"].keys() != ref["grads"].keys():
+            raise AssertionError(f"[dp {prec}] the ranks' losses or gradient sets differ")
+        rel = abs(a["loss"] - ref["loss"]) / abs(ref["loss"])
+        if prec == "f32":
+            rows = [(dist_of(a["grads"][n], g), 5e-3, n) for n, g in ref["grads"].items()
+                    if g.abs().max() > 0]
+            loss_bar = 1e-4
+        else:   # phase 15's bars: the plain bf16 step's distance from f32 sets them
+            f32_grads = one["f32"]["grads"]
+            rows = [(dist_of(a["grads"][n], g),
+                     min(max(5e-2, 2 * dist_of(g, f32_grads[n])), 0.5), n)
+                    for n, g in ref["grads"].items() if g.abs().max() > 0]
+            loss_bar = 1e-2
+            ratios = [a["grads"][n].norm().item() / ref["grads"][n].norm().item()
+                      for _, _, n in rows]
+            if not all(3 / 4 <= q <= 4 / 3 for q in ratios):
+                raise AssertionError(f"[dp bf16] gradient norms {min(ratios):.4f} to "
+                                     f"{max(ratios):.4f} of the one-process step's")
+        worst = max(rows, key=lambda row: row[0] / row[1])
+        log(f"[dp {prec}] {DP_RANKS} gloo ranks on one card, {TRAIN_B // DP_RANKS} images "
+            f"a rank of a global {TRAIN_B} x {REQ_H}x{REQ_W}, against one process on all "
+            f"{TRAIN_B} (cuDNN deterministic, by its heuristics): loss {a['loss']:.6f} vs {ref['loss']:.6f} "
+            f"(rel {rel:.3e}, bar {loss_bar:.0e}); gradients nearest their bar "
+            f"{worst[2]} {worst[0]:.3e} (bar {worst[1]:.3e}), largest "
+            f"{max(r[0] for r in rows):.3e}; both ranks' weights and running statistics "
+            f"equal bits; launches a rank {({k: v for k, v in want.items() if v})}")
+        if not rel <= loss_bar:
+            raise AssertionError(f"[dp {prec}] loss rel {rel:.3e} > {loss_bar:.0e}")
+        if not worst[0] <= worst[1]:
+            raise AssertionError(f"[dp {prec}] gradient {worst[2]}: {worst[0]:.3e} > "
+                                 f"{worst[1]:.3e}")
+        extra = f"; phase 7's one-process step {phase7_ms:.3f} ms" if prec == "f32" else ""
+        log(f"[dp {prec}] train step median of 5 (CUDA events, cuDNN benchmark mode as "
+            f"Engine.train_step runs it): "
+            f"rank 0 {a['median_ms']:.3f} ms, rank 1 {b['median_ms']:.3f} ms at "
+            f"{TRAIN_B // DP_RANKS} images, both ranks on the one card at once, their "
+            f"all-reduces by gloo through the host; one process at {TRAIN_B} images "
+            f"{ref['median_ms']:.3f} ms{extra}; {card}")
+    log(f"[dp] (a) two ranks: {wall:.1f} s of wall time with their start")
+
+    # (b) the command line under torchrun, NCCL, one rank
+    exp = os.path.join(workdir, "exp")
+    t0 = time.perf_counter()
+    rc, out = run_with_timeout(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+         "--master_port", str(free_port()), "-m", "nlspn_eccv20_tpu_torch.main",
+         "--data_name", "Synthetic", "--test_pipeline", "--epochs", "1",
+         "--experiments_dir", exp, "--save", "dp"],
+        DP_TIMEOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[dp] torchrun main exited {rc}:\n{out[-4000:]}")
+    runs = os.listdir(exp)
+    for need in ("data parallel: 1 ranks (nccl on cuda)",
+                 f"train epoch 1: {TRAIN_B} images in", "test epoch 0000 | Metric"):
+        if need not in out:
+            raise AssertionError(f"[dp] torchrun main: no '{need}' in its output")
+    if len(runs) != 1 or not all(os.path.exists(os.path.join(exp, runs[0], f)) for f in (
+            "args.json", "metric_val.txt", "metric_test.txt",
+            os.path.join("ckpt", "model_00001.pt"))):
+        raise AssertionError(f"[dp] torchrun main: artifacts {runs}")
+    log(f"[dp] (b) torchrun --nproc_per_node 1 -m nlspn_eccv20_tpu_torch.main "
+        f"--data_name Synthetic --test_pipeline --epochs 1: exit 0 in {wall:.1f} s "
+        f"(NCCL, one rank, the synchronised BatchNorm; every artifact written by rank 0)")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2]))
     sys.exit(main())

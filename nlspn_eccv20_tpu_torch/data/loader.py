@@ -65,6 +65,12 @@ class DataLoader:
             order = order[self.shard_index::self.num_shards]
         return order
 
+    def position(self, row: int) -> int:
+        """Where the shard's ``row``-th sample (over the epoch's batches)
+        stands in the epoch's order; positions from ``len(dataset)`` on are
+        the padding that evens out the shards (each repeats a sample)."""
+        return self.shard_index + row * max(self.num_shards, 1)
+
     def __len__(self):
         n = len(self._epoch_indices())
         if self.drop_last:

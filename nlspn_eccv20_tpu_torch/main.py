@@ -2,13 +2,25 @@
 (counterpart of ``nlspn_eccv20_tpu/main.py``).
 
 One process on one CUDA card (``--platform cpu`` runs the same on the CPU
-with every kernel's plain version): the epoch loop trains and validates,
+with every kernel's plain version), or one process a card under torchrun
+(data parallel, ``parallel/mesh.py``): the epoch loop trains and validates,
 saves a checkpoint each epoch, then the last weights are tested; with
 ``--test_only --pretrain <dir or .pt>`` it only tests. ``--test_pipeline``
 cuts every loop to one batch. cuDNN runs without TF32, so that
 ``precision='f32'`` computes in f32. ``--precision bf16`` trains, tests
 (and the port serves) in bf16: f32 weights and optimizer, bf16 compute, f32
 gradients; its checkpoints hold f32 weights, which an f32 run loads.
+
+Over R ranks each reads its shard of the train set (``batch_size // R``
+images a step, the global batch ``batch_size``) and of the val and test
+sets (one image a step). Validation and test count each sample of the split
+once: the rows of the shards' padding are dropped and the others go to rank
+0. Only rank 0 writes logs, summaries, checkpoints and test artifacts (the
+others' images reach it first); every rank restores ``--pretrain`` and
+resumes. The kernels build once a machine (its local rank 0; the others
+wait), into ``--compile_cache_dir`` or ``$NLSPN_COMPILE_CACHE`` (default
+under ``~/.cache``; ``NLSPN_COMPILE_CACHE=0``: ``build/``), see
+``utils/compile_cache.py``.
 
 Usage:
   python -m nlspn_eccv20_tpu_torch.main --data_name NYU --dir_data ... \\
@@ -22,6 +34,7 @@ Usage:
       --test_pipeline --epochs 1
   python -m nlspn_eccv20_tpu_torch.main --precision bf16 --test_only \\
       --pretrain <experiment dir or .pt> --data_name Synthetic --test_pipeline
+  torchrun --nproc_per_node 8 -m nlspn_eccv20_tpu_torch.main --data_name NYU ...
 """
 
 from __future__ import annotations
@@ -39,6 +52,15 @@ from nlspn_eccv20_tpu_torch.data.loader import DataLoader
 from nlspn_eccv20_tpu_torch.device import resolve_device
 from nlspn_eccv20_tpu_torch.metrics import METRIC_NAMES
 from nlspn_eccv20_tpu_torch.ops.kernels import build
+from nlspn_eccv20_tpu_torch.parallel.mesh import (
+    distributed,
+    gather_to_main,
+    is_main_process,
+    local_rank,
+    maybe_initialize_distributed,
+    rank,
+    world_size,
+)
 from nlspn_eccv20_tpu_torch.summary import get_summary
 from nlspn_eccv20_tpu_torch.train import (
     Engine,
@@ -49,6 +71,7 @@ from nlspn_eccv20_tpu_torch.train import (
 )
 from nlspn_eccv20_tpu_torch.utils.backup import backup_source_code
 from nlspn_eccv20_tpu_torch.utils.checkpoint import CheckpointManager, load_weights
+from nlspn_eccv20_tpu_torch.utils.compile_cache import enable_compilation_cache
 
 
 def resolve_platform(platform) -> torch.device:
@@ -62,18 +85,26 @@ def resolve_platform(platform) -> torch.device:
                      f"or 'cpu'")
 
 
-def is_main_process() -> bool:
-    """Rank 0, or the only process: the one that writes logs, checkpoints
-    and test artifacts."""
-    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
-
-
 def _loader(cfg: Config, dataset, mode: str, batch_size: int = 1) -> DataLoader:
+    """Train: this rank's ``batch_size // ranks`` of each global batch,
+    shuffled, the last partial batch dropped; val and test: ``batch_size``
+    images a step in order. Either way rank r reads samples r, r + ranks,
+    ... of the epoch's order, padded to a multiple of the ranks."""
+    n, r = world_size(), rank()
     if mode == "train":
-        return DataLoader(dataset, cfg.batch_size, shuffle=True, drop_last=True,
-                          seed=cfg.seed, num_threads=cfg.num_threads)
+        return DataLoader(dataset, max(cfg.batch_size // n, 1), shuffle=True,
+                          drop_last=True, seed=cfg.seed, num_threads=cfg.num_threads,
+                          shard_index=r, num_shards=n)
     return DataLoader(dataset, batch_size, shuffle=False, drop_last=False,
-                      seed=cfg.seed, num_threads=cfg.num_threads)
+                      seed=cfg.seed, num_threads=cfg.num_threads,
+                      shard_index=r, num_shards=n)
+
+
+def _own_rows(loader: DataLoader, b: int, rows: int) -> int:
+    """How many of batch ``b``'s first ``rows`` rows are samples of the
+    split, not the padding that evens out the ranks' shards."""
+    first = b * loader.batch_size
+    return sum(loader.position(first + i) < len(loader.dataset) for i in range(rows))
 
 
 def _pad_batch(batch, size: int):
@@ -187,11 +218,11 @@ def train(cfg: Config, device=None):
         for b, batch in enumerate(loader_train):
             if cfg.test_pipeline and b == 1:
                 break
-            if cfg.profile and epoch == start_epoch and b == 1:
+            if cfg.profile and main_proc and epoch == start_epoch and b == 1:
                 prof = _start_profile(cfg, device)
-            placed = engine.put_batch(batch)
+            placed = engine.put_train_batch(batch)
             aux = engine.train_step(placed)
-            num_img += batch["rgb"].shape[0]
+            num_img += batch["rgb"].shape[0] * world_size()
             if main_proc:
                 writer_train.add(aux["loss_val"], aux["metric"])
                 last_train = (placed, aux["output"])
@@ -228,10 +259,10 @@ def train(cfg: Config, device=None):
             if cfg.test_pipeline and b == 1:
                 break
             padded, valid = _pad_batch(batch, engine.eval_batch_per_host)
-            placed = engine.put_batch(padded)
-            res = engine.eval_step(placed)
+            placed = engine.put_eval_batch(padded)
+            res = engine.eval_step(placed, _own_rows(loader_val, b, valid))
             if main_proc:
-                writer_val.add(res["loss_val"][:valid], res["metric"][:valid])
+                writer_val.add(res["loss_val"], res["metric"])
                 last = (placed, res["output"])
         if main_proc:
             writer_val.update(epoch, *last)
@@ -240,6 +271,37 @@ def train(cfg: Config, device=None):
         writer_train.close()
         writer_val.close()
     return engine
+
+
+def _image_of(sample, output, i: int):
+    """Host copies of image ``i`` of a batch, as ``Summary.save`` reads
+    them: every batched array cut to its row."""
+    def row(v):
+        if isinstance(v, torch.Tensor) and v.dim() == 4:
+            return v[i:i + 1].cpu()
+        if isinstance(v, (list, tuple)):
+            return [row(t) for t in v]
+        return v.cpu() if isinstance(v, torch.Tensor) else v
+
+    return ({k: row(v) for k, v in sample.items()},
+            {k: row(v) for k, v in output.items()})
+
+
+def _save_images(writer, loader: DataLoader, b: int, valid: int, sample, output):
+    """The test artifacts of batch ``b``'s ``valid`` images, each under its
+    index in the split. In a process group rank 0 writes them all: the
+    other ranks send theirs."""
+    first = b * loader.batch_size
+    if not distributed():
+        for i in range(valid):
+            writer.save(0, first + i, sample, output, batch_index=i)
+        return
+    mine = [(loader.position(first + i), _image_of(sample, output, i))
+            for i in range(valid)]
+    every = gather_to_main(mine)
+    if writer is not None:
+        for idx, (s, o) in sorted((x for r in every for x in r), key=lambda x: x[0]):
+            writer.save(0, idx, s, o)
 
 
 def test(cfg: Config, engine: Engine = None, device=None):
@@ -264,20 +326,20 @@ def test(cfg: Config, engine: Engine = None, device=None):
         if cfg.test_pipeline and b == 1:
             break
         padded, valid = _pad_batch(batch, bsz)
-        placed = engine.put_batch(padded)
+        valid = _own_rows(loader_test, b, valid)
+        placed = engine.put_eval_batch(padded)
         _sync(device)
         t0 = time.time()
-        res = engine.eval_step(placed)
-        metric = res["metric"][:valid].cpu()
+        res = engine.eval_step(placed, valid)
+        metric = res["metric"].cpu()
         t1 = time.time()
         if b > 0:  # the first batch picks cuDNN's algorithms
             t_total += t1 - t0
             n += valid
         if writer:
             writer.add(metric=metric)
-            if cfg.save_image or cfg.save_result_only:
-                for i in range(valid):
-                    writer.save(0, b * bsz + i, placed, res["output"], batch_index=i)
+        if cfg.save_image or cfg.save_result_only:
+            _save_images(writer, loader_test, b, valid, placed, res["output"])
     summary = writer.update(0) if writer else {}
     if n:
         print(f"elapsed time : {t_total:.4f} sec, "
@@ -287,14 +349,41 @@ def test(cfg: Config, engine: Engine = None, device=None):
     return summary
 
 
+def _build_kernels():
+    """One nvcc per source, all at once, instead of one after another at
+    each kernel's first launch; built libraries are reused. In a process
+    group the machine's local rank 0 builds while its other ranks wait."""
+    failure = None
+    if local_rank() == 0:
+        try:
+            build.build_all()
+        except Exception as e:   # raised after the barrier, not before it
+            failure = e
+    if distributed():
+        dist.barrier()
+    if failure is not None:
+        raise failure
+    if local_rank() != 0:
+        build.build_all()   # finds every library built
+
+
 def main(cfg: Config):
+    maybe_initialize_distributed(cfg)
     check_shards(cfg)   # before any kernel is built or any data is read
     device = resolve_platform(cfg.platform)
+    if distributed():
+        # each rank stamped its own save_dir; rank 0's is the run's
+        dirs = [cfg.save_dir, cfg.profile_dir]
+        dist.broadcast_object_list(dirs, src=0)
+        cfg.save_dir, cfg.profile_dir = dirs
+        if is_main_process():
+            print(f"data parallel: {world_size()} ranks ({dist.get_backend()} on "
+                  f"{device.type})")
     if device.type == "cuda":
-        # one nvcc per source, all at once, instead of one after another at
-        # each kernel's first launch; built libraries are reused
+        if cfg.compile_cache:
+            enable_compilation_cache(cfg.compile_cache_dir)
         t0 = time.time()
-        build.build_all()
+        _build_kernels()
         print(f"CUDA kernels ready in {time.time() - t0:.1f}s")
     np.random.seed(cfg.seed)
     b = torch.backends.cudnn
@@ -307,4 +396,8 @@ def main(cfg: Config):
 
 
 if __name__ == "__main__":
-    main(parse_args())
+    try:
+        main(parse_args())
+    finally:
+        if distributed():
+            dist.destroy_process_group()

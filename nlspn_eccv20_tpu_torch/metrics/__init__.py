@@ -14,7 +14,11 @@ METRIC_NAMES = ["RMSE", "MAE", "iRMSE", "iMAE", "REL", "D^1", "D^2", "D^3"]
 T_VALID = 1e-4
 
 
-def _metrics(pred: torch.Tensor, gt: torch.Tensor, dims) -> torch.Tensor:
+def _metric_sums(pred: torch.Tensor, gt: torch.Tensor, dims):
+    """The sums the metrics divide by the valid-pixel count: (..., 8) in
+    the metrics' order (squared and absolute differences, the same of the
+    inverse depths, the relative error, the three delta counts), and that
+    count. Sums over several ranks' images add."""
     mask = gt > T_VALID
     num_valid = torch.sum(mask, dim=dims)
     fmask = mask.to(pred.dtype)
@@ -24,20 +28,30 @@ def _metrics(pred: torch.Tensor, gt: torch.Tensor, dims) -> torch.Tensor:
     gt_inv = torch.where(gt <= T_VALID, zero, 1.0 / (gt + 1e-8))
 
     diff = (pred - gt) * fmask
-    rmse = torch.sqrt(torch.sum(diff ** 2, dim=dims) / (num_valid + 1e-8))
-    mae = torch.sum(torch.abs(diff), dim=dims) / (num_valid + 1e-8)
-
     diff_inv = (pred_inv - gt_inv) * fmask
-    irmse = torch.sqrt(torch.sum(diff_inv ** 2, dim=dims) / (num_valid + 1e-8))
-    imae = torch.sum(torch.abs(diff_inv), dim=dims) / (num_valid + 1e-8)
-
-    rel = torch.sum(torch.abs(diff) / (gt + 1e-8) * fmask, dim=dims) / (
-        num_valid + 1e-8)
-
     ratio = torch.maximum(gt / (pred + 1e-8), pred / (gt + 1e-8))
-    deltas = [torch.sum((ratio < 1.25 ** p) * fmask, dim=dims) / (num_valid + 1e-8)
-              for p in (1, 2, 3)]
-    return torch.stack([rmse, mae, irmse, imae, rel] + deltas, dim=-1)
+    sums = [torch.sum(diff ** 2, dim=dims), torch.sum(torch.abs(diff), dim=dims),
+            torch.sum(diff_inv ** 2, dim=dims), torch.sum(torch.abs(diff_inv), dim=dims),
+            torch.sum(torch.abs(diff) / (gt + 1e-8) * fmask, dim=dims)]
+    sums += [torch.sum((ratio < 1.25 ** p) * fmask, dim=dims) for p in (1, 2, 3)]
+    return torch.stack(sums, dim=-1), num_valid
+
+
+def metrics_from_sums(sums: torch.Tensor, num_valid: torch.Tensor) -> torch.Tensor:
+    """RMSE, MAE, iRMSE, iMAE, REL and the deltas from ``_metric_sums``."""
+    per = sums / (num_valid + 1e-8)[..., None]
+    return torch.cat([torch.sqrt(per[..., :1]), per[..., 1:2], torch.sqrt(per[..., 2:3]),
+                      per[..., 3:]], dim=-1)
+
+
+def _metrics(pred: torch.Tensor, gt: torch.Tensor, dims) -> torch.Tensor:
+    return metrics_from_sums(*_metric_sums(pred, gt, dims))
+
+
+@torch.no_grad()
+def metric_sums(sample, output):
+    """The whole batch's ``_metric_sums``: (8,) and the valid count."""
+    return _metric_sums(output["pred"], sample["gt"], (0, 1, 2, 3))
 
 
 @torch.no_grad()

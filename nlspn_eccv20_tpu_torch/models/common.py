@@ -27,6 +27,14 @@ input and the running statistics are updated in f32; the library's fused
 batch norm takes the variance in a stable form where Flax takes E[x^2] -
 E[x]^2 (clipped at 0), a difference of f32 rounding only
 (``tests/test_torch_bf16_train.py`` measures it).
+
+Inside a process group (data parallel, ``parallel/mesh.py``) train-mode
+``BatchNorm`` takes the global batch's statistics, as the JAX BatchNorm does
+under the sharded jit: the ranks' per-channel sums of x and x^2 (f32) are
+added by a differentiable all-reduce, the variance is Flax's E[x^2] -
+E[x]^2 clipped at 0, and autograd carries the global terms of the backward
+(its all-reduce adds the ranks' gradients of the sums). Outside one it
+runs the library's batch norm as above.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from nlspn_eccv20_tpu_torch.parallel.mesh import all_reduce_sum, distributed, world_size
 
 
 def _zero_init(conv: nn.Module, zero_init: bool) -> None:
@@ -96,6 +106,8 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x.float()).to(x.dtype)
+        if distributed():
+            return self._forward_global(x)
         # The library's batch norm with f32 parameters reduces the statistics
         # in f32 and normalises in f32, for a bf16 input too, rounding the
         # output once. With momentum 1 it hands back the batch mean and
@@ -110,6 +122,21 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.lerp_(var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of every rank, in f32, rounded
+        once to the input's dtype; the same running update."""
+        xf = x.float()
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
+        mean, mean2 = (sums / (x.numel() // x.shape[1] * world_size())).chunk(2)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class ConvBNReLU(nn.Sequential):

@@ -2,7 +2,8 @@
 
 Each ``nlspn_eccv20_tpu_torch/csrc/<name>.cu`` has a plain C interface and
 is compiled on its own by ``nvcc`` for Hopper (``sm_90a``) into
-``build/lib<name>-<hash>.so`` at the repository root, at first use. The hash
+``build/lib<name>-<hash>.so`` at the repository root (``BUILD_DIR``; a
+persistent cache elsewhere with ``utils/compile_cache.py``), at first use. The hash
 is that of the source and the flags, so an edited source builds anew and an
 unchanged one is loaded as it is. ``build_all`` starts one ``nvcc`` per
 source at once and waits for all of them.
@@ -124,12 +125,17 @@ def check_launch(err: int, what: str) -> None:
 
 def check_tensor(t, what: str, shape=None, device=None, dtype=None) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (float32
-    by default) and ``shape`` (None entries match any size) on ``device``."""
+    by default) and ``shape`` (None entries match any size) on ``device``
+    and on the current device, where the kernels launch (each data-parallel
+    rank makes its own card current)."""
     import torch
 
     dtype = torch.float32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"{what}: on {t.device}, but the kernels launch on the "
+                         f"current device cuda:{torch.cuda.current_device()}")
     if device is not None and t.device != device:
         raise ValueError(f"{what}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -17,8 +17,12 @@ Counterpart of ``nlspn_eccv20_tpu/ops/propagate.py``:
   (train: offsets clamped to [-R, R], then the windowed form; eval, and
   training with R = 0: the exact gather).
 
-The JAX package's scan and union variants of the windowed form are code
-generation choices of XLA with the same math and have no counterpart here.
+* ``propagate_deformable_windowed_union``: the windowed form re-associated
+  over the union of global shifts (one weight field a shift), the JAX
+  package's equivalence primitive of the same name; no model runs it.
+
+The JAX package's scan variant of the windowed form is a code generation
+choice of XLA with the same math and has no counterpart here.
 Offsets are planar (B, 2 * K2, H, W), the (dy, dx) pair of neighbour k at
 channels (2k, 2k + 1).
 
@@ -154,6 +158,49 @@ def propagate_deformable_windowed_planar(feat: torch.Tensor, off: torch.Tensor,
             acc = acc + row * tent(oy - u)
         out = out + acc * aff[:, k]
     return out
+
+
+def propagate_deformable_windowed_union(feat: torch.Tensor, offset: torch.Tensor,
+                                        aff: torch.Tensor, kernel: int = 3,
+                                        radius: int = 4) -> torch.Tensor:
+    """The windowed form re-associated over the union of global shifts, as
+    the JAX op of this name: each neighbour's affinity-scaled tent products
+    are summed into one weight field per global shift (U, V), and the plane
+    is shifted once per (U, V), (2R + 2 (k // 2) + 2)^2 times, instead of
+    once per neighbour and window cell. The same values as
+    ``propagate_deformable_windowed_planar`` up to f32 sum order. The JAX
+    package measured it slower than the unrolled form on the TPU and keeps
+    it as an equivalence-tested primitive; the port has no kernel for it.
+
+    feat (B, 1, H, W), offset (B, 2 K2, H, W), aff (B, K2, H, W) -> (B, 1, H, W).
+    """
+    if feat.shape[1] != 1:
+        raise ValueError(f"feat has {feat.shape[1]} channels, want 1")
+    _check_deformable(offset, aff, kernel)
+    _, _, h, w = feat.shape
+    kc = kernel // 2
+    rp = radius + 1 + kc
+    p = F.pad(feat[:, 0], (rp, rp, rp, rp))
+    shifts = neighbor_shifts(kernel)
+    wy, wx = {}, {}   # per-neighbour 1-D tent terms, the affinity in the row's
+    for k, (dy, dx) in enumerate(shifts):
+        ty, tx, a = offset[:, 2 * k] + dy, offset[:, 2 * k + 1] + dx, aff[:, k]
+        for u in range(dy - radius, dy + radius + 2):
+            wy[k, u] = a * tent(ty - u)
+        for v in range(dx - radius, dx + radius + 2):
+            wx[k, v] = tent(tx - v)
+    out = torch.zeros_like(feat[:, 0])
+    for u in range(-radius - kc, radius + kc + 2):
+        for v in range(-radius - kc, radius + kc + 2):
+            terms = [wy[k, u] * wx[k, v] for k in range(len(shifts))
+                     if (k, u) in wy and (k, v) in wx]
+            if not terms:
+                continue
+            field = terms[0]
+            for t in terms[1:]:
+                field = field + t
+            out = out + p[:, rp + u:rp + u + h, rp + v:rp + v + w] * field
+    return out[:, None]
 
 
 def clamp_offsets(off: torch.Tensor, radius: int) -> torch.Tensor:

@@ -1,0 +1,12 @@
+"""Data parallel over ``torch.distributed``: ranks, the process group and
+the placement of batches and weights (counterpart of
+``nlspn_eccv20_tpu/parallel``)."""
+
+from nlspn_eccv20_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    is_main_process,
+    make_mesh,
+    maybe_initialize_distributed,
+    replicate,
+    shard_batch,
+)

@@ -11,7 +11,9 @@ are the same bytes).
   predictions and offset / aff / gamma ``.npy``.
 
 The model's tensors are NCHW; they are written as NHWC numpy arrays, the
-JAX package's layout. PIL and matplotlib are imported where an image is
+JAX package's layout. Under data parallel only rank 0 holds a ``Summary``
+(``main.py``): its rows come from every rank, its images from its own
+shard, and its test artifacts from every rank through ``main``. PIL and matplotlib are imported where an image is
 written; without matplotlib the TensorBoard image grids are left out.
 """
 
@@ -26,7 +28,10 @@ import numpy as np
 from nlspn_eccv20_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 
-def _numpy(x) -> np.ndarray:
+def _host_local(x) -> np.ndarray:
+    """``x`` as a host array. A rank's tensors hold its own shard of the
+    batch only, so rank 0's image grids show its own images, as the JAX
+    package's show its addressable shards; no gather across ranks."""
     if hasattr(x, "detach"):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -34,7 +39,7 @@ def _numpy(x) -> np.ndarray:
 
 def _nhwc(x) -> np.ndarray:
     """A model tensor as a host array, NCHW turned NHWC."""
-    a = _numpy(x)
+    a = _host_local(x)
     return np.transpose(a, (0, 2, 3, 1)) if a.ndim == 4 else a
 
 
@@ -80,9 +85,9 @@ class Summary:
     def add(self, loss=None, metric=None):
         """Accumulate (B, terms + 1) loss rows and (B, 8) metric rows."""
         if loss is not None:
-            self._loss.append(_numpy(loss))
+            self._loss.append(_host_local(loss))
         if metric is not None:
-            self._metric.append(_numpy(metric))
+            self._metric.append(_host_local(metric))
 
     def scalar(self, name: str, value: float, epoch: int):
         """An ad-hoc TensorBoard scalar (e.g. Etc/max_offset)."""
@@ -115,8 +120,8 @@ class Summary:
             result.update({n: float(v) for n, v in zip(self.metric_name, mean)})
 
         if self._tb and output is not None and output.get("gamma") is not None:
-            self._tb.add_scalar("Etc/gamma", float(_numpy(output["gamma"]).ravel()[0]),
-                                epoch)
+            gamma = float(_host_local(output["gamma"]).ravel()[0])
+            self._tb.add_scalar("Etc/gamma", gamma, epoch)
         if self._tb and sample is not None and output is not None:
             self._tb_images(epoch, sample, output)
 
@@ -195,7 +200,7 @@ class Summary:
             np.save(os.path.join(out_dir, "offset.npy"),
                     _nhwc(output["offset"])[b:b + 1])
         np.save(os.path.join(out_dir, "aff.npy"), _nhwc(output["aff"])[b:b + 1])
-        np.save(os.path.join(out_dir, "gamma.npy"), _numpy(output["gamma"]))
+        np.save(os.path.join(out_dir, "gamma.npy"), _host_local(output["gamma"]))
 
     def close(self):
         if self._tb:

@@ -1,14 +1,23 @@
-"""Training / evaluation engine on one device (counterpart of
-``nlspn_eccv20_tpu/train.py``'s ``Engine``, without the mesh).
+"""Training / evaluation engine (counterpart of
+``nlspn_eccv20_tpu/train.py``'s ``Engine``), on one device or data parallel
+over the ranks of a process group (``parallel/mesh.py``).
 
 One train step, in f32 or in bf16 (``precision='bf16'``: f32 parameters
 and optimizer, bf16 compute, f32 gradients, no loss scaling, as the JAX
 package trains): the model in train mode with ``need_inter=False`` (the loss
 reads only the final prediction), the weighted loss summed over the batch
-and divided by the batch size, in f32, backward through the kernels'
+and divided by the global batch size, in f32, backward through the kernels'
 autograd Functions (K1b, or K8 with ``offset``, K4 and K5 on the card; K4-bf16
 and K5-bf16 in bf16), then the optimizer with the per-step LR schedule. cuDNN runs in benchmark mode for
 the step's own calls only; the process-wide flag is left as it is.
+
+Data parallel: each rank runs the step on its own shard of the global
+batch, on its own card; its loss is its shard's sum over the global batch
+size, so that the gradients summed over the ranks (one all-reduce after the
+backward, with the step's loss and metric sums) are the JAX step's.
+BatchNorm takes the global batch's statistics (``models/common.py``).
+The weights start equal on every rank (``init_state`` broadcasts rank 0's)
+and stay equal, since every rank applies the same summed gradients.
 
 The initial weights are drawn from a generator seeded with ``cfg.seed``
 (``utils/weights.init_weights_``), so a run's weights are a function of its
@@ -19,8 +28,8 @@ checkpoint's weights into the model, both as the JAX package's do.
 Usage:
     eng = Engine(cfg, steps_per_epoch=len(loader))   # on the CUDA card
     eng.init_state()                                  # or init_state(state_dict)
-    aux = eng.train_step(eng.put_batch(numpy_nhwc_batch))
-    rows = eng.eval_step(eng.put_batch(numpy_nhwc_batch))
+    aux = eng.train_step(eng.put_train_batch(numpy_nhwc_batch))
+    rows = eng.eval_step(eng.put_eval_batch(numpy_nhwc_batch))
 """
 
 from __future__ import annotations
@@ -35,32 +44,47 @@ import torch
 from nlspn_eccv20_tpu_torch.config import Config
 from nlspn_eccv20_tpu_torch.device import cudnn_benchmark_mode
 from nlspn_eccv20_tpu_torch.losses import get_loss
-from nlspn_eccv20_tpu_torch.metrics import evaluate, evaluate_per_sample
+from nlspn_eccv20_tpu_torch.metrics import (
+    evaluate,
+    evaluate_per_sample,
+    metric_sums,
+    metrics_from_sums,
+)
 from nlspn_eccv20_tpu_torch.models import get_model
+from nlspn_eccv20_tpu_torch.parallel.mesh import (
+    all_reduce_sum_,
+    check_batch,
+    distributed,
+    gather_to_main,
+    make_mesh,
+    replicate,
+    shard_batch,
+)
 from nlspn_eccv20_tpu_torch.utils.optim import make_optimizer, set_lr
 from nlspn_eccv20_tpu_torch.utils.torch_import import load_torchvision_resnet
 from nlspn_eccv20_tpu_torch.utils.weights import init_weights_
 
 
-DEVICES = 1   # the port runs on one device: the card, or the CPU
-
-
 def check_shards(cfg: Config) -> None:
-    """Raise ``ValueError`` where ``cfg.num_spatial_shards`` does not divide
-    the port's one device, worded as the JAX package's ``make_mesh`` words
-    it: width sharding is not ported, so any count above 1 is refused.
-    ``num_data_shards`` is accepted as the JAX mesh accepts it."""
-    s = cfg.num_spatial_shards
-    if s > 1 and DEVICES % s:
-        raise ValueError(f"{DEVICES} devices not divisible by num_spatial_shards={s}")
+    """Raise ``ValueError`` before any model is built or data is read
+    where the ranks cannot run ``cfg``: width shards (not ported; in one
+    process worded as the JAX package's ``make_mesh`` words it for one
+    device, "1 devices not divisible by num_spatial_shards=2"), a
+    ``num_data_shards`` other than 0 or the number of ranks, and a training
+    batch that does not divide over the ranks. One process accepts any
+    ``num_data_shards``, as the JAX mesh does on one device."""
+    mesh = make_mesh(cfg.num_data_shards, cfg.num_spatial_shards)
+    if not cfg.test_only:
+        check_batch(cfg.batch_size, mesh)
 
 
 class Engine:
     """Owns the model, loss, optimizer and LR schedule, and runs the steps.
 
     ``device`` is the CUDA card unless the caller passes ``device="cpu"``
-    (then every kernel runs its plain PyTorch version). A ``cfg`` asking
-    for width shards is refused (``check_shards``)."""
+    (then every kernel runs its plain PyTorch version); in a process group,
+    the rank's own card (the current device). A ``cfg`` the ranks cannot
+    run is refused (``check_shards``)."""
 
     def __init__(self, cfg: Config, steps_per_epoch: int = 1, device=None):
         check_shards(cfg)
@@ -70,14 +94,16 @@ class Engine:
         self.model = init_weights_(get_model(cfg, device),
                                    torch.Generator().manual_seed(cfg.seed))
         self.device = self.model.aff_scale_const.device
+        self.mesh = make_mesh(cfg.num_data_shards, cfg.num_spatial_shards, self.device)
         self.optimizer = None
         self.schedule = None
         self.step = 0
 
     @property
     def eval_batch_per_host(self) -> int:
-        """The eval batch of this process: 1 on one card, as the JAX
-        property gives on a one-device mesh."""
+        """The eval batch of this process: 1, one card a process, as the
+        JAX property gives on one device a process (the reference
+        evaluated at batch 1)."""
         return 1
 
     def checkpoint_state(self) -> Dict[str, Any]:
@@ -90,10 +116,12 @@ class Engine:
                 "steps_per_epoch": self.steps_per_epoch}
 
     def init_state(self, state_dict: Optional[Dict[str, torch.Tensor]] = None):
-        """Load ``state_dict`` if given, put the model in train mode and
-        start a fresh optimizer at step 0. Returns the model."""
+        """Load ``state_dict`` if given, make every rank's weights rank 0's
+        (``replicate``), put the model in train mode and start a fresh
+        optimizer at step 0. Returns the model."""
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        replicate(self.mesh, self.model)
         self.model.train()
         self.optimizer, self.schedule = make_optimizer(
             self.cfg, self.model.parameters(), self.steps_per_epoch)
@@ -102,20 +130,22 @@ class Engine:
 
     def put_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         """NHWC numpy arrays (rgb, dep, gt) -> NCHW float32 tensors on the
-        device."""
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k], np.float32))
-                .to(self.device).permute(0, 3, 1, 2).contiguous()
-                for k in ("rgb", "dep", "gt") if k in batch}
+        device: this rank's shard, which its loader read."""
+        return shard_batch(self.mesh, batch)
+
+    put_train_batch = put_batch
+    put_eval_batch = put_batch
 
     def train_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
         """One optimizer step. Returns {loss, loss_val, metric, lr, output}:
-        loss and loss_val divided by the batch size, ``lr`` the rate this
-        step used, ``output`` the model's output (detached); with
-        ``cfg.offset`` also ``off_max``, max |offset| (for
-        ``check_offset_telemetry``)."""
+        loss and loss_val divided by the global batch size, ``metric`` the
+        global batch's (in a process group: every rank's, summed), ``lr``
+        the rate this step used, ``output`` the model's output on this
+        rank's shard (detached); with ``cfg.offset`` also ``off_max``, max
+        |offset| over the global batch (for ``check_offset_telemetry``)."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() first")
-        gbatch = batch["rgb"].shape[0]
+        gbatch = batch["rgb"].shape[0] * self.mesh.size
         lr = self.schedule(self.step)
         set_lr(self.optimizer, lr)
         self.optimizer.zero_grad(set_to_none=True)
@@ -124,28 +154,64 @@ class Engine:
             loss_sum, loss_val = self.loss_fn(batch, out)
             loss = loss_sum / gbatch
             loss.backward()
-        self.optimizer.step()
-        self.step += 1
         out = {k: v.detach() if isinstance(v, torch.Tensor) else v
                for k, v in out.items()}
-        aux = {"loss": loss.detach(), "loss_val": loss_val.detach() / gbatch,
-               "metric": evaluate(batch, out), "lr": lr, "output": out}
+        loss, loss_val = loss.detach(), loss_val.detach() / gbatch
+        if distributed():
+            loss, loss_val, metric = self._sum_over_ranks(batch, out, loss, loss_val)
+        else:
+            metric = evaluate(batch, out)
+        self.optimizer.step()
+        self.step += 1
+        aux = {"loss": loss, "loss_val": loss_val, "metric": metric, "lr": lr,
+               "output": out}
         if self.cfg.offset:
             aux["off_max"] = out["offset"].abs().max()
+            if distributed():
+                torch.distributed.all_reduce(aux["off_max"],
+                                             op=torch.distributed.ReduceOp.MAX)
         return aux
 
+    def _sum_over_ranks(self, batch, out, loss, loss_val):
+        """Add every parameter's gradient, the loss, its terms and the
+        metric sums over the ranks with one all-reduce; returns the global
+        (loss, loss_val, metric). Every rank has gradients for the same
+        parameters (``aff_scale_const`` has none unless TGASS, on all)."""
+        sums, num_valid = metric_sums(batch, out)
+        stats = torch.cat([loss.reshape(1), loss_val.float().reshape(-1),
+                           sums.float(), num_valid.float().reshape(1)])
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        all_reduce_sum_(grads + [stats])
+        n = loss_val.numel()
+        metric = metrics_from_sums(stats[1 + n:9 + n], stats[9 + n])[None, :]
+        return stats[0], stats[1:1 + n].reshape(loss_val.shape), metric
+
     @torch.no_grad()
-    def eval_step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, object]:
+    def eval_step(self, batch: Dict[str, torch.Tensor],
+                  valid: Optional[int] = None) -> Dict[str, object]:
         """Eval-mode forward: per-image loss rows (B, terms + 1), metric
-        rows (B, 8) and the output. The model goes back to train mode."""
+        rows (B, 8) and the output; ``valid`` keeps the first rows only
+        (the rest pad the batch). The model goes back to train mode.
+
+        In a process group every rank's kept rows go to rank 0, which
+        returns them in rank order (host tensors); the other ranks return
+        their own. With one image a rank and the loader's sharding (rank r
+        takes samples r, r + ranks, ...) that order is the dataset's.
+        ``output`` stays the rank's own."""
         self.model.eval()
         try:
             with cudnn_benchmark_mode():
                 out = self.model(batch)
         finally:
             self.model.train()
-        return {"loss_val": self.loss_fn.per_sample(batch, out),
-                "metric": evaluate_per_sample(batch, out), "output": out}
+        rows = {"loss_val": self.loss_fn.per_sample(batch, out)[:valid],
+                "metric": evaluate_per_sample(batch, out)[:valid]}
+        if distributed():
+            mine = {k: v.cpu() for k, v in rows.items()}
+            every = gather_to_main(mine)
+            rows = mine if every is None else {
+                k: torch.cat([r[k] for r in every]) for k in mine}
+        return {**rows, "output": out}
 
 
 def check_offset_telemetry(cfg: Config, off_max: float,

@@ -43,7 +43,12 @@ def test_sources_found():
     assert {"chip_smoke.py", "nlspn_eccv20_tpu_torch/serve.py",
             "nlspn_eccv20_tpu_torch/models/nlspn.py",
             "nlspn_eccv20_tpu_torch/main.py", "nlspn_eccv20_tpu_torch/data/nyu.py",
-            "nlspn_eccv20_tpu_torch/utils/checkpoint.py"} <= rel
+            "nlspn_eccv20_tpu_torch/utils/checkpoint.py",
+            "nlspn_eccv20_tpu_torch/parallel/mesh.py", "nlspn_eccv20_tpu_torch/preflight.py",
+            "nlspn_eccv20_tpu_torch/tools/generate_json_nyu.py",
+            "nlspn_eccv20_tpu_torch/tools/generate_json_kitti_dc.py",
+            "nlspn_eccv20_tpu_torch/tools/prepare_kitti_dc.py",
+            "nlspn_eccv20_tpu_torch/utils/compile_cache.py"} <= rel
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
