@@ -3,8 +3,8 @@
 hold every hand-written kernel against its plain PyTorch version there.
 
 Run from the repository root, with one card:  python3 chip_smoke.py
-(``python3 chip_smoke.py --dp-rank DIR`` is one rank of phase 16, which
-starts two of them itself.)
+(``python3 chip_smoke.py --dp-rank DIR`` is one rank of phase 16, and
+``--ws-rank DIR`` one of phase 17; each phase starts its ranks itself.)
 
 Phases (any failure exits non-zero and prints no result):
   1. the card: its name and power limit as nvidia-smi gives them;
@@ -246,7 +246,34 @@ Phases (any failure exits non-zero and prints no result):
      Synthetic --test_pipeline --epochs 1``: an NCCL group of one rank, the
      synchronised BatchNorm and the rank-0 writers on the card, exit 0 and
      every artifact; each subprocess killed at its time limit (480 s);
- 17. the kernel line, then {"ok": true, "device": ...} as the last line.
+ 17. width sharding (``num_spatial_shards``, ``parallel/halo.py``): (0)
+     K1, K1b, K2, K4, K3, K5 and the bf16 forms of K2-K5 against their
+     plain versions, at their usual bars, at every shape the strips below
+     give them (B=2; each strip extended by its halo: K1 240x609, 409,
+     402; K3 240x608, 612, 408, 404, 412; K2 60x153, 152, 103, 101, 102;
+     the backwards at two strips' shapes); then gloo ranks on the one card
+     as subprocesses of this script (``--ws-rank``), each noting the
+     shapes the model gave K1, K2 and K3 (every one must be among those
+     checked), the default configuration at KITTI's full 240x1216, global
+     batch 2 of synthetic scenes, random weights (seed 4); (a) two strips
+     of 608 columns: the eval forward (pred gathered within 2e-4 of the
+     one-process forward here, the per-image metric rows within 1e-4; in
+     bf16 within 1e-2 of max |pred| of the one-process bf16 forward; the
+     gap on the 16 columns around each seam printed), the f32 train step
+     (loss within 1e-4, each gradient summed over the ranks within 5e-3
+     relative L2 of the nearer of two one-process steps, both under the
+     deterministic algorithms cuDNN's heuristics pick: through cuDNN, and
+     through PyTorch's own convolutions; both distances printed) and the
+     bf16 step at phase 15's bars; both ranks' weights and running
+     statistics equal bits after each step; launches on each rank 12/11/11
+     forward (K1, K2, K3 on the strip and its halo) and backward (K1b, K4,
+     K5; their bf16 forms in bf16), and the halo exchanges counted with
+     the bytes each rank sends; the rank step's median of 3 in cuDNN's
+     benchmark mode beside the one-process step's, labelled as ranks
+     sharing one card, with the card's name and power limit; (b) three
+     strips of 408, 400 and 408 columns (ragged): the eval forward at the
+     same bars; each subprocess killed at its time limit (300 s);
+ 18. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every f32 number here is float32
 (phases 14 and 15 run bf16 where the configuration says so). cuDNN runs in
@@ -2577,7 +2604,58 @@ def main() -> int:
         shutil.rmtree(dp_dir, ignore_errors=True)
     log(f"[dp] phase 16: {time.perf_counter() - t_dp:.1f} s")
 
-    # ---- 17. results ----
+    # ---- 17. width sharding ----
+    t_ws = time.perf_counter()
+    # (0) K1-K5 and their bf16 forms at the shapes the strips give them,
+    # against their plain versions at their usual bars: two and three strips
+    # of a batch of 240x1216 (the backwards at two, as the ranks train),
+    # each strip extended as models/nlspn.py extends it: K1 and K1b by
+    # prop_kernel // 2 columns a side, K3 and K5 by 4 on the left, K2 and K4
+    # by one on the right at 1/4, none past the image's edges. The ranks
+    # note the shapes their wrappers were given; each must be one of these.
+    from nlspn_eccv20_tpu_torch.parallel.mesh import strip_bounds
+    strip_shapes = set()
+    for n in (2, 3):
+        sb = strip_bounds(KITTI_W, n)
+        for i in range(n):
+            inner_l, inner_r, w = int(i > 0), int(i < n - 1), sb[i + 1] - sb[i]
+            for shape in (("prop_step", KITTI_H, w + inner_l + inner_r),
+                          ("dep_encode_front", KITTI_H, w + 4 * inner_l),
+                          ("decode_aff_tail", KITTI_H // 4, w // 4 + inner_r)):
+                if shape in strip_shapes:
+                    continue
+                strip_shapes.add(shape)
+                kind, sh, sw = shape
+                if kind == "prop_step":
+                    check_k1(WS_B, sh, sw)
+                    if n == 2:
+                        check_k1b(WS_B, sh, sw)
+                elif kind == "dep_encode_front":
+                    check_k3(WS_B, sh, sw)
+                    check_k3_bf16(WS_B, sh, sw)
+                    if n == 2:
+                        check_k5(WS_B, sh, sw)
+                        check_k5_bf16(WS_B, sh, sw)
+                else:
+                    check_k2(WS_B, sh, sw)
+                    check_k2_bf16(WS_B, sh, sw)
+                    if n == 2:
+                        check_k4(WS_B, sh, sw, 8)
+                        check_k4_bf16(WS_B, sh, sw)
+    log(f"[ws] (0) the kernels at the strips' shapes, B={WS_B}, against their plain "
+        f"versions: " + ", ".join(f"{k} {h}x{w}" for k, h, w in sorted(strip_shapes)))
+    ws_dir = tempfile.mkdtemp(prefix="ws-", dir=build.BUILD_DIR)
+    try:
+        fwd_only = {k: (n if k in fwd_wrappers else 0) for k, n in expected_launches(
+            Config(), {**fwd_wrappers, **bwd_wrappers}).items()}
+        width_sharding(ws_dir, card, strip_shapes, fwd_only, expected_launches(
+            Config(), {**fwd_wrappers, **bwd_wrappers}), expected_bf16_train(
+            Config(precision="bf16")))
+    finally:
+        shutil.rmtree(ws_dir, ignore_errors=True)
+    log(f"[ws] phase 17: {time.perf_counter() - t_ws:.1f} s")
+
+    # ---- 18. results ----
     sources = {
         "prop_step": ("nlspn_eccv20_tpu_torch/csrc/prop_step.cu",
                       "nlspn_eccv20_tpu/ops/pallas/local_prop.py:77"),
@@ -2663,69 +2741,113 @@ DP_RANKS = 2
 DP_TIMEOUT = 480          # seconds, each rank subprocess and the torchrun run
 
 
-def dp_steps(cfg_kw, rows):
-    """One train step of ``Config(**cfg_kw)`` from seed 4's random weights
-    on ``rows`` of phase 7's first batch (global: 12 of 228x304), with the
-    deterministic algorithms cuDNN's heuristics pick (the step's benchmark
-    mode left out, so that every run picks the same ones): the loss, every
-    gradient, the weights and running statistics after it (on the host),
-    the launches of each kernel wrapper in it; then the median of 5 more
-    steps as ``Engine.train_step`` runs them (cuDNN's benchmark mode, as in
-    phase 7; CUDA events)."""
-    import contextlib
-
-    import numpy as np
-    import torch
-
-    import nlspn_eccv20_tpu_torch.train as train_mod
-
-    from nlspn_eccv20_tpu_torch.config import Config
-    from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+def path_wrappers():
+    """The kernel wrappers of the default configuration's path, by name:
+    K1, K2, K3 and their backwards, in f32 and bf16."""
     from nlspn_eccv20_tpu_torch.ops.kernels import dec_aff_tail, dep_encode_front, prop_step
-    from nlspn_eccv20_tpu_torch.train import Engine
-    from nlspn_eccv20_tpu_torch.utils.weights import randomize_
 
-    wrappers = {n: getattr(m, n) for m, names in (
+    return {n: getattr(m, n) for m, names in (
         (prop_step, ("prop_step", "prop_step_bwd")),
         (dec_aff_tail, ("decode_aff_tail", "decode_aff_tail_bf16", "decode_aff_tail_bwd",
                         "decode_aff_tail_bwd_bf16")),
         (dep_encode_front, ("dep_encode_front", "dep_encode_front_bf16",
                             "dep_encode_front_bwd", "dep_encode_front_bwd_bf16")))
         for n in names}
+
+
+def dp_steps(cfg_kw, rows):
+    """Phase 16's step: ``checked_steps`` of ``Config(**cfg_kw)`` on
+    ``rows`` of phase 7's first batch (global: 12 of 228x304), then the
+    median of 5 more steps."""
+    import numpy as np
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+
     cfg = Config(**cfg_kw)
+    full = Synthetic(cfg, "train").batch(list(range(TRAIN_B)), np.random.default_rng(5))
+    return checked_steps(cfg, {k: v[rows] for k, v in full.items()}, timed=5)
+
+
+def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=True):
+    """``cfg``'s Engine on the card from seed 4's random weights, on
+    ``images`` (NHWC host arrays; a width-sharded rank keeps its strip),
+    with the deterministic algorithms cuDNN's heuristics pick (the step's
+    benchmark mode left out, so that every run picks the same ones): with
+    ``evaluate`` the eval forward (its pred, whole, and metric rows on the
+    host), with ``train`` one train step (the loss, every gradient, the
+    weights and running statistics after it, on the host); the launches of
+    each kernel wrapper in each, and the strips' exchanges (all-gathers)
+    with the bytes this rank sends; then the median of ``timed`` more steps
+    as ``Engine.train_step`` runs them (cuDNN's benchmark mode; CUDA
+    events). Without ``cudnn_on`` the checked calls run PyTorch's own
+    convolutions instead of cuDNN's."""
+    import contextlib
+
+    import torch
+
+    import nlspn_eccv20_tpu_torch.parallel.halo as halo_mod
+    import nlspn_eccv20_tpu_torch.train as train_mod
+
+    from nlspn_eccv20_tpu_torch.train import Engine
+    from nlspn_eccv20_tpu_torch.utils.weights import randomize_
+
+    wrappers = path_wrappers()
+    traffic = [0, 0]
+    all_gather = halo_mod._all_gather
+
+    def counted_gather(t, strips):
+        traffic[0] += 1
+        traffic[1] += t.numel() * t.element_size()
+        return all_gather(t, strips)
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        traffic[:] = [0, 0]
+        halo_mod._all_gather = counted_gather
+        try:
+            res = fn()
+        finally:
+            halo_mod._all_gather = all_gather
+        return res, {**{k: w.launches for k, w in wrappers.items()},
+                     "exchanges": traffic[0], "exchange_bytes": traffic[1]}
+
     eng = Engine(cfg, steps_per_epoch=100)
     randomize_(eng.model, torch.Generator().manual_seed(4))
     model = eng.init_state()
-    data = Synthetic(cfg, "train")
-    full = data.batch(list(range(TRAIN_B)), np.random.default_rng(5))
-    batch = eng.put_train_batch({k: v[rows] for k, v in full.items()})
+    batch = eng.put_train_batch(images)
+    out = {"width": int(batch["rgb"].shape[3])}
     benchmark_mode = train_mod.cudnn_benchmark_mode
     train_mod.cudnn_benchmark_mode = contextlib.nullcontext
     cudnn = torch.backends.cudnn
     try:
-        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+        with cudnn.flags(enabled=cudnn_on, benchmark=False, deterministic=True,
                          allow_tf32=False):
-            for fn in wrappers.values():
-                fn.launches = 0
-            aux = eng.train_step(batch)
-            out = {"loss": aux["loss"].item(),
-                   "launches": {k: fn.launches for k, fn in wrappers.items()},
-                   "grads": {n: p.grad.cpu() for n, p in model.named_parameters()
-                             if p.grad is not None},
-                   "after": {k: v.cpu() for k, v in model.state_dict().items()}}
+            if evaluate:
+                ev, out["eval_launches"] = counted(lambda: eng.eval_step(batch))
+                out["pred"] = eng.whole(ev["output"]["pred"]).cpu()
+                out["metric"] = ev["metric"].cpu()
+            if train:
+                aux, out["launches"] = counted(lambda: eng.train_step(batch))
+                out.update(loss=aux["loss"].item(),
+                           grads={n: p.grad.cpu() for n, p in model.named_parameters()
+                                  if p.grad is not None},
+                           after={k: v.cpu() for k, v in model.state_dict().items()})
     finally:
         train_mod.cudnn_benchmark_mode = benchmark_mode
-    eng.train_step(batch)      # cuDNN times its algorithms
-    ms = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        eng.train_step(batch)
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end))
-    out["median_ms"] = sorted(ms)[2]
+    if timed:
+        eng.train_step(batch)      # cuDNN times its algorithms
+        ms = []
+        for _ in range(timed):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng.train_step(batch)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out["median_ms"] = sorted(ms)[len(ms) // 2]
     return out
 
 
@@ -2797,34 +2919,7 @@ def data_parallel(workdir, dev, card, phase7_ms, want_f32, want_bf16):
     one = {"f32": dp_steps({}, list(range(TRAIN_B))),
            "bf16": dp_steps({"precision": "bf16"}, list(range(TRAIN_B)))}
     torch.cuda.empty_cache()
-    port = free_port()
-    script = os.path.abspath(__file__)
-    ranks = []
-    t0 = time.perf_counter()
-    for r in range(DP_RANKS):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
-        ranks.append(subprocess.Popen(
-            [sys.executable, script, "--dp-rank", workdir], env=env,
-            cwd=os.path.dirname(script), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True, start_new_session=True))
-    outs = []
-    try:
-        for proc in ranks:
-            outs.append(proc.communicate(
-                timeout=max(DP_TIMEOUT - (time.perf_counter() - t0), 1))[0])
-    except subprocess.TimeoutExpired:
-        for proc in ranks:
-            proc.kill()
-        for proc in ranks:
-            proc.communicate()
-        raise AssertionError(f"[dp] the ranks did not finish in {DP_TIMEOUT} s")
-    for r, (proc, out) in enumerate(zip(ranks, outs)):
-        if proc.returncode != 0:
-            raise AssertionError(f"[dp] rank {r} exited {proc.returncode}:\n{out[-4000:]}")
-    wall = time.perf_counter() - t0
-    res = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
-           for r in range(DP_RANKS)]
+    res, wall = spawn_ranks("--dp-rank", workdir, DP_RANKS, DP_TIMEOUT)
     if any((x["backend"], x["world"], x["device"]) != ("gloo", DP_RANKS, dev.index)
            for x in res):
         raise AssertionError(f"[dp] ranks ran {[(x['backend'], x['world']) for x in res]}")
@@ -2905,7 +3000,280 @@ def data_parallel(workdir, dev, card, phase7_ms, want_f32, want_bf16):
         f"(NCCL, one rank, the synchronised BatchNorm; every artifact written by rank 0)")
 
 
+WS_B, WS_TIMED = 2, 3     # phase 17: global batch of KITTI-wide images; timed steps
+WS_TIMEOUT = 300          # seconds, each group of rank subprocesses
+
+
+def ws_run(cfg_kw, train=True, timed=True, cudnn_on=True):
+    """Phase 17's work in this process (a width-sharded rank, or the
+    one-process reference): ``checked_steps`` of ``Config(**cfg_kw)`` at
+    240x1216 on 2 synthetic scenes (seed 5), the eval forward and, with
+    ``train``, the step, then with ``timed`` the median of ``WS_TIMED``
+    more steps."""
+    import numpy as np
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+
+    cfg = Config(patch_height=KITTI_H, patch_width=KITTI_W, batch_size=WS_B, **cfg_kw)
+    images = Synthetic(cfg, "train").batch(list(range(WS_B)), np.random.default_rng(5))
+    return checked_steps(cfg, images, evaluate=True, train=train,
+                         timed=WS_TIMED if train and timed else 0, cudnn_on=cudnn_on)
+
+
+def ws_rank(workdir):
+    """One rank of phase 17: joins the gloo group its environment describes
+    on the one card, with as many strips as ranks; two ranks take the eval
+    forward and the f32 and bf16 steps, three the eval forward only; saves
+    what it saw to ``<workdir>/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    import nlspn_eccv20_tpu_torch.models.nlspn as net
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not maybe_initialize_distributed(Config(), backend="gloo"):
+        raise SystemExit("ws-rank: no process group in the environment")
+    shapes = set()
+
+    def noted(name, fn, hw):
+        def call(x, *args, **kw):
+            shapes.add((name, *hw(x.shape)))
+            return fn(x, *args, **kw)
+        return call
+
+    # the model's calls of K1, K2, K3 (their bf16 forms too): (H, W) of each
+    # input plane, NHWC for K2
+    for name, hw in (("prop_step", lambda s: s[-2:]), ("dep_encode_front", lambda s: s[-2:]),
+                     ("decode_aff_tail", lambda s: s[1:3])):
+        setattr(net, name, noted(name, getattr(net, name), hw))
+    r, n = dist.get_rank(), dist.get_world_size()
+    res = {"backend": dist.get_backend(), "world": n, "device": torch.cuda.current_device(),
+           "f32": ws_run({"num_spatial_shards": n}, train=n == 2)}
+    if n == 2:
+        res["bf16"] = ws_run({"num_spatial_shards": n, "precision": "bf16"})
+    res["shapes"] = sorted(shapes)
+    torch.save(res, os.path.join(workdir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(flag, workdir, n, timeout):
+    """``n`` subprocesses of this script (``flag workdir``) as the ranks of
+    a gloo group on the one card, torchrun's variables set here; each saves
+    ``<workdir>/rank<r>.pt``. Returns their results and the wall time.
+    Raises at once when a rank fails (the others, waiting for it in a
+    collective, are killed) or at the time limit."""
+    import threading
+
+    import torch
+
+    script = os.path.abspath(__file__)
+    port = free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, script, flag, workdir], env=env,
+            cwd=os.path.dirname(script), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=True))
+    t0, outs = time.perf_counter(), [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, o=o: o.append(p.stdout.read()), daemon=True)
+               for p, o in zip(procs, outs)]
+    for t in readers:
+        t.start()
+    while True:
+        codes = [p.poll() for p in procs]
+        late = time.perf_counter() - t0 > timeout
+        if late or any(c not in (None, 0) for c in codes):
+            for p in procs:
+                p.kill()
+                p.wait()
+            for t in readers:
+                t.join(timeout=10)
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            tail = "".join(outs[bad[0] if bad else 0])[-4000:]
+            raise AssertionError(
+                f"{flag}: rank {bad[0]} of {n} exited {codes[bad[0]]}:\n{tail}" if bad else
+                f"{flag}: the {n} ranks did not finish in {timeout} s:\n{tail}")
+        if all(c == 0 for c in codes):
+            break
+        time.sleep(0.2)
+    for t in readers:
+        t.join(timeout=10)
+    res = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=True)
+           for r in range(n)]
+    for r in range(n):
+        os.remove(os.path.join(workdir, f"rank{r}.pt"))
+    return res, time.perf_counter() - t0
+
+
+def ws_ranks(workdir, n):
+    """Phase 17's ``n`` rank subprocesses; their results and wall time."""
+    res, wall = spawn_ranks("--ws-rank", workdir, n, WS_TIMEOUT)
+    if any((x["backend"], x["world"]) != ("gloo", n) for x in res):
+        raise AssertionError(f"[ws] ranks ran {[(x['backend'], x['world']) for x in res]}")
+    return res, wall
+
+
+def width_sharding(workdir, card, checked, want_eval, want_f32, want_bf16):
+    """Phase 17: the one-process reference here, then two and three gloo
+    ranks on the one card with as many strips of each 240x1216 image
+    (``--ws-rank``), held to it as the module's docstring says; every
+    shape a rank gave K1, K2 or K3 must be in ``checked``."""
+    import numpy as np
+    import torch
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.data.synthetic import Synthetic
+    from nlspn_eccv20_tpu_torch.metrics import evaluate_per_sample
+    from nlspn_eccv20_tpu_torch.parallel.mesh import strip_bounds
+
+    def dist_of(a, b):
+        return (a - b).norm().item() / max(b.norm().item(), 1e-30)
+
+    lipschitz = [0, 1, 4, 5, 6, 7]   # iRMSE, iMAE take 1 / pred near the floor
+    one = {"f32": ws_run({}), "bf16": ws_run({"precision": "bf16"})}
+    torch.cuda.empty_cache()
+    ref = one["f32"]
+    # the second one-process reference: the same step through PyTorch's own
+    # convolutions instead of cuDNN's
+    no_cudnn = ws_run({}, timed=False, cudnn_on=False)["grads"]
+    torch.cuda.empty_cache()
+    scenes = Synthetic(Config(patch_height=KITTI_H, patch_width=KITTI_W, batch_size=WS_B),
+                       "train").batch(list(range(WS_B)), np.random.default_rng(5))
+    gt = torch.from_numpy(scenes["gt"]).permute(0, 3, 1, 2).contiguous()
+    for n in (2, 3):
+        res, wall = ws_ranks(workdir, n)
+        widths = [x["f32"]["width"] for x in res]
+        bounds = strip_bounds(KITTI_W, n)
+        if widths != [b - a for a, b in zip(bounds, bounds[1:])]:
+            raise AssertionError(f"[ws] {n} ranks: strips of {widths} columns")
+        for r, x in enumerate(res):
+            unchecked = {tuple(t) for t in x["shapes"]} - checked
+            if unchecked:
+                raise AssertionError(f"[ws {n}] rank {r} gave its kernels shapes not "
+                                     f"checked against their plain versions: {unchecked}")
+            e = x["f32"]
+            got = {k: e["eval_launches"].get(k, 0) for k in want_eval}
+            if got != want_eval:
+                raise AssertionError(f"[ws {n}] rank {r}: eval launches {got}, "
+                                     f"expected {want_eval}")
+        seams = [c for b in bounds[1:-1] for c in range(b - 8, b + 8)]
+
+        def gap(prec):
+            """The gathered ``prec`` pred (equal on every rank) against
+            one process's, of max |pred|: everywhere, and on the 16
+            columns around each seam."""
+            pred, want = res[0][prec]["pred"], one[prec]["pred"]
+            if pred.shape != want.shape:
+                raise AssertionError(f"[ws {n} {prec}] pred {tuple(pred.shape)}, "
+                                     f"expected {tuple(want.shape)}")
+            if not all(torch.equal(x[prec]["pred"], pred) for x in res):
+                raise AssertionError(f"[ws {n} {prec}] the ranks' gathered preds differ")
+            d = (pred.float() - want.float()).abs() / max(want.float().abs().max().item(), 1.0)
+            return d.max().item(), d[..., seams].max().item()
+
+        pred, rows = res[0]["f32"]["pred"], res[0]["f32"]["metric"]
+        fwd, fwd_seam = gap("f32")
+        lip = ((rows[:, lipschitz] - ref["metric"][:, lipschitz]).abs().max()
+               / ref["metric"][:, lipschitz].abs().max()).item()
+        own = evaluate_per_sample({"gt": gt}, {"pred": pred})
+        sums = ((rows - own).abs() / own.abs().clamp_min(1e-30)).max().item()
+        log(f"[ws eval] {n} gloo ranks on one card, strips of {widths} columns of "
+            f"{WS_B} x {KITTI_H}x{KITTI_W}: gathered pred max |diff| {fwd:.3e} of the "
+            f"one-process forward (bar 2e-4; {fwd_seam:.3e} on the 16 columns around "
+            f"each seam), equal on every rank; metric rows "
+            f"(RMSE, MAE, REL, deltas) {lip:.3e} (bar 1e-4), every row against the "
+            f"metrics of the gathered pred {sums:.3e} (bar 1e-4); launches a rank "
+            f"{({k: v for k, v in want_eval.items() if v})}; halo exchanges a rank "
+            f"{res[0]['f32']['eval_launches']['exchanges']} (the forward's halos), "
+            f"{res[0]['f32']['eval_launches']['exchange_bytes'] / 2**20:.2f} MiB sent by "
+            f"rank 0")
+        if not (fwd <= 2e-4 and lip <= 1e-4 and sums <= 1e-4):
+            raise AssertionError(f"[ws {n}] eval: pred {fwd:.3e}, rows {lip:.3e} / {sums:.3e}")
+        if n == 3:
+            log(f"[ws] (b) three ranks: {wall:.1f} s of wall time with their start")
+            continue
+        fwd, fwd_seam = gap("bf16")
+        log(f"[ws eval bf16] {n} gloo ranks, strips of {widths} columns: gathered bf16 "
+            f"pred max |diff| {fwd:.3e} of max |pred| of the one-process bf16 forward "
+            f"(bar 1e-2, the bf16 forward's; {fwd_seam:.3e} on the 16 columns around "
+            f"each seam), equal on every rank")
+        if not fwd <= 1e-2:
+            raise AssertionError(f"[ws {n} bf16] eval pred {fwd:.3e} > 1e-2")
+        for prec, want in (("f32", want_f32), ("bf16", want_bf16)):
+            ref_p = one[prec]
+            a, b = (x[prec] for x in res)
+            for r, x in enumerate((a, b)):
+                got = {k: x["launches"].get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"[ws {prec}] rank {r}: launches {got}, "
+                                         f"expected {want}")
+            for k in a["after"]:
+                if not torch.equal(a["after"][k], b["after"][k]):
+                    raise AssertionError(f"[ws {prec}] the ranks' {k} differ after the step")
+            if a["loss"] != b["loss"] or a["grads"].keys() != ref_p["grads"].keys():
+                raise AssertionError(f"[ws {prec}] the ranks' losses or gradient sets differ")
+            rel = abs(a["loss"] - ref_p["loss"]) / abs(ref_p["loss"])
+            if prec == "f32":   # 5e-3 from the nearer of the two one-process steps
+                near = {k: (dist_of(a["grads"][k], g), dist_of(a["grads"][k], no_cudnn[k]))
+                        for k, g in ref_p["grads"].items() if g.abs().max() > 0}
+                rows_ = [(min(d), 5e-3, k) for k, d in near.items()]
+                loss_bar = 1e-4
+                within = [sum(d[i] <= 5e-3 for d in near.values()) for i in (0, 1)]
+                far = ", ".join(
+                    f"{k} {near[k][0]:.3e} / {near[k][1]:.3e} (the two steps "
+                    f"{dist_of(no_cudnn[k], ref_p['grads'][k]):.3e} apart)"
+                    for k in sorted(near, key=lambda k: -near[k][0])[:3])
+            else:   # phase 15's bars, as phase 16 takes them
+                f32_grads = one["f32"]["grads"]
+                rows_ = [(dist_of(a["grads"][k], g),
+                          min(max(5e-2, 2 * dist_of(g, f32_grads[k])), 0.5), k)
+                         for k, g in ref_p["grads"].items() if g.abs().max() > 0]
+                loss_bar = 1e-2
+                ratios = [a["grads"][k].norm().item() / ref_p["grads"][k].norm().item()
+                          for _, _, k in rows_]
+                if not all(3 / 4 <= q <= 4 / 3 for q in ratios):
+                    raise AssertionError(f"[ws bf16] gradient norms {min(ratios):.4f} to "
+                                         f"{max(ratios):.4f} of the one-process step's")
+            worst = max(rows_, key=lambda row: row[0] / row[1])
+            if prec == "f32":
+                log(f"[ws f32] gradients within 5e-3 relative L2 of one process's step "
+                    f"through cuDNN: {within[0]} of {len(near)}, through PyTorch's own "
+                    f"convolutions: {within[1]}; each held at 5e-3 from the nearer; farthest "
+                    f"from the cuDNN step (cuDNN / PyTorch's own): {far}")
+            log(f"[ws {prec}] 2 gloo ranks on one card, strips of {widths} columns of "
+                f"{WS_B} x {KITTI_H}x{KITTI_W}, against one process (cuDNN deterministic, "
+                f"by its heuristics): loss {a['loss']:.6f} vs {ref_p['loss']:.6f} (rel "
+                f"{rel:.3e}, bar {loss_bar:.0e}); gradients nearest their bar {worst[2]} "
+                f"{worst[0]:.3e} (bar {worst[1]:.3e}), largest {max(r[0] for r in rows_):.3e}; "
+                f"both ranks' weights and running statistics equal bits; launches a rank "
+                f"{({k: v for k, v in want.items() if v})}; halo exchanges in the step "
+                f"{a['launches']['exchanges']}, "
+                f"{a['launches']['exchange_bytes'] / 2**20:.2f} MiB sent by rank 0")
+            if not rel <= loss_bar:
+                raise AssertionError(f"[ws {prec}] loss rel {rel:.3e} > {loss_bar:.0e}")
+            if not worst[0] <= worst[1]:
+                raise AssertionError(f"[ws {prec}] gradient {worst[2]}: {worst[0]:.3e} > "
+                                     f"{worst[1]:.3e}")
+            log(f"[ws {prec}] train step median of {WS_TIMED} (CUDA events, cuDNN benchmark "
+                f"mode as Engine.train_step runs it): rank 0 {a['median_ms']:.3f} ms, rank 1 "
+                f"{b['median_ms']:.3f} ms, each a strip ({widths} columns) of {WS_B} images, both "
+                f"ranks sharing the one card, their halo exchanges and all-reduces by gloo "
+                f"through the host: not a multi-card time; one process on the whole "
+                f"images {ref_p['median_ms']:.3f} ms; {card}")
+        log(f"[ws] (a) two ranks: {wall:.1f} s of wall time with their start")
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--ws-rank"]:
+        sys.exit(ws_rank(sys.argv[2]))
     sys.exit(main())

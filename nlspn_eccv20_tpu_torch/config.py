@@ -13,11 +13,15 @@ other value raises. Fields that only steer the JAX package's backends
 read by the port. ``compile_cache`` and ``compile_cache_dir`` place the
 kernels' builds (``utils/compile_cache.py``). ``num_data_shards`` is
 resolved against the ranks of a process group (``parallel/mesh.py``): 0 or
-their number; one process accepts any count, as the JAX mesh does on one
-device. Width sharding is not ported: ``train.Engine`` and ``main`` refuse
-any ``num_spatial_shards`` above 1, in one process with the JAX
-``make_mesh``'s ``ValueError`` for one device ("1 devices not divisible by
-num_spatial_shards=2"). ``prop_impl`` is
+their number over ``num_spatial_shards``; one process accepts any count, as
+the JAX mesh does on one device. ``num_spatial_shards > 1`` shards each
+image's width over that many ranks (each a strip of columns, the halos
+exchanged by hand; ``parallel/halo.py``) for the default model and for
+``use_GRU=False``, in f32 and bf16, through ``train.Engine`` and ``main``
+under torchrun; one process refuses it with the JAX ``make_mesh``'s
+``ValueError`` for one device ("1 devices not divisible by
+num_spatial_shards=2"), and ``train.check_shards`` refuses it with
+``offset=True``; ``serve.Predictor`` does not read it, as in JAX. ``prop_impl`` is
 read for one route only: ``'pallas'`` with ``use_GRU=False`` runs the whole
 propagation loop as one ``prop_loop`` kernel, as it takes the JAX package
 to its whole-loop kernel; ``'auto'`` and ``'xla'`` keep a ``prop_step``

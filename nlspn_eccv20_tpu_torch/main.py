@@ -11,15 +11,18 @@ cuts every loop to one batch. cuDNN runs without TF32, so that
 (and the port serves) in bf16: f32 weights and optimizer, bf16 compute, f32
 gradients; its checkpoints hold f32 weights, which an f32 run loads.
 
-Over R ranks each reads its shard of the train set (``batch_size // R``
-images a step, the global batch ``batch_size``) and of the val and test
-sets (one image a step). Validation and test count each sample of the split
-once: the rows of the shards' padding are dropped and the others go to rank
-0. Only rank 0 writes logs, summaries, checkpoints and test artifacts (the
-others' images reach it first); every rank restores ``--pretrain`` and
-resumes. The kernels build once a machine (its local rank 0; the others
-wait), into ``--compile_cache_dir`` or ``$NLSPN_COMPILE_CACHE`` (default
-under ``~/.cache``; ``NLSPN_COMPILE_CACHE=0``: ``build/``), see
+Over R ranks in D = R / S data shards of S strips each
+(``--num_spatial_shards S``, width sharding) the ranks of data shard d read
+its shard of the train set (``batch_size // D`` images a step, the global
+batch ``batch_size``) and of the val and test sets (one image a step), and
+each keeps its strip of the images' columns. Validation and test count
+each sample of the split once: the rows of the shards' padding are dropped
+and the others go to rank 0. Only rank 0 writes logs, summaries,
+checkpoints and test artifacts (the others' images, and the strips of its
+own, reach it first); every rank restores ``--pretrain`` and resumes. The
+kernels build once a machine (its local rank 0; the others wait), into
+``--compile_cache_dir`` or ``$NLSPN_COMPILE_CACHE`` (default under
+``~/.cache``; ``NLSPN_COMPILE_CACHE=0``: ``build/``), see
 ``utils/compile_cache.py``.
 
 Usage:
@@ -35,6 +38,8 @@ Usage:
   python -m nlspn_eccv20_tpu_torch.main --precision bf16 --test_only \\
       --pretrain <experiment dir or .pt> --data_name Synthetic --test_pipeline
   torchrun --nproc_per_node 8 -m nlspn_eccv20_tpu_torch.main --data_name NYU ...
+  torchrun --nproc_per_node 2 -m nlspn_eccv20_tpu_torch.main --data_name KITTIDC \\
+      --num_spatial_shards 2 ...
 """
 
 from __future__ import annotations
@@ -86,11 +91,15 @@ def resolve_platform(platform) -> torch.device:
 
 
 def _loader(cfg: Config, dataset, mode: str, batch_size: int = 1) -> DataLoader:
-    """Train: this rank's ``batch_size // ranks`` of each global batch,
-    shuffled, the last partial batch dropped; val and test: ``batch_size``
-    images a step in order. Either way rank r reads samples r, r + ranks,
-    ... of the epoch's order, padded to a multiple of the ranks."""
-    n, r = world_size(), rank()
+    """Train: this data shard's ``batch_size // shards`` of each global
+    batch, shuffled, the last partial batch dropped; val and test:
+    ``batch_size`` images a step in order. Either way data shard d (the
+    ranks ``d * S`` to ``d * S + S - 1`` of S strips each) reads samples d,
+    d + shards, ... of the epoch's order, padded to a multiple of the
+    shards; its strips read the same images, augmented alike (the
+    augmentation is seeded by the sample)."""
+    space = cfg.num_spatial_shards
+    n, r = world_size() // space, rank() // space
     if mode == "train":
         return DataLoader(dataset, max(cfg.batch_size // n, 1), shuffle=True,
                           drop_last=True, seed=cfg.seed, num_threads=cfg.num_threads,
@@ -211,7 +220,7 @@ def train(cfg: Config, device=None):
             print(f"=== Epoch {epoch:4d}/{cfg.epochs} | lr "
                   f"{engine.schedule(engine.step):.6f} | {cfg.save_dir} ===")
 
-        last_train = (None, None)
+        last_train = None
         off_max_epoch = 0.0
         off_warned = False
         prof = None
@@ -222,10 +231,10 @@ def train(cfg: Config, device=None):
                 prof = _start_profile(cfg, device)
             placed = engine.put_train_batch(batch)
             aux = engine.train_step(placed)
-            num_img += batch["rgb"].shape[0] * world_size()
+            num_img += batch["rgb"].shape[0] * engine.mesh.size
+            last_train = (placed, aux["output"])
             if main_proc:
                 writer_train.add(aux["loss_val"], aux["metric"])
-                last_train = (placed, aux["output"])
                 if "off_max" in aux:
                     # per batch, warned at most once an epoch: an escape in
                     # mid-epoch trains clamped, unlike eval
@@ -242,6 +251,7 @@ def train(cfg: Config, device=None):
 
         _sync(device)
         dt = time.time() - t0
+        last_train = engine.whole(last_train) if last_train else (None, None)
         if main_proc:
             off_note = f" | max|offset| {off_max_epoch:.3f}" if cfg.offset else ""
             print(f"train epoch {epoch}: {num_img} images in {dt:.1f}s "
@@ -261,9 +271,11 @@ def train(cfg: Config, device=None):
             padded, valid = _pad_batch(batch, engine.eval_batch_per_host)
             placed = engine.put_eval_batch(padded)
             res = engine.eval_step(placed, _own_rows(loader_val, b, valid))
+            last = (placed, res["output"])
             if main_proc:
                 writer_val.add(res["loss_val"], res["metric"])
-                last = (placed, res["output"])
+        if last[0] is not None:
+            last = engine.whole(last)
         if main_proc:
             writer_val.update(epoch, *last)
 
@@ -287,18 +299,23 @@ def _image_of(sample, output, i: int):
             {k: row(v) for k, v in output.items()})
 
 
-def _save_images(writer, loader: DataLoader, b: int, valid: int, sample, output):
+def _save_images(writer, loader: DataLoader, b: int, valid: int, sample, output,
+                 engine: Engine):
     """The test artifacts of batch ``b``'s ``valid`` images, each under its
     index in the split. In a process group rank 0 writes them all: the
-    other ranks send theirs."""
+    other data shards send theirs (each from its first strip, the strips
+    gathered first)."""
     first = b * loader.batch_size
     if not distributed():
         for i in range(valid):
             writer.save(0, first + i, sample, output, batch_index=i)
         return
+    sample, output = engine.whole((sample, output))
+    if engine.mesh.space_index:
+        return
     mine = [(loader.position(first + i), _image_of(sample, output, i))
             for i in range(valid)]
-    every = gather_to_main(mine)
+    every = gather_to_main(mine, engine.mesh.data_group)
     if writer is not None:
         for idx, (s, o) in sorted((x for r in every for x in r), key=lambda x: x[0]):
             writer.save(0, idx, s, o)
@@ -339,7 +356,7 @@ def test(cfg: Config, engine: Engine = None, device=None):
         if writer:
             writer.add(metric=metric)
         if cfg.save_image or cfg.save_result_only:
-            _save_images(writer, loader_test, b, valid, placed, res["output"])
+            _save_images(writer, loader_test, b, valid, placed, res["output"], engine)
     summary = writer.update(0) if writer else {}
     if n:
         print(f"elapsed time : {t_total:.4f} sec, "
@@ -377,7 +394,9 @@ def main(cfg: Config):
         dist.broadcast_object_list(dirs, src=0)
         cfg.save_dir, cfg.profile_dir = dirs
         if is_main_process():
-            print(f"data parallel: {world_size()} ranks ({dist.get_backend()} on "
+            strips = (f", {cfg.num_spatial_shards} strips an image"
+                      if cfg.num_spatial_shards > 1 else "")
+            print(f"data parallel: {world_size()} ranks{strips} ({dist.get_backend()} on "
                   f"{device.type})")
     if device.type == "cuda":
         if cfg.compile_cache:

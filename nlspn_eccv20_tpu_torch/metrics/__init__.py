@@ -3,7 +3,9 @@
 
 The 8 metrics of the reference: RMSE, MAE, iRMSE, iMAE (inverse depth), REL
 and delta < 1.25^{1,2,3}, over valid pixels (gt > 1e-4). Tensors are NCHW:
-``output['pred']`` and ``sample['gt']`` are (B, 1, H, W).
+``output['pred']`` and ``sample['gt']`` are (B, 1, H, W). On a strip of
+each image's columns (``strips``, ``parallel/halo.Strips``) the sums and
+the valid count are added over the strips' ranks first.
 """
 
 from __future__ import annotations
@@ -61,9 +63,14 @@ def evaluate(sample, output) -> torch.Tensor:
 
 
 @torch.no_grad()
-def evaluate_per_sample(sample, output) -> torch.Tensor:
-    """A (B, 8) tensor: the metrics of each image on its own."""
-    return _metrics(output["pred"], sample["gt"], (1, 2, 3))
+def evaluate_per_sample(sample, output, strips=None) -> torch.Tensor:
+    """A (B, 8) tensor: the metrics of each image on its own (with
+    ``strips``, of the whole images, on every strip's rank)."""
+    if strips is None:
+        return _metrics(output["pred"], sample["gt"], (1, 2, 3))
+    sums, num_valid = _metric_sums(output["pred"], sample["gt"], (1, 2, 3))
+    both = strips.sum(torch.cat([sums, num_valid[:, None].to(sums.dtype)], -1))
+    return metrics_from_sums(both[:, :-1], both[:, -1])
 
 
 class MetricFunction:

@@ -28,13 +28,24 @@ batch norm takes the variance in a stable form where Flax takes E[x^2] -
 E[x]^2 (clipped at 0), a difference of f32 rounding only
 (``tests/test_torch_bf16_train.py`` measures it).
 
-Inside a process group (data parallel, ``parallel/mesh.py``) train-mode
-``BatchNorm`` takes the global batch's statistics, as the JAX BatchNorm does
-under the sharded jit: the ranks' per-channel sums of x and x^2 (f32) are
-added by a differentiable all-reduce, the variance is Flax's E[x^2] -
+Inside a process group (``parallel/mesh.py``) train-mode ``BatchNorm``
+takes the global batch's statistics, as the JAX BatchNorm does under the
+sharded jit: the ranks' per-channel sums of x and x^2 (f32) and their pixel
+counts are added by a differentiable all-reduce (under width shards the
+strips hold different numbers of pixels), the variance is Flax's E[x^2] -
 E[x]^2 clipped at 0, and autograd carries the global terms of the backward
 (its all-reduce adds the ranks' gradients of the sums). Outside one it
 runs the library's batch norm as above.
+
+Width sharding: ``Conv2d`` and ``ConvTranspose2d`` have a ``strips``
+attribute (``parallel/halo.Strips``; None, the default, runs exactly the
+ops above), set on every module of the model by
+``NLSPNModel.set_strips``. On a strip each takes the halo its op reads
+right before it (``strip_conv2d``, ``strip_conv_transpose2d``) and returns
+the strip's own output columns, so a BatchNorm after it counts owned
+columns only. ``concat_trim`` and ``clip_to`` need no change: the strips'
+widths at 1/2, 1/4 and 1/8 are whole, so only the last strip's decoder
+output overhangs its skip, as the whole image's does.
 """
 
 from __future__ import annotations
@@ -43,7 +54,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nlspn_eccv20_tpu_torch.parallel.mesh import all_reduce_sum, distributed, world_size
+from nlspn_eccv20_tpu_torch.parallel.halo import extend, halo
+from nlspn_eccv20_tpu_torch.parallel.mesh import all_reduce_sum, distributed
 
 
 def _zero_init(conv: nn.Module, zero_init: bool) -> None:
@@ -60,23 +72,56 @@ def cast_to(t, dtype):
     return None if t is None else t.to(dtype)
 
 
+def strip_conv2d(x, weight, bias, stride, padding, strips):
+    """``F.conv2d`` (no dilation, one group) of the whole image, on this
+    rank's strip of its columns: the ``padding`` columns left of the strip
+    from its left neighbour, the columns right of it that its last output
+    reads from its right neighbour (1 at stride 1, none at stride 2, since
+    an inner strip's width is even), zeros at the image's own edges. Every
+    strip begins on a multiple of the stride, so its outputs are the whole
+    conv's at its own columns."""
+    k, s, p = weight.shape[3], stride[1], padding[1]
+    x = extend(x, strips, p, max(k - 1 - p - (s - 1), 0), p)
+    return F.conv2d(x, weight, bias, stride, (padding[0], 0))
+
+
+def strip_conv_transpose2d(x, weight, bias, strips):
+    """The k3/s2/p1/op1 ``F.conv_transpose2d`` of the whole image, on this
+    rank's strip: output column ``2i + 1`` reads input ``i + 1``, so an
+    inner strip takes one column of its right neighbour and drops the
+    extra output column; the last strip runs the op as it is."""
+    xe = halo(x, strips, 0, 1)
+    if not strips.took(0, 1)[1]:     # the last strip lends, takes none
+        return F.conv_transpose2d(xe, weight, bias, 2, 1, 1)
+    y = F.conv_transpose2d(xe, weight, bias, 2, 1, (1, 0))
+    return y[..., :2 * x.shape[3]]
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in its input's dtype, the parameters cast at use."""
+    """``nn.Conv2d`` in its input's dtype, the parameters cast at use; on a
+    strip (``strips``), ``strip_conv2d``."""
+
+    strips = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._conv_forward(x, cast_to(self.weight, x.dtype),
-                                  cast_to(self.bias, x.dtype))
+        w, b = cast_to(self.weight, x.dtype), cast_to(self.bias, x.dtype)
+        if self.strips is None:
+            return self._conv_forward(x, w, b)
+        return strip_conv2d(x, w, b, self.stride, self.padding, self.strips)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` (fixed output_padding) in its input's dtype,
-    the parameters cast at use."""
+    the parameters cast at use; on a strip, ``strip_conv_transpose2d``."""
+
+    strips = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, cast_to(self.weight, x.dtype),
-                                  cast_to(self.bias, x.dtype), self.stride,
-                                  self.padding, self.output_padding,
-                                  self.groups, self.dilation)
+        w, b = cast_to(self.weight, x.dtype), cast_to(self.bias, x.dtype)
+        if self.strips is not None:
+            return strip_conv_transpose2d(x, w, b, self.strips)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                  self.output_padding, self.groups, self.dilation)
 
 
 def Conv(ch_in: int, ch_out: int, kernel: int = 3, stride: int = 1,
@@ -124,11 +169,14 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
     def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the global batch of every rank, in f32, rounded
-        once to the input's dtype; the same running update."""
+        """Train mode over the global batch of every rank (each its own
+        pixels: strips differ in width), in f32, rounded once to the
+        input's dtype; the same running update."""
         xf = x.float()
-        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))]))
-        mean, mean2 = (sums / (x.numel() // x.shape[1] * world_size())).chunk(2)
+        count = xf.new_full((1,), x.numel() // x.shape[1])
+        sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                         count]))
+        mean, mean2 = (sums[:-1] / sums[-1]).chunk(2)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]

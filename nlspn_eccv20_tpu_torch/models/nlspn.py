@@ -69,6 +69,7 @@ from nlspn_eccv20_tpu_torch.models.common import (
     ConvBNReLU,
     ConvTBNReLU,
     concat_trim,
+    strip_conv2d,
 )
 from nlspn_eccv20_tpu_torch.models.resnet import make_encoder_stages
 from nlspn_eccv20_tpu_torch.ops.affinity import (
@@ -82,6 +83,7 @@ from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import prop_loop
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
 from nlspn_eccv20_tpu_torch.ops.planar import planar_channel_mlp
 from nlspn_eccv20_tpu_torch.ops.propagate import clamp_offsets
+from nlspn_eccv20_tpu_torch.parallel.halo import halo
 
 
 def uses_loop_kernel(cfg: Config, need_inter: bool) -> bool:
@@ -97,6 +99,12 @@ def _mp3(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 1, 1)
 
 
+def _own(x: torch.Tensor, left: int, width: int) -> torch.Tensor:
+    """The ``width`` columns of a strip's extended tensor that it owns,
+    ``left`` columns in."""
+    return x[..., left:left + width] if x.shape[-1] != width else x
+
+
 class S2D(nn.Module):
     """Sparse-to-dense depth encoder (reference nlspnmodel.py:406-462).
 
@@ -105,8 +113,13 @@ class S2D(nn.Module):
     cascades of 3x3 pools (a k+2 pool is exactly a 3x3 pool of the k pool),
     two 1x1 convs, concat with the raw depth, 3x3 conv to 32 channels. The
     pooling stays f32 because of the sentinel (999 is not a bf16 value); the
-    rest runs in ``dep``'s dtype.
+    rest runs in ``dep``'s dtype. On a strip the depth takes a halo of
+    ``REACH`` columns once (the 3x3 pools' -inf padding acts at the image's
+    edges) and the pools are cut to the strip's own columns.
     """
+
+    REACH = 6        # the longest cascade: six 3x3 pools
+    strips = None
 
     def __init__(self):
         super().__init__()
@@ -117,6 +130,9 @@ class S2D(nn.Module):
     def forward(self, dep: torch.Tensor) -> torch.Tensor:
         dt = dep.dtype
         d = dep.float()                              # (B, 1, H, W)
+        own = d
+        if self.strips is not None:
+            d = halo(own, self.strips, self.REACH, self.REACH)
         pools = []
         m = torch.where(d == 0.0, -999.0, -d)
         for _ in (3, 5, 7, 9):                       # min pyramid: max of -d
@@ -128,19 +144,25 @@ class S2D(nn.Module):
             m = _mp3(m)
             if s in (11, 13):
                 pools.append(m)
+        pools = torch.cat(pools, dim=1)
+        if self.strips is not None:
+            pools = _own(pools, self.strips.took(self.REACH, 0)[0], own.shape[3])
         c0, c1 = self.pool_convs[0][0], self.pool_convs[1][0]
-        f16 = planar_channel_mlp(torch.cat(pools, dim=1).to(dt),
+        f16 = planar_channel_mlp(pools.to(dt),
                                  c0.weight[:, :, 0, 0].t(), c0.bias,
                                  c1.weight[:, :, 0, 0].t(), c1.bias)
-        return self.conv(torch.cat([f16, d.to(dt)], dim=1))
+        return self.conv(torch.cat([f16, own.to(dt)], dim=1))
 
 
 class ConvGRU(nn.Module):
     """3x3 conv GRU over the affinity hidden state (reference :386-403).
 
     The z and r gates read the same concat(h, x); their convs run as one
-    conv over the concatenated weights (same math, one read of hx).
+    conv over the concatenated weights (same math, one read of hx). On a
+    strip it is ``strip_conv2d``.
     """
+
+    strips = None
 
     def __init__(self, hidden_dim: int, input_dim: int):
         super().__init__()
@@ -151,9 +173,13 @@ class ConvGRU(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         hd, dt = self.hidden_dim, h.dtype
-        zr = F.conv2d(torch.cat([h, x], dim=1),
-                      torch.cat([self.convz.weight, self.convr.weight]).to(dt),
-                      torch.cat([self.convz.bias, self.convr.bias]).to(dt), padding=1)
+        hx = torch.cat([h, x], dim=1)
+        w = torch.cat([self.convz.weight, self.convr.weight]).to(dt)
+        b = torch.cat([self.convz.bias, self.convr.bias]).to(dt)
+        if self.strips is None:
+            zr = F.conv2d(hx, w, b, padding=1)
+        else:
+            zr = strip_conv2d(hx, w, b, (1, 1), (1, 1), self.strips)
         z = torch.sigmoid(zr[:, :hd])
         r = torch.sigmoid(zr[:, hd:])
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
@@ -165,8 +191,12 @@ class EncodeDep(nn.Sequential):
 
     conv0 (1->16) and conv1 (16->2c) run as the ``dep_encode_front`` kernel
     (its bf16 form on a bf16 plane); conv2 (2c->c) is a stock conv on its
-    NHWC output.
+    NHWC output. On a strip other than the first the kernel reads 4 columns
+    of the left neighbour (its first output reads 3 of them; 4 keep both
+    stride-2 phases) and its first output column is dropped.
     """
+
+    strips = None
 
     def __init__(self, cfg: Config):
         c = cfg.GRU_input_dim
@@ -175,8 +205,14 @@ class EncodeDep(nn.Sequential):
                          ConvBNReLU(2 * c, c, 3, 2, bn=False))
 
     def forward(self, plane: torch.Tensor) -> torch.Tensor:
+        left = 0
+        if self.strips is not None:     # every strip lends; the first takes none
+            plane = halo(plane, self.strips, 4, 0)
+            left = self.strips.took(4, 0)[0]
         y = dep_encode_front(plane, self[0][0].weight, self[0][0].bias,
                              self[1][0].weight, self[1][0].bias)
+        if left:
+            y = y[:, :, left // 4:]
         return self[2](y.permute(0, 3, 1, 2))
 
 
@@ -185,8 +221,13 @@ class DecodeAff(nn.Sequential):
 
     deconv0 is a stock transposed conv; deconv1 + ReLU + deconv2 run as the
     ``decode_aff_tail`` kernel (its bf16 form on a bf16 state), whose output
-    is planar (B, K2 - 1, H, W) f32.
+    is planar (B, K2 - 1, H, W) f32. On a strip other than the last the
+    kernel reads one column of the right neighbour at 1/4 (the last two
+    outputs of a column read the next one) and its 4 extra columns at 1/1
+    are dropped.
     """
+
+    strips = None
 
     def __init__(self, cfg: Config):
         c = cfg.GRU_hidden_dim
@@ -197,9 +238,14 @@ class DecodeAff(nn.Sequential):
                         zero_init=cfg.zero_init_aff))
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        x = self[0](h).permute(0, 2, 3, 1).contiguous()
-        return decode_aff_tail(x, self[1][0].weight, self[1][0].bias,
-                               self[2][0].weight, self[2][0].bias)
+        x = self[0](h)
+        right = 0
+        if self.strips is not None:     # every strip lends; the last takes none
+            x = halo(x, self.strips, 0, 1)
+            right = self.strips.took(0, 1)[1]
+        out = decode_aff_tail(x.permute(0, 2, 3, 1).contiguous(), self[1][0].weight,
+                              self[1][0].bias, self[2][0].weight, self[2][0].bias)
+        return out[..., :-4 * right] if right else out
 
 
 class EncodeAff(nn.Sequential):
@@ -220,6 +266,7 @@ class NLSPNModel(nn.Module):
     """Full NLSPN network. sample: {'rgb': (B, 3, H, W), 'dep': (B, 1, H, W)}."""
 
     HEAD_WIDTH = 64  # per-head stage-1 channels (reference :67, 72, 78)
+    strips = None
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -259,6 +306,16 @@ class NLSPNModel(nn.Module):
             self.encode_dep = EncodeDep(cfg)
             self.decode_aff = DecodeAff(cfg)
             self.GRU = ConvGRU(cfg.GRU_hidden_dim, cfg.GRU_input_dim)
+
+    def set_strips(self, strips) -> None:
+        """Run on this rank's strip of the image's columns
+        (``parallel/halo.Strips``), or on whole images (None): set on the
+        model and every module that reads it."""
+        if strips is not None and self.cfg.offset:
+            raise ValueError("offset=True does not run on width strips (ROADMAP §A.5)")
+        for m in self.modules():
+            if hasattr(type(m), "strips"):
+                m.strips = strips
 
     def run_heads(self, fd2fe2: torch.Tensor, fe1: torch.Tensor):
         """The JAX package's ``Heads``: planar (pred_init, raw aff, conf),
@@ -320,13 +377,25 @@ class NLSPNModel(nn.Module):
             conf = conf.contiguous()
         pred = pred.contiguous()
 
+        kw = dict(kernel=cfg.prop_kernel, preserve=cfg.preserve_input,
+                  clip=cfg.always_clip)
+        d = dep_p if cfg.preserve_input else None
+        strips, reach = self.strips, cfg.prop_kernel // 2
+        lo = hi = 0
+        if strips is not None:
+            # K1 on the strip extended by the neighbours' pred and conf; the
+            # affinities and the depth only at owned pixels (zeros beyond)
+            lo, hi = strips.took(reach, reach)
+            conf = None if conf is None else halo(conf, strips, reach, reach)
+            d = None if d is None else F.pad(d, (lo, hi))
+
         def step(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
-            kw = dict(kernel=cfg.prop_kernel, preserve=cfg.preserve_input,
-                      clip=cfg.always_clip)
-            d = dep_p if cfg.preserve_input else None
             if off is not None:
                 return deform_prop(p, step_off, a, conf, d, radius=radius, **kw)
-            return prop_step(p, a, conf, d, **kw)
+            if strips is None:
+                return prop_step(p, a, conf, d, **kw)
+            out = prop_step(halo(p, strips, reach, reach), F.pad(a, (lo, hi)), conf, d, **kw)
+            return _own(out, lo, w)
 
         # ---- Propagation loop (reference :340-373) ----
         # every step's plane, whatever need_inter says (as JAX): each is the
@@ -364,5 +433,5 @@ class NLSPNModel(nn.Module):
             "offset": off,
             "aff": aff,
             "gamma": gamma.detach(),
-            "confidence": conf[:, None] if conf is not None else None,
+            "confidence": None if conf is None else _own(conf, lo, w)[:, None],
         }

@@ -1,6 +1,6 @@
-"""Data parallel over ``torch.distributed``: ranks, the process group and
-the placement of batches and weights (counterpart of
-``nlspn_eccv20_tpu/parallel``)."""
+"""Data parallel and width sharding over ``torch.distributed``: ranks, the
+process group, the placement of batches and weights and the halo
+exchanges between strips (counterpart of ``nlspn_eccv20_tpu/parallel``)."""
 
 from nlspn_eccv20_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -9,4 +9,5 @@ from nlspn_eccv20_tpu_torch.parallel.mesh import (  # noqa: F401
     maybe_initialize_distributed,
     replicate,
     shard_batch,
+    strip_bounds,
 )

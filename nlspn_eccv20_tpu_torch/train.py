@@ -1,6 +1,6 @@
 """Training / evaluation engine (counterpart of
-``nlspn_eccv20_tpu/train.py``'s ``Engine``), on one device or data parallel
-over the ranks of a process group (``parallel/mesh.py``).
+``nlspn_eccv20_tpu/train.py``'s ``Engine``), on one device, or data parallel
+and width-sharded over the ranks of a process group (``parallel/mesh.py``).
 
 One train step, in f32 or in bf16 (``precision='bf16'``: f32 parameters
 and optimizer, bf16 compute, f32 gradients, no loss scaling, as the JAX
@@ -18,6 +18,14 @@ backward, with the step's loss and metric sums) are the JAX step's.
 BatchNorm takes the global batch's statistics (``models/common.py``).
 The weights start equal on every rank (``init_state`` broadcasts rank 0's)
 and stay equal, since every rank applies the same summed gradients.
+
+Width shards (``num_spatial_shards > 1``): the ranks of a data shard hold
+strips of the same images' columns (``put_batch`` cuts them); the model
+exchanges the halos it reads (``models/nlspn.py``), the loss divides each
+strip's sums by the whole image's valid count, and the same one
+all-reduce over every rank sums the gradients. The outputs of
+``train_step`` and ``eval_step`` stay each rank's strips; ``whole``
+gathers an output or a batch where the whole images are needed. The ``--offset`` gather is not run on strips.
 
 The initial weights are drawn from a generator seeded with ``cfg.seed``
 (``utils/weights.init_weights_``), so a run's weights are a function of its
@@ -51,6 +59,7 @@ from nlspn_eccv20_tpu_torch.metrics import (
     metrics_from_sums,
 )
 from nlspn_eccv20_tpu_torch.models import get_model
+from nlspn_eccv20_tpu_torch.parallel.halo import gather_tree
 from nlspn_eccv20_tpu_torch.parallel.mesh import (
     all_reduce_sum_,
     check_batch,
@@ -67,13 +76,19 @@ from nlspn_eccv20_tpu_torch.utils.weights import init_weights_
 
 def check_shards(cfg: Config) -> None:
     """Raise ``ValueError`` before any model is built or data is read
-    where the ranks cannot run ``cfg``: width shards (not ported; in one
-    process worded as the JAX package's ``make_mesh`` words it for one
-    device, "1 devices not divisible by num_spatial_shards=2"), a
-    ``num_data_shards`` other than 0 or the number of ranks, and a training
-    batch that does not divide over the ranks. One process accepts any
+    where the ranks cannot run ``cfg``: width shards that do not divide the
+    ranks (in the JAX package's ``make_mesh``'s words, "1 devices not
+    divisible by num_spatial_shards=2" in one process), a
+    ``num_data_shards`` other than 0 or the number of data shards, a
+    training batch that does not divide over the data shards, and
+    ``offset=True`` with width shards. One process accepts any
     ``num_data_shards``, as the JAX mesh does on one device."""
     mesh = make_mesh(cfg.num_data_shards, cfg.num_spatial_shards)
+    if cfg.offset and mesh.space > 1:
+        raise ValueError(
+            f"offset=True with num_spatial_shards={mesh.space}: the --offset gather "
+            f"is not run on width strips (ROADMAP §A.5: it reaches offset_window + 2 "
+            f"columns in training, any column in eval)")
     if not cfg.test_only:
         check_batch(cfg.batch_size, mesh)
 
@@ -90,21 +105,32 @@ class Engine:
         check_shards(cfg)
         self.cfg = cfg
         self.steps_per_epoch = max(steps_per_epoch, 1)
-        self.loss_fn = get_loss(cfg)
         self.model = init_weights_(get_model(cfg, device),
                                    torch.Generator().manual_seed(cfg.seed))
         self.device = self.model.aff_scale_const.device
         self.mesh = make_mesh(cfg.num_data_shards, cfg.num_spatial_shards, self.device)
+        self.model.set_strips(self.mesh.strips)
+        self.loss_fn = get_loss(cfg, self.mesh.strips)
         self.optimizer = None
         self.schedule = None
         self.step = 0
 
     @property
     def eval_batch_per_host(self) -> int:
-        """The eval batch of this process: 1, one card a process, as the
-        JAX property gives on one device a process (the reference
-        evaluated at batch 1)."""
+        """The eval batch of this process: the data axis over the
+        processes, as the JAX property gives it (``train.py:201-207``),
+        which is 1 with one card a process (the reference evaluated at
+        batch 1); the strips of one image share it."""
         return 1
+
+    def whole(self, obj):
+        """``obj`` (a batch, an output, or a tuple of them) with every
+        strip made the whole image (``parallel/halo.gather_tree``); as it is
+        without width shards. Every rank must call it."""
+        if self.mesh.strips is None:
+            return obj
+        with torch.no_grad():
+            return gather_tree(obj, self.mesh.strips)
 
     def checkpoint_state(self) -> Dict[str, Any]:
         """{net, optimizer, step, steps_per_epoch}, as
@@ -193,11 +219,15 @@ class Engine:
         rows (B, 8) and the output; ``valid`` keeps the first rows only
         (the rest pad the batch). The model goes back to train mode.
 
-        In a process group every rank's kept rows go to rank 0, which
+        In a process group every data shard's kept rows go to rank 0, which
         returns them in rank order (host tensors); the other ranks return
-        their own. With one image a rank and the loader's sharding (rank r
-        takes samples r, r + ranks, ...) that order is the dataset's.
-        ``output`` stays the rank's own."""
+        their own. With one image a data shard and the loader's sharding
+        (data shard d takes samples d, d + shards, ...) that order is the
+        dataset's. ``output`` is the rank's own; under width shards the
+        strips' rows are the whole images' (the sums added over the
+        strips) and only each data shard's first strip sends them, and the
+        output is the rank's strip (``whole`` gathers it)."""
+        strips = self.mesh.strips
         self.model.eval()
         try:
             with cudnn_benchmark_mode():
@@ -205,12 +235,13 @@ class Engine:
         finally:
             self.model.train()
         rows = {"loss_val": self.loss_fn.per_sample(batch, out)[:valid],
-                "metric": evaluate_per_sample(batch, out)[:valid]}
+                "metric": evaluate_per_sample(batch, out, strips)[:valid]}
         if distributed():
             mine = {k: v.cpu() for k, v in rows.items()}
-            every = gather_to_main(mine)
-            rows = mine if every is None else {
-                k: torch.cat([r[k] for r in every]) for k in mine}
+            if self.mesh.space_index == 0:
+                every = gather_to_main(mine, self.mesh.data_group)
+                rows = mine if every is None else {
+                    k: torch.cat([r[k] for r in every]) for k in mine}
         return {**rows, "output": out}
 
 

@@ -21,8 +21,9 @@ package run here on the conftest's 8 virtual devices:
 * the test loop over a split of 7 samples counts each sample once, rows in
   the split's order, and summarises as one process does;
 * ``main`` refuses, on every rank and before any data is read, a batch
-  that does not divide over the ranks, width shards and a data-shard count
-  other than the ranks';
+  that does not divide over the ranks, width shards that do not divide the
+  ranks (the JAX ``make_mesh``'s words) and a data-shard count other than
+  the ranks';
 * without a launcher's variables nothing is initialised, as
   ``tests/test_multiprocess.py`` pins for the JAX package.
 """
@@ -59,8 +60,8 @@ CFG = dict(TINY, batch_size=GBATCH, patch_height=H, patch_width=W, num_sample=60
 # and the offset heads: every rank must sum the same set
 OTHER = dict(CFG, affinity="TC", offset=True, offset_window=1)
 REFUSE = {"batch": ({"batch_size": 3}, "batch_size=3 does not divide over the 2 ranks"),
-          "width": ({"num_spatial_shards": 2},
-                    "num_spatial_shards=2: width sharding is not ported"),
+          "width": ({"num_spatial_shards": 4},
+                    "2 devices not divisible by num_spatial_shards=4"),
           "data": ({"num_data_shards": 3}, "num_data_shards=3 with 2 ranks")}
 
 

@@ -2,11 +2,12 @@
 
 The JAX ``Engine`` builds its mesh with ``make_mesh``, which raises a
 ``ValueError`` when ``num_spatial_shards`` does not divide the devices it
-was given (here the 8 virtual CPU devices of ``conftest.py``). The port runs
-on one device and has no width sharding, so its ``Engine`` and ``main``
-refuse any count above 1 with the same words, before a model is built or
-any data is read; ``num_data_shards`` is accepted, as the JAX mesh accepts
-it on one device. No step runs here.
+was given (here the 8 virtual CPU devices of ``conftest.py``). The port
+width-shards over the ranks of a process group (``tests/test_torch_width.py``);
+one process cannot, so its ``Engine`` and ``main`` refuse any count above 1
+with the same words, before a model is built or any data is read;
+``num_data_shards`` is accepted, as the JAX mesh accepts it on one device.
+No step runs here.
 """
 
 import jax
