@@ -247,32 +247,44 @@ Phases (any failure exits non-zero and prints no result):
      synchronised BatchNorm and the rank-0 writers on the card, exit 0 and
      every artifact; each subprocess killed at its time limit (480 s);
  17. width sharding (``num_spatial_shards``, ``parallel/halo.py``): (0)
-     K1, K1b, K2, K4, K3, K5 and the bf16 forms of K2-K5 against their
-     plain versions, at their usual bars, at every shape the strips below
-     give them (B=2; each strip extended by its halo: K1 240x609, 409,
-     402; K3 240x608, 612, 408, 404, 412; K2 60x153, 152, 103, 101, 102;
-     the backwards at two strips' shapes); then gloo ranks on the one card
-     as subprocesses of this script (``--ws-rank``), each noting the
-     shapes the model gave K1, K2 and K3 (every one must be among those
-     checked), the default configuration at KITTI's full 240x1216, global
-     batch 2 of synthetic scenes, random weights (seed 4); (a) two strips
-     of 608 columns: the eval forward (pred gathered within 2e-4 of the
-     one-process forward here, the per-image metric rows within 1e-4; in
-     bf16 within 1e-2 of max |pred| of the one-process bf16 forward; the
-     gap on the 16 columns around each seam printed), the f32 train step
-     (loss within 1e-4, each gradient summed over the ranks within 5e-3
-     relative L2 of the nearer of two one-process steps, both under the
-     deterministic algorithms cuDNN's heuristics pick: through cuDNN, and
-     through PyTorch's own convolutions; both distances printed) and the
-     bf16 step at phase 15's bars; both ranks' weights and running
-     statistics equal bits after each step; launches on each rank 12/11/11
-     forward (K1, K2, K3 on the strip and its halo) and backward (K1b, K4,
-     K5; their bf16 forms in bf16), and the halo exchanges counted with
-     the bytes each rank sends; the rank step's median of 3 in cuDNN's
+     K1, K1b, K2, K4, K3, K5, the bf16 forms of K2-K5, K7 and K8 against
+     their plain versions, at their usual bars, at every shape the strips
+     below give them (B=2; each strip extended by its halo: K1 240x609,
+     409, 402; K3 240x608, 612, 408, 404, 412; K2 60x153, 152, 103, 101,
+     102; the default model's backwards at two strips' shapes; K7 and K8 in
+     training by the windowed backward's reach prop_kernel // 2 + R + 1 = 6
+     a side, 240x614, 414, 412; K7 in eval by the reach of the offsets
+     (prop_kernel // 2 + ceil(max |dx|) + 1 a side, predicted from the
+     one-process offsets) and on the whole 240x1216); then gloo ranks on
+     the one card as subprocesses of this script (``--ws-rank``), each
+     noting the shapes the model gave K1, K7, K2, K3 and K8 (every one must
+     be among those checked; one not predicted is checked when the ranks
+     return, and named), the runs of ``WS_RUNS`` at KITTI's full 240x1216,
+     global batch 2 of synthetic scenes, random weights (seed 4), against
+     the same runs in one process: the default configuration and
+     ``Config(offset=True)``; (a) two strips of 608 columns: the eval
+     forward (pred gathered within 2e-4 of the one-process forward here,
+     the per-image metric rows within 1e-4; in bf16 within 1e-2 of max
+     |pred| of the one-process bf16 forward; the gap on the 16 columns
+     around each seam printed), the f32 train step (loss within 1e-4, each
+     gradient summed over the ranks within 5e-3 relative L2 of the nearer
+     of two one-process steps, both under the deterministic algorithms
+     cuDNN's heuristics pick: through cuDNN, and through PyTorch's own
+     convolutions; both distances printed) and the bf16 step at phase 15's
+     bars; every rank's weights and running statistics equal bits after
+     each step; launches on each rank 12/11/11 forward (K1 or K7, K2, K3 on
+     the strip and its halo) and backward (K1b or K8, K4, K5; their bf16
+     forms in bf16), K1 none with offsets; the halo exchanges counted with
+     the bytes each rank sends; the offset model's eval twice, at its own
+     offsets (a halo of their reach) and with the offset head scaled so
+     that max |dx| is ``WS_FAR_DX`` (the whole width: ``gather_width``),
+     the route each rank took held to the one its offsets ask for, the
+     train step's a halo of 6; the rank step's median of 3 in cuDNN's
      benchmark mode beside the one-process step's, labelled as ranks
      sharing one card, with the card's name and power limit; (b) three
-     strips of 408, 400 and 408 columns (ragged): the eval forward at the
-     same bars; each subprocess killed at its time limit (300 s);
+     strips of 408, 400 and 408 columns (ragged): the eval forwards at the
+     same bars, and the offset model's f32 train step; each group of
+     subprocesses killed at its time limit (420 s);
  18. the kernel line, then {"ok": true, "device": ...} as the last line.
 
 TF32 is off for cuDNN and for matmuls: every f32 number here is float32
@@ -2606,15 +2618,51 @@ def main() -> int:
 
     # ---- 17. width sharding ----
     t_ws = time.perf_counter()
-    # (0) K1-K5 and their bf16 forms at the shapes the strips give them,
-    # against their plain versions at their usual bars: two and three strips
-    # of a batch of 240x1216 (the backwards at two, as the ranks train),
-    # each strip extended as models/nlspn.py extends it: K1 and K1b by
-    # prop_kernel // 2 columns a side, K3 and K5 by 4 on the left, K2 and K4
-    # by one on the right at 1/4, none past the image's edges. The ranks
-    # note the shapes their wrappers were given; each must be one of these.
+    # (0) K1-K5, K7, K8 and the bf16 forms of K2-K5 at the shapes the strips
+    # give them, against their plain versions at their usual bars: two and
+    # three strips of a batch of 240x1216 (the backwards of the default
+    # model at two, as its ranks train), each strip extended as
+    # models/nlspn.py extends it: K1 and K1b by prop_kernel // 2 columns a
+    # side, K3 and K5 by 4 on the left, K2 and K4 by one on the right at 1/4,
+    # K7 and K8 in training by the windowed backward's reach prop_kernel // 2
+    # + R + 1 a side, K7 in eval by the offsets' own reach (predicted in
+    # width_sharding) or on the whole width, none past the image's edges.
+    # The ranks note the shapes their wrappers were given; each must be one
+    # of these.
     from nlspn_eccv20_tpu_torch.parallel.mesh import strip_bounds
     strip_shapes = set()
+
+    def check_strip_shape(shape, backward=True):
+        """``shape``'s kernel (and with ``backward`` its backward) against
+        its plain version at B=2; noted in ``strip_shapes``."""
+        if shape in strip_shapes:
+            return
+        strip_shapes.add(shape)
+        kind, sh, sw = shape[:3]
+        if kind == "prop_step":
+            check_k1(WS_B, sh, sw)
+            if backward:
+                check_k1b(WS_B, sh, sw)
+        elif kind == "dep_encode_front":
+            check_k3(WS_B, sh, sw)
+            check_k3_bf16(WS_B, sh, sw)
+            if backward:
+                check_k5(WS_B, sh, sw)
+                check_k5_bf16(WS_B, sh, sw)
+        elif kind == "decode_aff_tail":
+            check_k2(WS_B, sh, sw)
+            check_k2_bf16(WS_B, sh, sw)
+            if backward:
+                check_k4(WS_B, sh, sw, 8)
+                check_k4_bf16(WS_B, sh, sw)
+        elif kind == "deform_prop":
+            check_k7(WS_B, sh, sw, radius=shape[3])
+        elif kind == "deform_prop_bwd":
+            check_k8(WS_B, sh, sw, radius=shape[3])
+        else:
+            raise AssertionError(f"[ws] no check for {shape}")
+
+    rp = Config().prop_kernel // 2 + RADIUS + 1
     for n in (2, 3):
         sb = strip_bounds(KITTI_W, n)
         for i in range(n):
@@ -2622,35 +2670,29 @@ def main() -> int:
             for shape in (("prop_step", KITTI_H, w + inner_l + inner_r),
                           ("dep_encode_front", KITTI_H, w + 4 * inner_l),
                           ("decode_aff_tail", KITTI_H // 4, w // 4 + inner_r)):
-                if shape in strip_shapes:
-                    continue
-                strip_shapes.add(shape)
-                kind, sh, sw = shape
-                if kind == "prop_step":
-                    check_k1(WS_B, sh, sw)
-                    if n == 2:
-                        check_k1b(WS_B, sh, sw)
-                elif kind == "dep_encode_front":
-                    check_k3(WS_B, sh, sw)
-                    check_k3_bf16(WS_B, sh, sw)
-                    if n == 2:
-                        check_k5(WS_B, sh, sw)
-                        check_k5_bf16(WS_B, sh, sw)
-                else:
-                    check_k2(WS_B, sh, sw)
-                    check_k2_bf16(WS_B, sh, sw)
-                    if n == 2:
-                        check_k4(WS_B, sh, sw, 8)
-                        check_k4_bf16(WS_B, sh, sw)
+                check_strip_shape(shape, backward=n == 2)
+            wide = w + rp * (inner_l + inner_r)
+            check_strip_shape(("deform_prop", KITTI_H, wide, RADIUS))
+            check_strip_shape(("deform_prop_bwd", KITTI_H, wide, RADIUS))
+    check_strip_shape(("deform_prop", KITTI_H, KITTI_W, None))   # the whole-width route
     log(f"[ws] (0) the kernels at the strips' shapes, B={WS_B}, against their plain "
-        f"versions: " + ", ".join(f"{k} {h}x{w}" for k, h, w in sorted(strip_shapes)))
+        f"versions: " + ", ".join(f"{k[0]} {k[1]}x{k[2]}" + (
+            "" if len(k) == 3 else f" {'exact' if k[3] is None else 'R=' + str(k[3])}")
+            for k in sorted(strip_shapes, key=str)))
     ws_dir = tempfile.mkdtemp(prefix="ws-", dir=build.BUILD_DIR)
     try:
-        fwd_only = {k: (n if k in fwd_wrappers else 0) for k, n in expected_launches(
-            Config(), {**fwd_wrappers, **bwd_wrappers}).items()}
-        width_sharding(ws_dir, card, strip_shapes, fwd_only, expected_launches(
-            Config(), {**fwd_wrappers, **bwd_wrappers}), expected_bf16_train(
-            Config(precision="bf16")))
+        every = {**fwd_wrappers, **bwd_wrappers}
+        wants = {}
+        for key, (kw, _, trains, _) in WS_RUNS.items():
+            cfg_k = Config(**kw)
+            if cfg_k.precision == "bf16":
+                wants[key] = (expected_bf16_train(cfg_k, 0, 1),
+                              expected_bf16_train(cfg_k) if trains else None)
+            else:
+                wants[key] = ({k: (n if k in fwd_wrappers else 0)
+                               for k, n in expected_launches(cfg_k, every).items()},
+                              expected_launches(cfg_k, every) if trains else None)
+        width_sharding(ws_dir, card, strip_shapes, check_strip_shape, wants)
     finally:
         shutil.rmtree(ws_dir, ignore_errors=True)
     log(f"[ws] phase 17: {time.perf_counter() - t_ws:.1f} s")
@@ -2742,12 +2784,14 @@ DP_TIMEOUT = 480          # seconds, each rank subprocess and the torchrun run
 
 
 def path_wrappers():
-    """The kernel wrappers of the default configuration's path, by name:
-    K1, K2, K3 and their backwards, in f32 and bf16."""
-    from nlspn_eccv20_tpu_torch.ops.kernels import dec_aff_tail, dep_encode_front, prop_step
+    """The kernel wrappers of the default and offset configurations' paths,
+    by name: K1, K7, K2, K3 and their backwards, in f32 and bf16."""
+    from nlspn_eccv20_tpu_torch.ops.kernels import (
+        dec_aff_tail, deform_prop, dep_encode_front, prop_step)
 
     return {n: getattr(m, n) for m, names in (
         (prop_step, ("prop_step", "prop_step_bwd")),
+        (deform_prop, ("deform_prop", "deform_prop_bwd")),
         (dec_aff_tail, ("decode_aff_tail", "decode_aff_tail_bf16", "decode_aff_tail_bwd",
                         "decode_aff_tail_bwd_bf16")),
         (dep_encode_front, ("dep_encode_front", "dep_encode_front_bf16",
@@ -2769,7 +2813,8 @@ def dp_steps(cfg_kw, rows):
     return checked_steps(cfg, {k: v[rows] for k, v in full.items()}, timed=5)
 
 
-def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=True):
+def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=True,
+                  off_scale=None):
     """``cfg``'s Engine on the card from seed 4's random weights, on
     ``images`` (NHWC host arrays; a width-sharded rank keeps its strip),
     with the deterministic algorithms cuDNN's heuristics pick (the step's
@@ -2781,7 +2826,10 @@ def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=Tru
     with the bytes this rank sends; then the median of ``timed`` more steps
     as ``Engine.train_step`` runs them (cuDNN's benchmark mode; CUDA
     events). Without ``cudnn_on`` the checked calls run PyTorch's own
-    convolutions instead of cuDNN's."""
+    convolutions instead of cuDNN's. With ``offset`` the route of the offset
+    steps on a strip (``offset_route``) of each and max |dx| of the eval
+    forward's offsets on this rank's columns; ``off_scale`` scales the
+    offset head's offset channels first."""
     import contextlib
 
     import torch
@@ -2815,6 +2863,11 @@ def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=Tru
 
     eng = Engine(cfg, steps_per_epoch=100)
     randomize_(eng.model, torch.Generator().manual_seed(4))
+    if off_scale is not None:
+        with torch.no_grad():
+            head = eng.model.off_aff_dec0[0]
+            for p in (head.weight, head.bias):
+                p[:2 * cfg.num_neighbors] *= off_scale
     model = eng.init_state()
     batch = eng.put_train_batch(images)
     out = {"width": int(batch["rgb"].shape[3])}
@@ -2828,8 +2881,12 @@ def checked_steps(cfg, images, evaluate=False, train=True, timed=0, cudnn_on=Tru
                 ev, out["eval_launches"] = counted(lambda: eng.eval_step(batch))
                 out["pred"] = eng.whole(ev["output"]["pred"]).cpu()
                 out["metric"] = ev["metric"].cpu()
+                if cfg.offset:
+                    out["eval_route"] = model.offset_route
+                    out["off_dx_max"] = ev["output"]["offset"][:, 1::2].abs().max().item()
             if train:
                 aux, out["launches"] = counted(lambda: eng.train_step(batch))
+                out["route"] = model.offset_route
                 out.update(loss=aux["loss"].item(),
                            grads={n: p.grad.cpu() for n, p in model.named_parameters()
                                   if p.grad is not None},
@@ -3001,15 +3058,23 @@ def data_parallel(workdir, dev, card, phase7_ms, want_f32, want_bf16):
 
 
 WS_B, WS_TIMED = 2, 3     # phase 17: global batch of KITTI-wide images; timed steps
-WS_TIMEOUT = 300          # seconds, each group of rank subprocesses
+WS_TIMEOUT = 420          # seconds, each group of rank subprocesses
+WS_FAR_DX = 800.0         # max |dx| of the far offsets: past any strip of 1216 columns
+WS_RUNS = {   # phase 17's runs: key: (config, ranks that run it, that train it, far offsets)
+    "f32": ({}, (2, 3), (2,), False),
+    "bf16": ({"precision": "bf16"}, (2,), (2,), False),
+    "offset f32": ({"offset": True}, (2, 3), (2, 3), False),
+    "offset far": ({"offset": True}, (2, 3), (), True),
+    "offset bf16": ({"offset": True, "precision": "bf16"}, (2,), (2,), False),
+}
 
 
-def ws_run(cfg_kw, train=True, timed=True, cudnn_on=True):
+def ws_run(cfg_kw, train=True, timed=True, cudnn_on=True, off_scale=None):
     """Phase 17's work in this process (a width-sharded rank, or the
     one-process reference): ``checked_steps`` of ``Config(**cfg_kw)`` at
     240x1216 on 2 synthetic scenes (seed 5), the eval forward and, with
     ``train``, the step, then with ``timed`` the median of ``WS_TIMED``
-    more steps."""
+    more steps; ``off_scale`` scales the offset head's offsets."""
     import numpy as np
 
     from nlspn_eccv20_tpu_torch.config import Config
@@ -3018,18 +3083,23 @@ def ws_run(cfg_kw, train=True, timed=True, cudnn_on=True):
     cfg = Config(patch_height=KITTI_H, patch_width=KITTI_W, batch_size=WS_B, **cfg_kw)
     images = Synthetic(cfg, "train").batch(list(range(WS_B)), np.random.default_rng(5))
     return checked_steps(cfg, images, evaluate=True, train=train,
-                         timed=WS_TIMED if train and timed else 0, cudnn_on=cudnn_on)
+                         timed=WS_TIMED if train and timed else 0, cudnn_on=cudnn_on,
+                         off_scale=off_scale)
 
 
 def ws_rank(workdir):
     """One rank of phase 17: joins the gloo group its environment describes
-    on the one card, with as many strips as ranks; two ranks take the eval
-    forward and the f32 and bf16 steps, three the eval forward only; saves
-    what it saw to ``<workdir>/rank<r>.pt``."""
+    on the one card, with as many strips as ranks, and runs the ``WS_RUNS``
+    its number of ranks takes (the far-offset scale from
+    ``<workdir>/ws.json``); notes every shape the model gave K1, K7, K2, K3
+    and K8; saves what it saw to ``<workdir>/rank<r>.pt``."""
+    import json
+
     import torch
     import torch.distributed as dist
 
     from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.ops.kernels import deform_prop as dp_mod
     from nlspn_eccv20_tpu_torch.parallel.mesh import maybe_initialize_distributed
 
     import nlspn_eccv20_tpu_torch.models.nlspn as net
@@ -3047,16 +3117,34 @@ def ws_rank(workdir):
         return call
 
     # the model's calls of K1, K2, K3 (their bf16 forms too): (H, W) of each
-    # input plane, NHWC for K2
+    # input plane, NHWC for K2; of K7 and K8 also the radius (None: exact)
     for name, hw in (("prop_step", lambda s: s[-2:]), ("dep_encode_front", lambda s: s[-2:]),
                      ("decode_aff_tail", lambda s: s[1:3])):
         setattr(net, name, noted(name, getattr(net, name), hw))
+    k7 = net.deform_prop
+
+    def noted_k7(p, *args, radius=None, **kw):
+        shapes.add(("deform_prop", *p.shape[-2:], radius))
+        return k7(p, *args, radius=radius, **kw)
+
+    net.deform_prop = noted_k7
+    k8 = dp_mod.DeformPropFunction.backward
+
+    def noted_k8(ctx, g):
+        if ctx.radius is not None and not ctx.plain:
+            shapes.add(("deform_prop_bwd", *g.shape[-2:], ctx.radius))
+        return k8(ctx, g)
+
+    dp_mod.DeformPropFunction.backward = staticmethod(noted_k8)
+    with open(os.path.join(workdir, "ws.json")) as f:
+        far = json.load(f)["off_scale"]
     r, n = dist.get_rank(), dist.get_world_size()
-    res = {"backend": dist.get_backend(), "world": n, "device": torch.cuda.current_device(),
-           "f32": ws_run({"num_spatial_shards": n}, train=n == 2)}
-    if n == 2:
-        res["bf16"] = ws_run({"num_spatial_shards": n, "precision": "bf16"})
-    res["shapes"] = sorted(shapes)
+    res = {"backend": dist.get_backend(), "world": n, "device": torch.cuda.current_device()}
+    for key, (kw, runs, trains, far_offsets) in WS_RUNS.items():
+        if n in runs:
+            res[key] = ws_run({"num_spatial_shards": n, **kw}, train=n in trains,
+                              timed=n == 2, off_scale=far if far_offsets else None)
+    res["shapes"] = sorted(shapes, key=str)
     torch.save(res, os.path.join(workdir, f"rank{r}.pt"))
     dist.destroy_process_group()
     return 0
@@ -3121,11 +3209,19 @@ def ws_ranks(workdir, n):
     return res, wall
 
 
-def width_sharding(workdir, card, checked, want_eval, want_f32, want_bf16):
-    """Phase 17: the one-process reference here, then two and three gloo
-    ranks on the one card with as many strips of each 240x1216 image
-    (``--ws-rank``), held to it as the module's docstring says; every
-    shape a rank gave K1, K2 or K3 must be in ``checked``."""
+def width_sharding(workdir, card, checked, check_shape, wants):
+    """Phase 17: the one-process references here (``WS_RUNS`` without
+    strips), then two and three gloo ranks on the one card with as many
+    strips of each 240x1216 image (``--ws-rank``), held to them as the
+    module's docstring says. ``wants[key]`` are the launches a rank's eval
+    forward and train step of run ``key`` must make. Every shape a rank gave
+    K1, K7, K2, K3 or K8 must be in ``checked``: the offset eval's halos,
+    which depend on the offsets, are predicted from the one-process offsets
+    and checked (``check_shape``) before the ranks start; a shape still
+    missing when they return is checked then, and named."""
+    import json
+    import math
+
     import numpy as np
     import torch
 
@@ -3138,13 +3234,33 @@ def width_sharding(workdir, card, checked, want_eval, want_f32, want_bf16):
         return (a - b).norm().item() / max(b.norm().item(), 1e-30)
 
     lipschitz = [0, 1, 4, 5, 6, 7]   # iRMSE, iMAE take 1 / pred near the floor
-    one = {"f32": ws_run({}), "bf16": ws_run({"precision": "bf16"})}
-    torch.cuda.empty_cache()
-    ref = one["f32"]
-    # the second one-process reference: the same step through PyTorch's own
+    one = {}
+    for key, (kw, _, trains, far_offsets) in WS_RUNS.items():
+        if not far_offsets:
+            one[key] = ws_run(kw, train=bool(trains))
+            torch.cuda.empty_cache()
+    # the far offsets: the head scaled so that max |dx| is WS_FAR_DX
+    far = WS_FAR_DX / one["offset f32"]["off_dx_max"]
+    one["offset far"] = ws_run(WS_RUNS["offset far"][0], train=False, off_scale=far)
+    with open(os.path.join(workdir, "ws.json"), "w") as f:
+        json.dump({"off_scale": far}, f)
+    # the second one-process references: the f32 steps through PyTorch's own
     # convolutions instead of cuDNN's
-    no_cudnn = ws_run({}, timed=False, cudnn_on=False)["grads"]
+    no_cudnn = {key: ws_run(WS_RUNS[key][0], timed=False, cudnn_on=False)["grads"]
+                for key in ("f32", "offset f32")}
     torch.cuda.empty_cache()
+    reach_of = {key: 1 + math.ceil(one[key]["off_dx_max"]) + 1
+                for key in ("offset f32", "offset far")}
+    log(f"[ws] one process: max |dx| of the eval offsets {one['offset f32']['off_dx_max']:.4f} "
+        f"(reach {reach_of['offset f32']} columns), far offsets (head x {far:.4e}) "
+        f"{one['offset far']['off_dx_max']:.4f} (reach {reach_of['offset far']})")
+    for n in (2, 3):   # the offset eval's halos, predicted
+        sb = strip_bounds(KITTI_W, n)
+        for i in range(n):
+            w = sb[i + 1] - sb[i]
+            if reach_of["offset f32"] <= min(np.diff(sb)):
+                lo, hi = (reach_of["offset f32"] * int(i > 0), reach_of["offset f32"] * int(i < n - 1))
+                check_shape(("deform_prop", KITTI_H, w + lo + hi, None))
     scenes = Synthetic(Config(patch_height=KITTI_H, patch_width=KITTI_W, batch_size=WS_B),
                        "train").batch(list(range(WS_B)), np.random.default_rng(5))
     gt = torch.from_numpy(scenes["gt"]).permute(0, 3, 1, 2).contiguous()
@@ -3154,85 +3270,115 @@ def width_sharding(workdir, card, checked, want_eval, want_f32, want_bf16):
         bounds = strip_bounds(KITTI_W, n)
         if widths != [b - a for a, b in zip(bounds, bounds[1:])]:
             raise AssertionError(f"[ws] {n} ranks: strips of {widths} columns")
-        for r, x in enumerate(res):
-            unchecked = {tuple(t) for t in x["shapes"]} - checked
-            if unchecked:
-                raise AssertionError(f"[ws {n}] rank {r} gave its kernels shapes not "
-                                     f"checked against their plain versions: {unchecked}")
-            e = x["f32"]
-            got = {k: e["eval_launches"].get(k, 0) for k in want_eval}
-            if got != want_eval:
-                raise AssertionError(f"[ws {n}] rank {r}: eval launches {got}, "
-                                     f"expected {want_eval}")
+        late = sorted({tuple(t) for x in res for t in x["shapes"]} - checked, key=str)
+        for shape in late:
+            check_shape(shape)
+        if late:
+            log(f"[ws {n}] shapes the ranks gave their kernels that were not predicted, "
+                f"checked now against their plain versions: {late}")
         seams = [c for b in bounds[1:-1] for c in range(b - 8, b + 8)]
+        keys = [k for k, (_, runs, _, _) in WS_RUNS.items() if n in runs]
+        for key in keys:
+            for r, x in enumerate(res):
+                got = {k: x[key]["eval_launches"].get(k, 0) for k in wants[key][0]}
+                if got != wants[key][0]:
+                    raise AssertionError(f"[ws {n} {key}] rank {r}: eval launches {got}, "
+                                         f"expected {wants[key][0]}")
 
-        def gap(prec):
-            """The gathered ``prec`` pred (equal on every rank) against
+        def gap(key):
+            """The gathered ``key`` pred (equal on every rank) against
             one process's, of max |pred|: everywhere, and on the 16
             columns around each seam."""
-            pred, want = res[0][prec]["pred"], one[prec]["pred"]
+            pred, want = res[0][key]["pred"], one[key]["pred"]
             if pred.shape != want.shape:
-                raise AssertionError(f"[ws {n} {prec}] pred {tuple(pred.shape)}, "
+                raise AssertionError(f"[ws {n} {key}] pred {tuple(pred.shape)}, "
                                      f"expected {tuple(want.shape)}")
-            if not all(torch.equal(x[prec]["pred"], pred) for x in res):
-                raise AssertionError(f"[ws {n} {prec}] the ranks' gathered preds differ")
+            if not all(torch.equal(x[key]["pred"], pred) for x in res):
+                raise AssertionError(f"[ws {n} {key}] the ranks' gathered preds differ")
             d = (pred.float() - want.float()).abs() / max(want.float().abs().max().item(), 1.0)
             return d.max().item(), d[..., seams].max().item()
 
-        pred, rows = res[0]["f32"]["pred"], res[0]["f32"]["metric"]
-        fwd, fwd_seam = gap("f32")
-        lip = ((rows[:, lipschitz] - ref["metric"][:, lipschitz]).abs().max()
-               / ref["metric"][:, lipschitz].abs().max()).item()
-        own = evaluate_per_sample({"gt": gt}, {"pred": pred})
-        sums = ((rows - own).abs() / own.abs().clamp_min(1e-30)).max().item()
-        log(f"[ws eval] {n} gloo ranks on one card, strips of {widths} columns of "
-            f"{WS_B} x {KITTI_H}x{KITTI_W}: gathered pred max |diff| {fwd:.3e} of the "
-            f"one-process forward (bar 2e-4; {fwd_seam:.3e} on the 16 columns around "
-            f"each seam), equal on every rank; metric rows "
-            f"(RMSE, MAE, REL, deltas) {lip:.3e} (bar 1e-4), every row against the "
-            f"metrics of the gathered pred {sums:.3e} (bar 1e-4); launches a rank "
-            f"{({k: v for k, v in want_eval.items() if v})}; halo exchanges a rank "
-            f"{res[0]['f32']['eval_launches']['exchanges']} (the forward's halos), "
-            f"{res[0]['f32']['eval_launches']['exchange_bytes'] / 2**20:.2f} MiB sent by "
-            f"rank 0")
-        if not (fwd <= 2e-4 and lip <= 1e-4 and sums <= 1e-4):
-            raise AssertionError(f"[ws {n}] eval: pred {fwd:.3e}, rows {lip:.3e} / {sums:.3e}")
-        if n == 3:
-            log(f"[ws] (b) three ranks: {wall:.1f} s of wall time with their start")
-            continue
-        fwd, fwd_seam = gap("bf16")
-        log(f"[ws eval bf16] {n} gloo ranks, strips of {widths} columns: gathered bf16 "
-            f"pred max |diff| {fwd:.3e} of max |pred| of the one-process bf16 forward "
-            f"(bar 1e-2, the bf16 forward's; {fwd_seam:.3e} on the 16 columns around "
-            f"each seam), equal on every rank")
-        if not fwd <= 1e-2:
-            raise AssertionError(f"[ws {n} bf16] eval pred {fwd:.3e} > 1e-2")
-        for prec, want in (("f32", want_f32), ("bf16", want_bf16)):
-            ref_p = one[prec]
-            a, b = (x[prec] for x in res)
-            for r, x in enumerate((a, b)):
-                got = {k: x["launches"].get(k, 0) for k in want}
+        for key in keys:
+            e0 = res[0][key]
+            route = ""
+            if key.startswith("offset"):   # the route of the eval's offset steps
+                reach = 1 + math.ceil(max(x[key]["off_dx_max"] for x in res)) + 1
+                want_route = ("halo" if reach <= min(widths) else "whole", reach)
+                routes = [tuple(x[key]["eval_route"]) for x in res]
+                if routes != [want_route] * n or (key == "offset far") != (reach > min(widths)):
+                    raise AssertionError(f"[ws {n} {key}] eval routes {routes}, expected "
+                                         f"{want_route}")
+                route = f"; offset steps on {want_route[0]} ({reach} columns reached)"
+            fwd, fwd_seam = gap(key)
+            if key.endswith("bf16"):
+                log(f"[ws eval {key}] {n} gloo ranks, strips of {widths} columns: gathered "
+                    f"bf16 pred max |diff| {fwd:.3e} of max |pred| of the one-process bf16 "
+                    f"forward (bar 1e-2, the bf16 forward's; {fwd_seam:.3e} on the 16 columns "
+                    f"around each seam), equal on every rank{route}")
+                if not fwd <= 1e-2:
+                    raise AssertionError(f"[ws {n} {key}] eval pred {fwd:.3e} > 1e-2")
+                continue
+            pred, rows = e0["pred"], e0["metric"]
+            want_rows = one[key]["metric"]
+            lip = ((rows[:, lipschitz] - want_rows[:, lipschitz]).abs().max()
+                   / want_rows[:, lipschitz].abs().max()).item()
+            own = evaluate_per_sample({"gt": gt}, {"pred": pred})
+            sums = ((rows - own).abs() / own.abs().clamp_min(1e-30)).max().item()
+            log(f"[ws eval {key}] {n} gloo ranks on one card, strips of {widths} columns of "
+                f"{WS_B} x {KITTI_H}x{KITTI_W}: gathered pred max |diff| {fwd:.3e} of the "
+                f"one-process forward (bar 2e-4; {fwd_seam:.3e} on the 16 columns around "
+                f"each seam), equal on every rank; metric rows "
+                f"(RMSE, MAE, REL, deltas) {lip:.3e} (bar 1e-4), every row against the "
+                f"metrics of the gathered pred {sums:.3e} (bar 1e-4); launches a rank "
+                f"{({k: v for k, v in wants[key][0].items() if v})}; halo exchanges a rank "
+                f"{e0['eval_launches']['exchanges']} (the forward's halos), "
+                f"{e0['eval_launches']['exchange_bytes'] / 2**20:.2f} MiB sent by "
+                f"rank 0{route}")
+            if not (fwd <= 2e-4 and lip <= 1e-4 and sums <= 1e-4):
+                raise AssertionError(f"[ws {n} {key}] eval: pred {fwd:.3e}, rows {lip:.3e} / "
+                                     f"{sums:.3e}")
+        for key in keys:
+            if n not in WS_RUNS[key][2]:
+                continue
+            want = wants[key][1]
+            ref_p = one[key]
+            for r, x in enumerate(res):
+                got = {k: x[key]["launches"].get(k, 0) for k in want}
                 if got != want:
-                    raise AssertionError(f"[ws {prec}] rank {r}: launches {got}, "
+                    raise AssertionError(f"[ws {n} {key}] rank {r}: launches {got}, "
                                          f"expected {want}")
-            for k in a["after"]:
-                if not torch.equal(a["after"][k], b["after"][k]):
-                    raise AssertionError(f"[ws {prec}] the ranks' {k} differ after the step")
-            if a["loss"] != b["loss"] or a["grads"].keys() != ref_p["grads"].keys():
-                raise AssertionError(f"[ws {prec}] the ranks' losses or gradient sets differ")
+            a = res[0][key]
+            route = ""
+            if key.startswith("offset"):   # the windowed backward's reach
+                want_route = ("halo", 1 + RADIUS + 1)
+                routes = [tuple(x[key]["route"]) for x in res]
+                if routes != [want_route] * n:
+                    raise AssertionError(f"[ws {n} {key}] train routes {routes}, expected "
+                                         f"{want_route}")
+                route = f"; offset steps on a halo of {want_route[1]} columns"
+            for x in res[1:]:
+                for k in a["after"]:
+                    if not torch.equal(a["after"][k], x[key]["after"][k]):
+                        raise AssertionError(f"[ws {n} {key}] the ranks' {k} differ after "
+                                             f"the step")
+                if x[key]["loss"] != a["loss"]:
+                    raise AssertionError(f"[ws {n} {key}] the ranks' losses differ")
+            if a["grads"].keys() != ref_p["grads"].keys():
+                raise AssertionError(f"[ws {n} {key}] the gradient sets differ")
             rel = abs(a["loss"] - ref_p["loss"]) / abs(ref_p["loss"])
-            if prec == "f32":   # 5e-3 from the nearer of the two one-process steps
-                near = {k: (dist_of(a["grads"][k], g), dist_of(a["grads"][k], no_cudnn[k]))
+            if not key.endswith("bf16"):   # 5e-3 from the nearer of the two one-process steps
+                other = no_cudnn[key]
+                near = {k: (dist_of(a["grads"][k], g), dist_of(a["grads"][k], other[k]))
                         for k, g in ref_p["grads"].items() if g.abs().max() > 0}
                 rows_ = [(min(d), 5e-3, k) for k, d in near.items()]
                 loss_bar = 1e-4
                 within = [sum(d[i] <= 5e-3 for d in near.values()) for i in (0, 1)]
-                far = ", ".join(
+                farthest = ", ".join(
                     f"{k} {near[k][0]:.3e} / {near[k][1]:.3e} (the two steps "
-                    f"{dist_of(no_cudnn[k], ref_p['grads'][k]):.3e} apart)"
+                    f"{dist_of(other[k], ref_p['grads'][k]):.3e} apart)"
                     for k in sorted(near, key=lambda k: -near[k][0])[:3])
             else:   # phase 15's bars, as phase 16 takes them
-                f32_grads = one["f32"]["grads"]
+                f32_grads = one[key.replace("bf16", "f32")]["grads"]
                 rows_ = [(dist_of(a["grads"][k], g),
                           min(max(5e-2, 2 * dist_of(g, f32_grads[k])), 0.5), k)
                          for k, g in ref_p["grads"].items() if g.abs().max() > 0]
@@ -3240,35 +3386,39 @@ def width_sharding(workdir, card, checked, want_eval, want_f32, want_bf16):
                 ratios = [a["grads"][k].norm().item() / ref_p["grads"][k].norm().item()
                           for _, _, k in rows_]
                 if not all(3 / 4 <= q <= 4 / 3 for q in ratios):
-                    raise AssertionError(f"[ws bf16] gradient norms {min(ratios):.4f} to "
+                    raise AssertionError(f"[ws {n} {key}] gradient norms {min(ratios):.4f} to "
                                          f"{max(ratios):.4f} of the one-process step's")
             worst = max(rows_, key=lambda row: row[0] / row[1])
-            if prec == "f32":
-                log(f"[ws f32] gradients within 5e-3 relative L2 of one process's step "
-                    f"through cuDNN: {within[0]} of {len(near)}, through PyTorch's own "
-                    f"convolutions: {within[1]}; each held at 5e-3 from the nearer; farthest "
-                    f"from the cuDNN step (cuDNN / PyTorch's own): {far}")
-            log(f"[ws {prec}] 2 gloo ranks on one card, strips of {widths} columns of "
+            if not key.endswith("bf16"):
+                log(f"[ws {key}] {n} ranks: gradients within 5e-3 relative L2 of one "
+                    f"process's step through cuDNN: {within[0]} of {len(near)}, through "
+                    f"PyTorch's own convolutions: {within[1]}; each held at 5e-3 from the "
+                    f"nearer; farthest from the cuDNN step (cuDNN / PyTorch's own): {farthest}")
+            log(f"[ws {key}] {n} gloo ranks on one card, strips of {widths} columns of "
                 f"{WS_B} x {KITTI_H}x{KITTI_W}, against one process (cuDNN deterministic, "
                 f"by its heuristics): loss {a['loss']:.6f} vs {ref_p['loss']:.6f} (rel "
                 f"{rel:.3e}, bar {loss_bar:.0e}); gradients nearest their bar {worst[2]} "
                 f"{worst[0]:.3e} (bar {worst[1]:.3e}), largest {max(r[0] for r in rows_):.3e}; "
-                f"both ranks' weights and running statistics equal bits; launches a rank "
+                f"every rank's weights and running statistics equal bits; launches a rank "
                 f"{({k: v for k, v in want.items() if v})}; halo exchanges in the step "
                 f"{a['launches']['exchanges']}, "
-                f"{a['launches']['exchange_bytes'] / 2**20:.2f} MiB sent by rank 0")
+                f"{a['launches']['exchange_bytes'] / 2**20:.2f} MiB sent by rank 0{route}")
             if not rel <= loss_bar:
-                raise AssertionError(f"[ws {prec}] loss rel {rel:.3e} > {loss_bar:.0e}")
+                raise AssertionError(f"[ws {n} {key}] loss rel {rel:.3e} > {loss_bar:.0e}")
             if not worst[0] <= worst[1]:
-                raise AssertionError(f"[ws {prec}] gradient {worst[2]}: {worst[0]:.3e} > "
+                raise AssertionError(f"[ws {n} {key}] gradient {worst[2]}: {worst[0]:.3e} > "
                                      f"{worst[1]:.3e}")
-            log(f"[ws {prec}] train step median of {WS_TIMED} (CUDA events, cuDNN benchmark "
-                f"mode as Engine.train_step runs it): rank 0 {a['median_ms']:.3f} ms, rank 1 "
-                f"{b['median_ms']:.3f} ms, each a strip ({widths} columns) of {WS_B} images, both "
-                f"ranks sharing the one card, their halo exchanges and all-reduces by gloo "
-                f"through the host: not a multi-card time; one process on the whole "
-                f"images {ref_p['median_ms']:.3f} ms; {card}")
-        log(f"[ws] (a) two ranks: {wall:.1f} s of wall time with their start")
+            if n == 2:
+                b = res[1][key]
+                log(f"[ws {key}] train step median of {WS_TIMED} (CUDA events, cuDNN "
+                    f"benchmark mode as Engine.train_step runs it): rank 0 "
+                    f"{a['median_ms']:.3f} ms, rank 1 {b['median_ms']:.3f} ms, each a strip "
+                    f"({widths} columns) of {WS_B} images, both ranks sharing the one card, "
+                    f"their halo exchanges and all-reduces by gloo through the host: not a "
+                    f"multi-card time; one process on the whole images "
+                    f"{ref_p['median_ms']:.3f} ms; {card}")
+        log(f"[ws] ({'a' if n == 2 else 'b'}) {n} ranks: {wall:.1f} s of wall time with "
+            f"their start")
 
 
 if __name__ == "__main__":

@@ -16,12 +16,12 @@ resolved against the ranks of a process group (``parallel/mesh.py``): 0 or
 their number over ``num_spatial_shards``; one process accepts any count, as
 the JAX mesh does on one device. ``num_spatial_shards > 1`` shards each
 image's width over that many ranks (each a strip of columns, the halos
-exchanged by hand; ``parallel/halo.py``) for the default model and for
-``use_GRU=False``, in f32 and bf16, through ``train.Engine`` and ``main``
-under torchrun; one process refuses it with the JAX ``make_mesh``'s
-``ValueError`` for one device ("1 devices not divisible by
-num_spatial_shards=2"), and ``train.check_shards`` refuses it with
-``offset=True``; ``serve.Predictor`` does not read it, as in JAX. ``prop_impl`` is
+exchanged by hand; ``parallel/halo.py``) for the default model, for
+``use_GRU=False`` and for ``offset=True``, in f32 and bf16, through
+``train.Engine`` and ``main`` under torchrun; one process refuses it with
+the JAX ``make_mesh``'s ``ValueError`` for one device ("1 devices not
+divisible by num_spatial_shards=2"); ``serve.Predictor`` does not read it,
+as in JAX. ``prop_impl`` is
 read for one route only: ``'pallas'`` with ``use_GRU=False`` runs the whole
 propagation loop as one ``prop_loop`` kernel, as it takes the JAX package
 to its whole-loop kernel; ``'auto'`` and ``'xla'`` keep a ``prop_step``
@@ -125,7 +125,7 @@ class Config:
     profile: bool = False
     profile_dir: str = ""
 
-    # ----- Compilation cache (JAX package only) -----
+    # ----- Compilation cache (the port: where main builds the kernels) -----
     compile_cache: bool = True
     compile_cache_dir: str = ""
 
@@ -323,7 +323,7 @@ def build_parser() -> argparse.ArgumentParser:
     # Profiling
     p.add_argument("--profile", action="store_true", default=False)
     p.add_argument("--profile_dir", type=str, default="")
-    # Compilation cache (the JAX package's; not read by the port)
+    # Compilation cache (main builds the kernels there; utils/compile_cache.py)
     _add_bool_flag(p, "compile_cache", d.compile_cache)
     p.add_argument("--compile_cache_dir", type=str, default=d.compile_cache_dir)
     return p

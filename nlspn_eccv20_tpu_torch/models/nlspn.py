@@ -31,7 +31,13 @@ the step's backward follows the JAX windowed form's tie rules; with
 ``offset_window=0`` training gathers exactly at the unclamped offsets and
 differentiates the exact gather, as the JAX package does there; in eval
 mode the step is the exact gather for any offsets, as the JAX package's
-runtime switch between its windowed and exact forms computes.
+runtime switch between its windowed and exact forms computes. On a width
+strip (``set_strips``) each step runs on the strip extended by the
+neighbours' pred and conf as far as the step reads (``_offset_span``):
+a halo of the windowed backward's reach in training, of the offsets' own
+reach for the exact gather, or the whole width where that passes the
+narrowest strip. The JAX package leaves this to XLA's gather and its
+partitioner; K7 and K8 compute the same function.
 
 Training runs the same forward in train mode (BatchNorm on batch statistics)
 and differentiates through the kernels' autograd Functions, whose backward
@@ -83,7 +89,7 @@ from nlspn_eccv20_tpu_torch.ops.kernels.prop_loop import prop_loop
 from nlspn_eccv20_tpu_torch.ops.kernels.prop_step import prop_step
 from nlspn_eccv20_tpu_torch.ops.planar import planar_channel_mlp
 from nlspn_eccv20_tpu_torch.ops.propagate import clamp_offsets
-from nlspn_eccv20_tpu_torch.parallel.halo import halo
+from nlspn_eccv20_tpu_torch.parallel.halo import gather_width, halo, reach_and_widths
 
 
 def uses_loop_kernel(cfg: Config, need_inter: bool) -> bool:
@@ -267,6 +273,7 @@ class NLSPNModel(nn.Module):
 
     HEAD_WIDTH = 64  # per-head stage-1 channels (reference :67, 72, 78)
     strips = None
+    offset_route = None   # ("halo" | "whole", reach) of the last offset forward on a strip
 
     def __init__(self, cfg: Config):
         super().__init__()
@@ -311,11 +318,38 @@ class NLSPNModel(nn.Module):
         """Run on this rank's strip of the image's columns
         (``parallel/halo.Strips``), or on whole images (None): set on the
         model and every module that reads it."""
-        if strips is not None and self.cfg.offset:
-            raise ValueError("offset=True does not run on width strips (ROADMAP §A.5)")
         for m in self.modules():
             if hasattr(type(m), "strips"):
                 m.strips = strips
+
+    def _offset_span(self, off: torch.Tensor, radius, width: int):
+        """How far the offset steps on this strip read past its columns, and
+        how they get those columns: (extend, lo, hi), ``extend`` giving a
+        plane (pred, conf) the ``lo`` and ``hi`` columns around the strip's
+        own. In training with a window R the reach is the windowed
+        backward's, ``prop_kernel // 2 + R + 1`` (K8 reads u in [-R, R + 1]
+        about each kernel shift); for the exact gather (eval, and training
+        at ``offset_window=0``) it is ``prop_kernel // 2 + ceil(max |dx|) +
+        1``, the ceil corner and the floor's slope tap of the farthest dx
+        (dx: the odd channels; the rows are whole on every strip), over
+        the strips' group. Where that reach fits the narrowest strip the
+        planes take a halo of it; beyond, the whole width
+        (``gather_width``) with the strip's own columns at their place.
+        Every rank of the group takes the same route (from the one
+        all-gather); ``offset_route`` records it."""
+        strips, k = self.strips, self.cfg.prop_kernel // 2
+        if radius:
+            need = off.new_tensor(float(k + radius + 1))
+        else:
+            need = k + torch.ceil(off.detach()[:, 1::2].abs().max()) + 1
+        reach, widths = reach_and_widths(strips, need, width)
+        if reach <= min(widths):
+            self.offset_route = ("halo", reach)
+            lo, hi = strips.took(reach, reach)
+            return (lambda t: halo(t, strips, reach, reach)), lo, hi
+        self.offset_route = ("whole", reach)
+        lo = sum(widths[:strips.index])
+        return (lambda t: gather_width(t, strips)), lo, sum(widths) - lo - width
 
     def run_heads(self, fd2fe2: torch.Tensor, fe1: torch.Tensor):
         """The JAX package's ``Heads``: planar (pred_init, raw aff, conf),
@@ -380,22 +414,30 @@ class NLSPNModel(nn.Module):
         kw = dict(kernel=cfg.prop_kernel, preserve=cfg.preserve_input,
                   clip=cfg.always_clip)
         d = dep_p if cfg.preserve_input else None
-        strips, reach = self.strips, cfg.prop_kernel // 2
+        strips = self.strips
         lo = hi = 0
         if strips is not None:
-            # K1 on the strip extended by the neighbours' pred and conf; the
-            # affinities and the depth only at owned pixels (zeros beyond)
-            lo, hi = strips.took(reach, reach)
-            conf = None if conf is None else halo(conf, strips, reach, reach)
+            # the step on the strip extended by the neighbours' pred and conf;
+            # the affinities, offsets and depth only at owned pixels (zeros
+            # beyond), the outputs cropped to the owned columns
+            if off is None:
+                reach = cfg.prop_kernel // 2
+                lo, hi = strips.took(reach, reach)
+                extend = lambda t: halo(t, strips, reach, reach)   # noqa: E731
+            else:
+                extend, lo, hi = self._offset_span(step_off, radius, w)
+                step_off = F.pad(step_off, (lo, hi))
+            conf = None if conf is None else extend(conf)
             d = None if d is None else F.pad(d, (lo, hi))
 
         def step(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+            if strips is not None:
+                p, a = extend(p), F.pad(a, (lo, hi))
             if off is not None:
-                return deform_prop(p, step_off, a, conf, d, radius=radius, **kw)
-            if strips is None:
-                return prop_step(p, a, conf, d, **kw)
-            out = prop_step(halo(p, strips, reach, reach), F.pad(a, (lo, hi)), conf, d, **kw)
-            return _own(out, lo, w)
+                out = deform_prop(p, step_off, a, conf, d, radius=radius, **kw)
+            else:
+                out = prop_step(p, a, conf, d, **kw)
+            return out if strips is None else _own(out, lo, w)
 
         # ---- Propagation loop (reference :340-373) ----
         # every step's plane, whatever need_inter says (as JAX): each is the

@@ -21,6 +21,10 @@ partitioner, so the model asks for each halo by hand (``models/``):
   the gradients summed over the group.
 * ``Strips.sum(t)``: ``t`` summed over the group, no gradient (the loss's
   and the metrics' valid-pixel counts).
+* ``reach_and_widths(strips, need, width)``: the largest of the strips'
+  ``need`` and every strip's width (the ``--offset`` steps' reach, which
+  in eval depends on the offsets, and the route it takes: a halo, or the
+  whole width where it passes the narrowest strip).
 
 The exchanges are all-gathers over the space group: every backend takes
 them, gloo on CUDA tensors too (it copies through the host), where a gloo
@@ -166,6 +170,17 @@ def gather_width(x: torch.Tensor, strips: Strips) -> torch.Tensor:
     gradient of a rank's strip is its columns of the gradients summed over
     the group (each rank's loss may read the whole tensor)."""
     return _GatherWidth.apply(x, strips)
+
+
+def reach_and_widths(strips: Strips, need: torch.Tensor, width: int):
+    """The largest ``need`` (a 0-d tensor, a column count) over the group
+    and every strip's width in strip order, from one all-gather: the same
+    on every rank, so each takes the same route. A ``need`` that is not
+    finite raises."""
+    got = _all_gather(torch.stack([need.to(torch.float32).reshape(()),
+                                   need.new_tensor(width, dtype=torch.float32)]), strips)
+    pairs = [t.tolist() for t in got]
+    return int(max(n for n, _ in pairs)), [int(c) for _, c in pairs]
 
 
 def gather_tree(obj, strips: Strips):

@@ -25,7 +25,10 @@ exchanges the halos it reads (``models/nlspn.py``), the loss divides each
 strip's sums by the whole image's valid count, and the same one
 all-reduce over every rank sums the gradients. The outputs of
 ``train_step`` and ``eval_step`` stay each rank's strips; ``whole``
-gathers an output or a batch where the whole images are needed. The ``--offset`` gather is not run on strips.
+gathers an output or a batch where the whole images are needed. With
+``offset=True`` the deformable steps read a halo as wide as their reach
+(the training window's, or the offsets' own in eval), or the whole width
+where that reach passes the narrowest strip.
 
 The initial weights are drawn from a generator seeded with ``cfg.seed``
 (``utils/weights.init_weights_``), so a run's weights are a function of its
@@ -80,15 +83,9 @@ def check_shards(cfg: Config) -> None:
     ranks (in the JAX package's ``make_mesh``'s words, "1 devices not
     divisible by num_spatial_shards=2" in one process), a
     ``num_data_shards`` other than 0 or the number of data shards, a
-    training batch that does not divide over the data shards, and
-    ``offset=True`` with width shards. One process accepts any
-    ``num_data_shards``, as the JAX mesh does on one device."""
+    training batch that does not divide over the data shards. One process
+    accepts any ``num_data_shards``, as the JAX mesh does on one device."""
     mesh = make_mesh(cfg.num_data_shards, cfg.num_spatial_shards)
-    if cfg.offset and mesh.space > 1:
-        raise ValueError(
-            f"offset=True with num_spatial_shards={mesh.space}: the --offset gather "
-            f"is not run on width strips (ROADMAP §A.5: it reaches offset_window + 2 "
-            f"columns in training, any column in eval)")
     if not cfg.test_only:
         check_batch(cfg.batch_size, mesh)
 

@@ -34,9 +34,11 @@ one-process steps in a process of their own (``one`` job):
   loss and every gradient within 1e-10 of the one-process step;
 * the BatchNorm on ragged strips (24 and 16 columns) takes the global
   batch's statistics (the pixel count is all-reduced with the sums);
-* a strip without a column, and ``offset=True`` under width shards, are
-  refused; ``python -m nlspn_eccv20_tpu_torch.main --num_spatial_shards 2``
-  trains, validates and tests on 2 ranks, rank 0 writing every artifact.
+* a strip without a column is refused; ``python -m
+  nlspn_eccv20_tpu_torch.main --num_spatial_shards 2`` trains, validates
+  and tests on 2 ranks, rank 0 writing every artifact.
+
+``offset=True`` on strips is ``test_torch_width_offset.py``'s.
 """
 
 import dataclasses
@@ -410,7 +412,6 @@ def test_batchnorm_on_ragged_strips_takes_the_global_batch(run):
 
 @pytest.mark.parametrize("name,want", [
     ("no_column", "8 columns over num_spatial_shards=2: strip 1 would hold 0 columns"),
-    ("offset", "offset=True with num_spatial_shards=2"),
 ])
 def test_width_shards_refuse(run, name, want):
     for res in run["ranks"][2]:

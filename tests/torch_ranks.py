@@ -24,9 +24,15 @@ Jobs:
                 ragged strips; ``Engine.eval_step`` and ``train_step`` of
                 each case in ``inputs.pt`` on the rank's strip of its data
                 shard's images; the ragged case's step in float64; and the
-                refusals;
+                refusal of a strip without a column;
   ``one``       (one process, no group) the one-process steps the ``width``
-                tests hold the ranks to.
+                tests hold the ranks to;
+  ``width_offset``  ``offset=True`` on width strips (as ``width``): each
+                case's eval step and train step on the rank's strips, with
+                the route its offset steps took (a halo of their reach, or
+                the whole width); on 2 ranks also the float64 steps;
+  ``offset_one``  (one process) the one-process steps the
+                ``width_offset`` tests hold the ranks to.
 """
 
 import os
@@ -302,8 +308,10 @@ def _ragged_batchnorm(inp, r, bounds):
 
 
 def _width_case(case, r):
-    """``case``'s eval step (if asked), then its train step, on this
-    rank's strips of its data shard's images."""
+    """``case``'s eval step (if asked), then its train step (unless asked
+    not to), on this rank's strips of its data shard's images; with
+    ``offset=True`` also the route each took (``NLSPNModel.offset_route``)
+    and the train step's off_max."""
     from nlspn_eccv20_tpu_torch.config import Config
     from nlspn_eccv20_tpu_torch.train import Engine
 
@@ -312,19 +320,62 @@ def _width_case(case, r):
     per = case["cfg"]["batch_size"] // eng.mesh.size
     d = r // eng.mesh.space
     shard = {k: v[d * per:(d + 1) * per] for k, v in case["batch"].items()}
-    out = {"data": eng.mesh.size, "space": eng.mesh.space, "rows": per}
+    out = {"data": eng.mesh.size, "space": eng.mesh.space, "rows": per, "shard": d}
     if case.get("eval"):
         ev = eng.eval_step(eng.put_eval_batch(shard))
         whole = eng.whole(ev["output"])
         out["eval"] = {"loss_val": ev["loss_val"], "metric": ev["metric"],
-                       **{k: whole[k] for k in ("pred", "pred_init", "confidence")}}
-    aux = eng.train_step(eng.put_train_batch(shard))
-    out.update(loss=aux["loss"], loss_val=aux["loss_val"], metric=aux["metric"],
-               width=int(aux["output"]["pred"].shape[3]),
-               grads={n: p.grad.clone() for n, p in model.named_parameters()
-                      if p.grad is not None},
-               after={k: v.clone() for k, v in model.state_dict().items()})
+                       "route": model.offset_route,
+                       **{k: whole[k] for k in ("pred", "pred_init", "confidence", "offset")}}
+    if case.get("train", True):
+        aux = eng.train_step(eng.put_train_batch(shard))
+        out.update(loss=aux["loss"], loss_val=aux["loss_val"], metric=aux["metric"],
+                   width=int(aux["output"]["pred"].shape[3]), route=model.offset_route,
+                   off_max=aux.get("off_max"),
+                   grads={n: p.grad.clone() for n, p in model.named_parameters()
+                          if p.grad is not None},
+                   after={k: v.clone() for k, v in model.state_dict().items()})
     return out
+
+
+def _run_width_offset(workdir):
+    import torch
+    import torch.distributed as dist
+
+    from nlspn_eccv20_tpu_torch.config import Config
+    from nlspn_eccv20_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    torch.set_num_threads(1)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    assert maybe_initialize_distributed(Config(platform="cpu"))
+    r, world = dist.get_rank(), dist.get_world_size()
+    space = world if world < 4 else 2
+    res = {"world": world, "backend": dist.get_backend(), "cases": {}, "float64": {}}
+    for name, case in inp["cases"].items():
+        if world in case["worlds"]:
+            case = dict(case, cfg=dict(case["cfg"], num_spatial_shards=space))
+            res["cases"][name] = _width_case(case, r)
+    if world == 2:
+        for name, case in inp["float64"].items():
+            res["float64"][name] = float64_step(dict(case["cfg"], num_spatial_shards=2),
+                                                case["state_dict"], case["batch"])
+    torch.save(res, os.path.join(workdir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+
+
+def _run_offset_one(workdir):
+    """The one-process references of the ``width_offset`` tests: the f32
+    and bf16 steps of the bf16 case and the float64 steps."""
+    import torch
+
+    torch.set_num_threads(2)
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    bf16 = inp["cases"]["bf16"]
+    res = {"bf16": {p: _one_step(dict(bf16["cfg"], precision=p), bf16["state_dict"],
+                                 bf16["batch"]) for p in ("f32", "bf16")},
+           "float64": {name: float64_step(case["cfg"], case["state_dict"], case["batch"])
+                       for name, case in inp["float64"].items()}}
+    torch.save(res, os.path.join(workdir, "one.pt"))
 
 
 def float64_step(cfg_kw, state_dict, batch):
@@ -346,13 +397,13 @@ def float64_step(cfg_kw, state_dict, batch):
         loss = eng.train_step(eng.put_train_batch(batch))["loss"]
     finally:
         torch.Tensor.float = saved
-    return {"loss": loss, "grads": {n: p.grad.clone() for n, p in model.named_parameters()
-                                    if p.grad is not None}}
+    return {"loss": loss, "route": model.offset_route,
+            "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None}}
 
 
 def _width_refusals(inp, world):
-    """The ``ValueError`` of a strip without a column and of ``offset``
-    under width shards."""
+    """The ``ValueError`` of a strip without a column."""
     import numpy as np
 
     from nlspn_eccv20_tpu_torch.config import Config
@@ -363,8 +414,7 @@ def _width_refusals(inp, world):
     eng = Engine(Config(**base), device="cpu")
     narrow = {k: np.zeros((1, 16, 8, c), np.float32) for k, c in
               (("rgb", 3), ("dep", 1), ("gt", 1))}
-    for name, fn in (("no_column", lambda: eng.put_train_batch(narrow)),
-                     ("offset", lambda: Engine(Config(**base, offset=True), device="cpu"))):
+    for name, fn in (("no_column", lambda: eng.put_train_batch(narrow)),):
         try:
             fn()
             out[name] = None
@@ -483,5 +533,9 @@ if __name__ == "__main__":
         _run_width(workdir)
     elif job == "one":
         _run_one(workdir)
+    elif job == "width_offset":
+        _run_width_offset(workdir)
+    elif job == "offset_one":
+        _run_offset_one(workdir)
     else:
         raise SystemExit(f"unknown job {job}")
