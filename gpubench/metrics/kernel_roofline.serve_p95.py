@@ -1,0 +1,7 @@
+"""The port's kernels' share of their roofline in a request: the sum over their
+calls of each call's bound (``roofline.ops_of_step``) over their device
+time, read over requests sent back to back after the window."""
+
+
+def read(r):
+    return r.kernel_roofline()
